@@ -8,7 +8,10 @@ setup(
     description='TPU-native ego-centric 3D visual grounding '
                 '(ProxyTransformation / EmbodiedScan re-designed for '
                 'JAX/XLA/Pallas)',
+    # proxytransformation_torch is the PyTorch/CUDA port (needs torch;
+    # its CUDA kernels build from proxytransformation_torch/csrc with nvcc)
     packages=find_packages(exclude=('tests', 'tools', 'configs')),
+    package_data={'proxytransformation_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'scipy',
@@ -17,5 +20,6 @@ setup(
         'data': ['opencv-python', 'pillow'],
         'visual': ['matplotlib', 'open3d'],
         'text': ['transformers'],
+        'torch': ['torch'],
     },
 )
