@@ -1,7 +1,8 @@
 """Device selection for the port's entry points."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -22,8 +23,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def disable_tf32() -> None:
-    """Full float32 matmuls and convolutions (cuDNN allows TF32 by
-    default, which keeps about three decimal digits)."""
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Full float32 matmuls and convolutions inside the block (cuDNN
+    allows TF32 by default, which keeps about three decimal digits); the
+    caller's TF32 settings come back on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

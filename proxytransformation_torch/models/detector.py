@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import full_float32, resolve_device
 from ..ops.sparse import topk_stable, voxelize_points
 from .decoder import SparseFeatureFusionTransformerDecoder
 from .grounding_head import GroundingHead
@@ -165,14 +165,16 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Predict: {'bboxes_3d' (B,Q,9), 'scores_3d' (B,Q),
-        'query_mask' (B,Q)}."""
-        text_mask = batch['text_mask']
-        text_feats = self.encode_text(batch['input_ids'], text_mask)
-        feats, _, xyz, feats_mask = self.extract_feat(batch, text_feats)
-        hidden, all_boxes, query_mask = self.forward_transformer(
-            feats, xyz, feats_mask, text_feats, text_mask)
-        boxes, scores = self.bbox_head.predict(hidden, all_boxes, text_feats,
-                                               text_mask, query_mask)
+        'query_mask' (B,Q)}, in full float32 whatever the caller's TF32
+        settings."""
+        with full_float32():
+            text_mask = batch['text_mask']
+            text_feats = self.encode_text(batch['input_ids'], text_mask)
+            feats, _, xyz, feats_mask = self.extract_feat(batch, text_feats)
+            hidden, all_boxes, query_mask = self.forward_transformer(
+                feats, xyz, feats_mask, text_feats, text_mask)
+            boxes, scores = self.bbox_head.predict(
+                hidden, all_boxes, text_feats, text_mask, query_mask)
         return {'bboxes_3d': boxes, 'scores_3d': scores,
                 'query_mask': query_mask}
 

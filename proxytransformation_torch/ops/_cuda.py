@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
 Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into its own
-shared library with a plain C interface, `build/torch_kernels/lib<name>.so`
-beside the package, and is loaded with ctypes. Nothing is compiled or
-loaded when a module is imported: the first launch builds what is
-missing, or `build()` does it up front, one nvcc per source, all started
-together.
+shared library with a plain C interface,
+`build/torch_kernels/lib<name>-<key>.so` beside the package, and is loaded
+with ctypes. The key hashes the nvcc flags and the text of the source and
+of every `csrc/*.cuh`, so a change to either builds a new library. Nothing
+is compiled or loaded when a module is imported: the first launch builds
+what is missing, or `build()` does it up front, one nvcc per source, all
+started together.
 
 Every C entry point takes device pointers and PyTorch's current stream,
 launches on that stream, does not synchronise, and returns
@@ -14,6 +16,7 @@ launches on that stream, does not synchronise, and returns
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -50,25 +53,25 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> List[str]:
+    return ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+            '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+            *_EXTRA_FLAGS.get(name, [])]
+
+
 def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f'lib{name}.so'
-
-
-def _stale(name: str) -> bool:
-    lib = _lib_path(name)
-    if not lib.exists():
-        return True
-    newest = max(p.stat().st_mtime
-                 for p in [CSRC_DIR / f'{name}.cu', *CSRC_DIR.glob('*.cuh')])
-    return lib.stat().st_mtime < newest
+    key = hashlib.sha256(' '.join(_flags(name)).encode())
+    for src in [CSRC_DIR / f'{name}.cu', *sorted(CSRC_DIR.glob('*.cuh'))]:
+        key.update(src.read_bytes())
+    return BUILD_DIR / f'lib{name}-{key.hexdigest()[:16]}.so'
 
 
 def build(names: Iterable[str] = SOURCES) -> List[str]:
-    """Compile the stale kernel libraries in parallel; return nvcc's
+    """Compile the missing kernel libraries in parallel; return nvcc's
     output per source (registers, shared memory and spills from
     `-Xptxas -v`). Raises with the compiler's output on failure."""
     with _lock:
-        todo = [n for n in names if _stale(n)]
+        todo = [n for n in names if not _lib_path(n).exists()]
         if not todo:
             return []
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,10 +79,8 @@ def build(names: Iterable[str] = SOURCES) -> List[str]:
         procs = []
         for name in todo:
             tmp = BUILD_DIR / f'lib{name}.{os.getpid()}.tmp'
-            cmd = [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
-                   '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-                   '-Xptxas', '-v', *_EXTRA_FLAGS.get(name, []),
-                   '-o', str(tmp), str(CSRC_DIR / f'{name}.cu')]
+            cmd = [nvcc, *_flags(name), '-o', str(tmp),
+                   str(CSRC_DIR / f'{name}.cu')]
             procs.append((name, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

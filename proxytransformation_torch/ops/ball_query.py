@@ -21,6 +21,8 @@ BALL_QUERY = _cuda.CudaKernel(
      _cuda.i32, _cuda.f32, _cuda.ptr, _cuda.ptr],
     source='proxytransformation_torch/csrc/ball_query.cu',
     replaces='proxytransformation_tpu/ops/ball_query_pallas.py:100')
+# points per step of the plain version: bounds its (B, M, chunk) temporaries
+_PLAIN_CHUNK = 2048
 
 
 def radius_squared(radius: float) -> float:
@@ -30,8 +32,8 @@ def radius_squared(radius: float) -> float:
 
 
 def ball_query_idx_plain(centers: torch.Tensor, points: torch.Tensor,
-                         points_mask: torch.Tensor, radius2: float, K: int,
-                         chunk: int = 2048) -> torch.Tensor:
+                         points_mask: torch.Tensor, radius2: float,
+                         K: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel (reference `_ball_query_idx`).
 
     Streams the points in chunks and keeps the K smallest in-radius
@@ -43,9 +45,9 @@ def ball_query_idx_plain(centers: torch.Tensor, points: torch.Tensor,
     sentinel = N
     best = torch.full((B, M, K), sentinel, dtype=torch.int64,
                       device=centers.device)
-    for s in range(0, N, chunk):
-        pts = points[:, s:s + chunk]
-        msk = points_mask[:, s:s + chunk]
+    for s in range(0, N, _PLAIN_CHUNK):
+        pts = points[:, s:s + _PLAIN_CHUNK]
+        msk = points_mask[:, s:s + _PLAIN_CHUNK]
         dx = pts[:, None, :, 0] - centers[:, :, None, 0]
         dy = pts[:, None, :, 1] - centers[:, :, None, 1]
         dz = pts[:, None, :, 2] - centers[:, :, None, 2]

@@ -9,10 +9,13 @@ has no JAX; there, skip the JAX-pinning conftest:
 Ball query and the lookups must be bit-exact; the sparse conv within
 |k - p| <= 1e-4 * (1 + max|p|) (float32 sums in another order).
 """
+import numpy as np
 import pytest
 import torch
 
-from proxytransformation_torch.device import disable_tf32
+from proxytransformation_torch.device import full_float32
+from proxytransformation_torch.models.detector import (
+    SparseFeatureFusion3DGrounderPreshape, batch_to_device)
 from proxytransformation_torch.ops import ball_query as bq
 from proxytransformation_torch.ops import sparse as sp
 
@@ -25,8 +28,8 @@ def gen():
         pytest.skip('needs an NVIDIA GPU with nvcc (CUDA kernels have no '
                     'CPU mode; their plain versions are tested against JAX '
                     'in test_torch_port_ops.py)')
-    disable_tf32()
-    return torch.Generator(device='cuda').manual_seed(0)
+    with full_float32():
+        yield torch.Generator(device='cuda').manual_seed(0)
 
 
 @pytest.mark.parametrize('B,M,N,K,radius', [(2, 300, 5000, 30, 0.7),
@@ -84,3 +87,48 @@ def test_sparse_conv_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
     tol = 1e-4 * (1.0 + float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
     assert torch.all(got[~out_mask] == 0)
+
+
+def _tiny_grounder_and_batch():
+    model = SparseFeatureFusion3DGrounderPreshape(
+        num_queries=16, voxel_size=0.05, n_points=1024, img_base_channels=4,
+        text_width=64, text_layers=2, text_heads=4, grid_size=4,
+        text_blocks=1, img_blocks=1, dynamic_drop_radio=0.5, num_sub=8,
+        backbone3d_depth=14, sparse_capacities=(1024, 800, 512, 256, 128, 64),
+        voxel_extent=(128, 128, 128), neck_out_channels=64,
+        pts_prune_threshold=64, decoder_layers=2, embed_dims=64, num_heads=4,
+        ffn_channels=128, img_spacial_dim=2, max_text_len=64,
+        device='cuda').random_init_(1)
+    rng = np.random.RandomState(1)
+    B, V, H, W, N, L = 2, 2, 64, 64, 1024, 8
+    proj = np.tile(np.array([[50, 0, W / 2, 0], [0, 50, H / 2, 0],
+                             [0, 0, 1, 0], [0, 0, 0, 1]], np.float32),
+                   (B, V, 1, 1))
+    batch = {
+        'imgs': rng.randn(B, V, H, W, 3).astype(np.float32),
+        'points': rng.uniform(0, 3.0, (B, N, 3)).astype(np.float32),
+        'points_mask': np.ones((B, N), bool),
+        'input_ids': rng.randint(0, 49408, (B, L)).astype(np.int32),
+        'text_mask': np.arange(L)[None].repeat(B, 0) < L - 2,
+        'proj_mats': proj, 'views_mask': np.ones((B, V), bool)}
+    return model, batch_to_device(batch, 'cuda')
+
+
+def test_predict_ignores_callers_tf32(gen):
+    """With the caller's TF32 flags on, predict gives exactly what it
+    gives with them off, and leaves them on."""
+    model, batch = _tiny_grounder_and_batch()
+    want = model(batch)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = (True, True)
+        got = model(batch)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    for k in ('bboxes_3d', 'scores_3d', 'query_mask'):
+        assert torch.equal(got[k], want[k]), k

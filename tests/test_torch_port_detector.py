@@ -154,6 +154,37 @@ def test_entry_point_device_rule():
     assert TGrounder(**TINY, device='cpu').device.type == 'cpu'
 
 
+def tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def test_predict_turns_tf32_off():
+    """The model owns its precision: with the caller's TF32 flags on,
+    every stage of predict runs with both off, and the caller's flags
+    come back after it."""
+    port = TGrounder(**TINY, device='cpu')
+    port.load_state_dict({k: torch.from_numpy(v)
+                          for k, v in tiny_state_dict(seed=5).items()})
+    seen = []
+    for stage in (port.backbone, port.text_encoder, port.backbone_3d,
+                  port.decoder):
+        stage.register_forward_pre_hook(lambda m, a: seen.append(tf32_flags()))
+    batch = {k: np.asarray(v) for k, v in
+             tiny_batch(np.random.RandomState(2)).items()
+             if k in PREDICT_KEYS}
+    saved = tf32_flags()
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = (True, True)
+        port(batch_to_device(batch, 'cpu'))
+        assert tf32_flags() == (True, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert seen and all(flags == (False, False) for flags in seen)
+
+
 def parity_report() -> None:
     """Print the slice's parity errors (port vs JAX package, CPU)."""
     want, got, jneck, tneck = run_both()

@@ -365,15 +365,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 # TF32 and the port's own copy of the synthetic scenes
 # --------------------------------------------------------------------------
 def test_disable_tf32_sets_both_flags():
-    from proxytransformation_torch.device import disable_tf32
+    from proxytransformation_torch.device import full_float32
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
-        disable_tf32()
-        assert not torch.backends.cuda.matmul.allow_tf32
-        assert not torch.backends.cudnn.allow_tf32
+        with full_float32():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
