@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero before the final line):
   1. device: the card's name and power limit, torch version, TF32 off;
   2. build: every CUDA kernel from `proxytransformation_torch/csrc`
-     with nvcc for sm_90a, all sources at once;
+     with nvcc for sm_90a, one nvcc per source, all started together;
   3. capture: one flagship predict request at full width (seeded random
      weights) records the inputs of every kernel call on the main path;
   4. kernels: each captured call runs through the kernel and its plain
@@ -21,7 +21,22 @@ Phases (any failure exits non-zero before the final line):
      must have launched, by the captured count per request; then the
      device time per stage of one more request;
   6. small input: the tiny grounder on the card against the port's CPU
-     path (plain versions) on the same weights and batch.
+     path (plain versions) on the same weights and batch;
+  7. train capture (grad mode): one full-width B=2 loss and backward
+     (flagship targets: 8 gt boxes a sample) records the inputs of every
+     kernel call; each dW and dfeats call is held against its plain
+     version within the sparse conv's tolerance, and the whole conv
+     autograd.Function against autograd of the plain conv at the stem,
+     a strided conv and a neck conv over a pruned level;
+  8. train main path: launch counts reset to 0, three AdamW steps
+     (batches and dropout seeds 0, 1, 2): finite losses and grad norm,
+     frozen parameters unchanged bit for bit, every trainable group
+     changed, every kernel launched its captured count x 3; step times
+     and peak memory;
+  9. probes off the main path: the conv kernel on sorted random maps
+     without column structure (TPU kernel `sparse_conv_gather_gemm`),
+     and the row-gather probe (bit-exact against `table[idx]`, timed
+     against `torch.index_select`).
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, the one before it the kernels' JSON; the last
@@ -34,6 +49,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -66,10 +82,11 @@ def nvidia_smi_line() -> str:
 # capture of the kernel calls on the main path
 # --------------------------------------------------------------------------
 def install_capture(calls):
-    """Wrap the CUDA wrappers the dispatchers call, recording inputs."""
+    """Wrap the CUDA wrappers the dispatchers call, recording inputs;
+    'conv_fn' records the sparse conv autograd.Function's inputs."""
     from proxytransformation_torch.ops import ball_query as bq
     from proxytransformation_torch.ops import sparse as sp
-    originals = {}
+    originals = {(sp, '_SparseConvFn'): sp._SparseConvFn}
 
     def wrap(module, attr, kernel):
         fn = getattr(module, attr)
@@ -85,6 +102,16 @@ def install_capture(calls):
     wrap(sp, 'lookup_pmz_cuda', 'lookup_pmz')
     wrap(sp, 'lookup_center_cuda', 'lookup_center')
     wrap(sp, 'sparse_conv_cuda', 'sparse_conv')
+    wrap(sp, 'sparse_conv_dfeats_cuda', 'sparse_conv_dfeats')
+    wrap(sp, 'sparse_conv_dw_cuda', 'sparse_conv_dw')
+
+    def recorded_apply(*args):
+        calls.setdefault('conv_fn', []).append(args)
+        return originals[(sp, '_SparseConvFn')].apply(*args)
+
+    # a namespace, not a class: a class sits in a reference cycle and
+    # would hold the captured tensors until the garbage collector runs
+    sp._SparseConvFn = types.SimpleNamespace(apply=recorded_apply)
 
     def restore():
         for (module, attr), fn in originals.items():
@@ -252,6 +279,153 @@ def check_sparse_conv(calls):
     return rows
 
 
+def check_sparse_conv_dfeats(calls):
+    """The forward kernel launched by the backward: a conv of the output
+    gradient over the mirrored (self) or reversed (strided) map."""
+    from proxytransformation_torch.ops import sparse as sp
+    rows = []
+    for i, (g, nbr, w, mask) in enumerate(calls):
+        got = sp.sparse_conv_dfeats_cuda(g, nbr, w, mask)
+        want = sp.sparse_conv_apply(g, nbr, w, mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = CONV_RTOL * (1.0 + float(want.abs().max()))
+        require(err <= tol, f'dfeats {tuple(g.shape)} -> {tuple(got.shape)}'
+                f': max err {err} > {tol}')
+        B, V_g, C_out = g.shape
+        V_in, K3 = nbr.shape[1:]
+        hits = float((nbr >= 0).sum())
+        rows.append(dict(
+            shape=f'B={B} V_g={V_g} V_in={V_in} K3={K3} C_out={C_out} '
+                  f'C_in={w.shape[-1]}', max_abs_err=err,
+            ms=time_ms(f'sparse_conv_dfeats {i}',
+                       lambda: sp.sparse_conv_dfeats_cuda(g, nbr, w, mask)),
+            plain_ms=time_ms(f'sparse_conv_dfeats plain {i}',
+                             lambda: sp.sparse_conv_apply(g, nbr, w, mask)),
+            library_ms=None, bytes=nbytes(g, nbr, w, mask, got),
+            ops=2.0 * hits * C_out * w.shape[-1]))
+    return rows
+
+
+def check_sparse_conv_dw(calls):
+    from proxytransformation_torch.ops import sparse as sp
+    rows = []
+    for i, (feats, nbr, g) in enumerate(calls):
+        got = sp.sparse_conv_dw_cuda(feats, nbr, g)
+        want = sp.sparse_conv_dw_plain(feats, nbr, g)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = CONV_RTOL * (1.0 + float(want.abs().max()))
+        require(err <= tol, f'dW {tuple(feats.shape)} x {tuple(g.shape)}: '
+                f'max err {err} > {tol}')
+        require(torch.equal(sp.sparse_conv_dw_cuda(feats, nbr, g), got),
+                'dW differs between two runs')
+        B, V_in, C_in = feats.shape
+        V_out, K3 = nbr.shape[1:]
+        C_out = g.shape[-1]
+        hits = float((nbr >= 0).sum())
+        rows.append(dict(
+            shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
+                  f'C_out={C_out} splits={sp.dw_splits(B * V_out, K3, C_in, C_out)}',
+            max_abs_err=err,
+            ms=time_ms(f'sparse_conv_dw {i}',
+                       lambda: sp.sparse_conv_dw_cuda(feats, nbr, g)),
+            plain_ms=time_ms(f'sparse_conv_dw plain {i}',
+                             lambda: sp.sparse_conv_dw_plain(feats, nbr, g)),
+            library_ms=None, bytes=nbytes(feats, nbr, g, got),
+            ops=2.0 * hits * C_in * C_out))
+    return rows
+
+
+def check_conv_autograd(calls) -> list:
+    """The conv autograd.Function (kernels) against autograd of the
+    plain conv at the stem, a strided stage conv and the last neck conv
+    (a level pruned and compacted to its top voxels), on a seeded
+    random output cotangent."""
+    from proxytransformation_torch.ops import sparse as sp
+    strided = [c for c in calls if not c[4] and c[0].shape[-1] >= 64]
+    picks = {'stem': calls[0], 'strided': strided[0],
+             'neck': [c for c in calls if c[4]][-1]}
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    out = []
+    for name, (feats, nbr, w, mask, self_map) in picks.items():
+        cot = torch.randn((feats.shape[0], nbr.shape[1], w.shape[-1]),
+                          device='cuda', generator=gen)
+        grads = []
+        for conv in (lambda f, k: sp.sparse_conv(f, nbr, k, mask, self_map),
+                     lambda f, k: sp.sparse_conv_apply(f, nbr, k, mask)):
+            f = feats.detach().clone().requires_grad_()
+            k = w.detach().clone().requires_grad_()
+            (conv(f, k) * cot).sum().backward()
+            grads.append((f.grad, k.grad))
+        for what, got, want in zip(('dfeats', 'dW'), *grads):
+            err = float((got - want).abs().max())
+            tol = CONV_RTOL * (1.0 + float(want.abs().max()))
+            require(err <= tol, f'conv backward at the {name} conv: {what} '
+                    f'max err {err} > {tol}')
+            out.append(dict(conv=name, grad=what, shape=tuple(feats.shape),
+                            self_map=self_map, max_abs_err=err, tol=tol))
+    return out
+
+
+def check_any_map_conv():
+    """TPU kernel `sparse_conv_gather_gemm` (one window over all
+    offsets, any map): the conv kernel on the sorted random maps of
+    tests/test_sparse_conv_pallas.py::_synthetic, at its K3 > 1 shapes."""
+    from proxytransformation_torch.ops import sparse as sp
+    rows = []
+    for Ci, Co, K3 in ((3, 7, 27), (16, 150, 27), (64, 64, 8),
+                       (300, 520, 27)):
+        rng = np.random.RandomState(Ci + Co)
+        B, Vi, Vo = 2, 700, 300
+        feats = torch.tensor(rng.randn(B, Vi, Ci).astype(np.float32),
+                             device='cuda')
+        nbr = np.sort(rng.randint(0, Vi, (B, Vo, K3)), axis=1)
+        nbr = np.where(rng.rand(B, Vo, K3) < 0.4, -1, nbr)
+        nbr = torch.tensor(nbr.astype(np.int32), device='cuda')
+        w = torch.tensor((rng.randn(K3, Ci, Co) * 0.1).astype(np.float32),
+                         device='cuda')
+        mask = torch.tensor(rng.rand(B, Vo) < 0.9, device='cuda')
+        got = sp.sparse_conv_cuda(feats, nbr, w, mask)
+        want = sp.sparse_conv_apply(feats, nbr, w, mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = CONV_RTOL * (1.0 + float(want.abs().max()))
+        require(err <= tol, f'any-map conv {Ci}->{Co} K3={K3}: max err '
+                f'{err} > {tol}')
+        hits = float((nbr >= 0).sum())
+        rows.append(dict(
+            shape=f'B={B} V_in={Vi} V_out={Vo} K3={K3} C_in={Ci} C_out={Co}',
+            max_abs_err=err,
+            ms=time_ms(f'any-map conv {Ci}',
+                       lambda: sp.sparse_conv_cuda(feats, nbr, w, mask)),
+            plain_ms=time_ms(f'any-map conv plain {Ci}',
+                             lambda: sp.sparse_conv_apply(feats, nbr, w,
+                                                          mask)),
+            library_ms=None, bytes=nbytes(feats, nbr, w, mask, got),
+            ops=2.0 * hits * Ci * Co))
+    return rows
+
+
+def check_row_gather():
+    from proxytransformation_torch.tools import gather_probe as gp
+    table, idx = gp.probe_inputs('cuda')
+    got = gp.row_gather_cuda(table, idx)
+    require(torch.equal(got, gp.row_gather_plain(table, idx)),
+            'row gather differs from table[idx]')
+    lidx = idx.long()
+    return [dict(
+        shape=f'table={tuple(table.shape)} idx={tuple(idx.shape)}',
+        max_abs_err=0,
+        ms=time_ms('row_gather', lambda: gp.row_gather_cuda(table, idx)),
+        plain_ms=time_ms('row_gather plain',
+                         lambda: gp.row_gather_plain(table, idx)),
+        library_ms=time_ms('row_gather library',
+                           lambda: torch.index_select(table, 0, lidx)),
+        # each gathered row read once, the indices, the output
+        bytes=2 * nbytes(got) + nbytes(idx), ops=0.0)]
+
+
 def bound(byts: float, ops: float):
     """(ms, what bounds it): the bytes over the memory rate or the float32
     operations over the peak rate, whichever takes longer."""
@@ -260,10 +434,13 @@ def bound(byts: float, ops: float):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def summarize(name, rows, launches):
-    """The kernel's entry of the kernels line: a request's calls summed."""
+def summarize(name, rows, launches, per_train_step, kernel=None,
+              replaces=None):
+    """The kernel's entry of the kernels line: one request's (or train
+    step's) calls summed; `kernel` names the CudaKernel of an entry that
+    is another use of one."""
     from proxytransformation_torch.ops import _cuda
-    k = _cuda.KERNELS[name]
+    k = _cuda.KERNELS[kernel or name]
     for r in rows:
         r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['ops'])
     bound_ms, bound_by = bound(sum(r['bytes'] for r in rows),
@@ -271,13 +448,13 @@ def summarize(name, rows, launches):
     lib = [r['library_ms'] for r in rows]
     return {
         'name': name, 'route': 'cuda', 'source': k.source,
-        'replaces': k.replaces, 'launches': launches,
+        'replaces': replaces or k.replaces, 'launches': launches,
         'max_abs_err': max(r['max_abs_err'] for r in rows),
         'ms': sum(r['ms'] for r in rows),
         'plain_ms': sum(r['plain_ms'] for r in rows),
         'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None if None in lib else sum(lib),
-        'calls_per_request': len(rows),
+        'calls_checked': len(rows), 'launches_per_train_step': per_train_step,
     }
 
 
@@ -287,14 +464,13 @@ def main() -> int:
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 2
     from proxytransformation_torch.device import full_float32
-    with torch.no_grad(), full_float32():
+    with full_float32():
         return run()
 
 
 def run() -> int:
-    from proxytransformation_torch.data.synthetic import flagship_batch
     from proxytransformation_torch.models.detector import (
-        SparseFeatureFusion3DGrounderPreshape, batch_to_device)
+        SparseFeatureFusion3DGrounderPreshape)
     from proxytransformation_torch.ops import _cuda
 
     t_start = time.perf_counter()
@@ -320,31 +496,89 @@ def run() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f'[model] flagship grounder, {n_params} parameters, built in '
         f'{time.perf_counter() - t0:.1f} s')
+    with torch.no_grad():
+        predict = predict_phases(model, dev)
+
+    # 7-8. the train path, in grad mode
+    train = train_phases(model, dev)
+
+    # 9. probes off the main path
+    probe_rows = {'sparse_conv_anymap': check_any_map_conv(),
+                  'row_gather': check_row_gather()}
+    log('[probe] any-map conv and row gather match their plain versions')
+
+    rows = {**predict['rows'], **train['rows'], **probe_rows}
+    counts = {**predict['counts'],
+              **{k: train['counts'][k] for k in TRAIN_ONLY}}
+    kernels = [summarize(name, rows[name], counts[name],
+                         train['per_step'].get(name, 0))
+               for name in (*PREDICT_KERNELS, *TRAIN_ONLY)]
+    kernels.append(summarize('sparse_conv_anymap', probe_rows[
+        'sparse_conv_anymap'], counts['sparse_conv'],
+        train['per_step']['sparse_conv'], kernel='sparse_conv',
+        replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:177'))
+    kernels.append(summarize('row_gather', probe_rows['row_gather'], 0, 0))
+    log(f'[kernel] timings the spin could not hide host time from: '
+        f'{NOT_HIDDEN}')
+    detail = {'device': smi, 'torch': torch.__version__,
+              'request_ms': predict['req_ms'], 'peak_gib': predict['peak'],
+              'stage_ms': predict['stages'], 'train': train['summary'],
+              'conv_autograd': train['conv_autograd'],
+              'kernels': kernels, 'host_time_not_hidden': NOT_HIDDEN,
+              'calls': rows, 'seconds': time.perf_counter() - t_start}
+    out_dir = Path(__file__).resolve().parent / 'chiprun_out'
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / 'chip_smoke.json').write_text(json.dumps(detail, indent=1))
+    log(f'[done] {time.perf_counter() - t_start:.1f} s')
+    print(json.dumps({'kernels': kernels}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+PREDICT_KERNELS = ('ball_query', 'lookup_pmz', 'lookup_center',
+                   'sparse_conv')
+TRAIN_ONLY = ('sparse_conv_dfeats', 'sparse_conv_dw')
+CHECKS = {'ball_query': check_ball_query, 'lookup_pmz': check_lookup_pmz,
+          'lookup_center': check_lookup_center,
+          'sparse_conv': check_sparse_conv,
+          'sparse_conv_dfeats': check_sparse_conv_dfeats,
+          'sparse_conv_dw': check_sparse_conv_dw}
+
+
+def check_calls(calls, names):
+    rows = {}
+    for name in names:
+        t0 = time.perf_counter()
+        rows[name] = CHECKS[name](calls[name])
+        log(f'[kernel] {name}: {len(rows[name])} calls match their plain '
+            f'version ({time.perf_counter() - t0:.1f} s)')
+    return rows
+
+
+def predict_phases(model, dev):
+    """Phases 3-6: capture, kernel checks, three requests, stages, the
+    small input."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.ops import _cuda
     batch = batch_to_device(flagship_batch(seed=0), dev)
     calls = {}
     restore = install_capture(calls)
-    out = model(batch)
+    model(batch)
     torch.cuda.synchronize()
     restore()
-    per_request = {k: len(v) for k, v in calls.items()}
+    per_request = {k: len(calls.get(k, ())) for k in PREDICT_KERNELS}
     log(f'[capture] kernel calls per request: {per_request}')
-    for name in _cuda.KERNELS:
-        require(per_request.get(name, 0) > 0,
-                f'kernel {name} is not on the main path')
+    for name in PREDICT_KERNELS:
+        require(per_request[name] > 0,
+                f'kernel {name} is not on the predict path')
 
     # 4. kernels against their plain versions
-    checks = {'ball_query': check_ball_query, 'lookup_pmz': check_lookup_pmz,
-              'lookup_center': check_lookup_center,
-              'sparse_conv': check_sparse_conv}
-    rows = {}
-    for name, fn in checks.items():
-        t0 = time.perf_counter()
-        rows[name] = fn(calls[name])
-        log(f'[kernel] {name}: {len(rows[name])} calls match their plain '
-            f'version ({time.perf_counter() - t0:.1f} s)')
+    rows = check_calls(calls, PREDICT_KERNELS)
     del calls
-    log(f'[kernel] timings the spin could not hide host time from: '
-        f'{NOT_HIDDEN}')
 
     # 5. the main path: three requests, counts from 0
     _cuda.reset_launch_counts()
@@ -379,6 +613,8 @@ def run() -> int:
     for name, n in per_request.items():
         require(counts[name] == n * n_req,
                 f'{name}: {counts[name]} launches, expected {n} x {n_req}')
+    for name in TRAIN_ONLY:
+        require(counts[name] == 0, f'{name} launched in predict')
 
     stages = stage_breakdown(model, batch)
     log('[stages] device ms of one request: ' + ', '.join(
@@ -386,23 +622,96 @@ def run() -> int:
 
     # 6. small input: the card against the port's CPU path
     small_input_check()
+    return dict(rows=rows, counts=counts, req_ms=req_ms, peak=peak,
+                stages=stages)
 
-    kernels = [summarize(name, rows[name], counts[name]) for name in checks]
-    detail = {'device': smi, 'torch': torch.__version__,
-              'request_ms': req_ms, 'peak_gib': peak, 'stage_ms': stages,
-              'kernels': kernels, 'host_time_not_hidden': NOT_HIDDEN,
-              'calls': {k: v for k, v in rows.items()},
-              'seconds': time.perf_counter() - t_start}
-    out_dir = Path(__file__).resolve().parent / 'chiprun_out'
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / 'chip_smoke.json').write_text(json.dumps(detail, indent=1))
-    log(f'[done] {time.perf_counter() - t_start:.1f} s')
-    print(json.dumps({'kernels': kernels}))
-    print(smi)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
-    return 0
+
+def train_phases(model, dev):
+    """Phases 7-8: capture one train step's kernel calls and hold them
+    against their plain versions, then three AdamW steps."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.engine.train import (
+        build_optimizer, make_train_step, param_label)
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.ops import _cuda
+
+    def train_batch(seed):
+        return batch_to_device(flagship_batch(seed=seed, with_targets=True),
+                               dev)
+
+    # 7. capture one loss and backward
+    calls = {}
+    restore = install_capture(calls)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = model.loss(train_batch(0), gen)
+    sum(losses[k] for k in sorted(losses)).backward()
+    torch.cuda.synchronize()
+    restore()
+    model.zero_grad(set_to_none=True)
+    del losses
+    names = (*PREDICT_KERNELS, *TRAIN_ONLY)
+    per_step = {k: len(calls.get(k, ())) for k in names}
+    log(f'[train capture] kernel calls per train step: {per_step}')
+    for name in names:
+        require(per_step[name] > 0, f'kernel {name} is not on the train path')
+    with torch.no_grad():
+        rows = check_calls(calls, TRAIN_ONLY)
+    conv_autograd = check_conv_autograd(calls['conv_fn'])
+    log('[train capture] conv autograd.Function vs plain autograd: ' +
+        ', '.join(f'{r["conv"]} {r["grad"]} {r["max_abs_err"]:.3g}'
+                  for r in conv_autograd))
+    del calls
+
+    # 8. three AdamW steps, counts from 0
+    opt = build_optimizer(model)
+    step = make_train_step(model, opt)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if param_label(n) == 'frozen'}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if param_label(n) != 'frozen'}
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps, step_ms, host_ms, step_losses = 3, [], [], []
+    for s in range(n_steps):
+        batch = train_batch(s)
+        gen = torch.Generator(device=dev).manual_seed(s)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        m = {k: float(v) for k, v in metrics.items()}
+        for k, v in m.items():
+            require(np.isfinite(v), f'train step {s}: non-finite {k}')
+        step_losses.append(m)
+        log(f'[train step {s}] {step_ms[-1]:.1f} ms on the card '
+            f'({host_ms[-1]:.1f} ms host), total_loss '
+            f'{m["total_loss"]:.6f}, grad_norm {m["grad_norm"]:.6f}, '
+            f'loss_cls {m["loss_cls"]:.6f}, loss_bbox {m["loss_bbox"]:.6f}')
+    counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'[train main path] launches in {n_steps} steps: {counts}; peak '
+        f'memory {peak:.2f} GiB')
+    for name, n in per_step.items():
+        require(counts[name] == n * n_steps,
+                f'{name}: {counts[name]} launches, expected {n} x {n_steps}')
+    params = dict(model.named_parameters())
+    require(all(torch.equal(params[n], p) for n, p in frozen.items()),
+            'a frozen parameter changed')
+    for group in ('default', 'decoder'):
+        changed = [n for n, p in before.items() if param_label(n) == group
+                   and not torch.equal(params[n], p)]
+        require(changed, f'no parameter of group {group} changed')
+    summary = dict(step_ms=step_ms, host_ms=host_ms, losses=step_losses,
+                   peak_gib=peak, per_step=per_step,
+                   frozen_tensors=len(frozen))
+    return dict(rows=rows, counts=counts, per_step=per_step,
+                conv_autograd=conv_autograd, summary=summary)
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

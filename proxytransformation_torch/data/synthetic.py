@@ -69,15 +69,19 @@ def surface_scene_batch(batch: int, n_points: int, seed: int = 0,
 
 def flagship_batch(B: int = 2, n_points: int = 100_000, V: int = 20,
                    H: int = 480, W: int = 480, L: int = 32,
-                   seed: int = 0) -> dict:
-    """A predict request at the flagship benchmark's shapes: surface
-    scenes, random images, a pinhole projection per view, random token
-    ids (numpy arrays; see `models.detector.batch_to_device`)."""
+                   seed: int = 0, with_targets: bool = False) -> dict:
+    """A request at the flagship benchmark's shapes: surface scenes,
+    random images, a pinhole projection per view, random token ids (numpy
+    arrays; see `models.detector.batch_to_device`). `with_targets` adds
+    the train step's synthetic targets of bench.py::_flagship_batch: 8 gt
+    boxes per sample (centers in [1, 5), sizes in [0.3, 1.5), angles in
+    [-0.5, 0.5)), all valid, each positive at token 1 of the flagship's
+    256."""
     rng = np.random.RandomState(seed)
     proj = np.tile(np.array([[400, 0, W / 2, 0], [0, 400, H / 2, 0],
                              [0, 0, 1, 0], [0, 0, 0, 1]], np.float32),
                    (B, V, 1, 1))
-    return {
+    batch = {
         'imgs': rng.randn(B, V, H, W, 3).astype(np.float32),
         'points': surface_scene_batch(B, n_points, seed=seed),
         'points_mask': np.ones((B, n_points), bool),
@@ -86,3 +90,14 @@ def flagship_batch(B: int = 2, n_points: int = 100_000, V: int = 20,
         'proj_mats': proj,
         'views_mask': np.ones((B, V), bool),
     }
+    if with_targets:
+        G = 8
+        gt = np.concatenate([rng.uniform(1, 5, (B, G, 3)),
+                             rng.uniform(0.3, 1.5, (B, G, 3)),
+                             rng.uniform(-0.5, 0.5, (B, G, 3))], -1)
+        pm = np.zeros((B, G, 256), np.float32)
+        pm[:, :, 1] = 1.0
+        batch.update({'gt_bboxes': gt.astype(np.float32),
+                      'gt_masks': np.ones((B, G), bool),
+                      'positive_maps': pm})
+    return batch

@@ -1,10 +1,13 @@
-"""DETR-style grounding decoder with per-layer box refinement, eval mode.
+"""DETR-style grounding decoder with per-layer box refinement.
 
 Counterpart of proxytransformation_tpu/models/decoder.py: 6 layers of
 self-attn → text cross-attn → point cross-attn → FFN (post-norm), with
 learned positional embeddings from the current 9-DoF boxes (queries) and
 the voxel xyz (keys), refined per layer through the head's regression
-branch. Paddings are boolean masks applied as -1e9 logits.
+branch. Paddings are boolean masks applied as -1e9 logits. Dropout is 0
+(the reference config's), so train mode differs from eval only in the
+position nets' BatchNorm, and the boxes carry no gradient from one layer
+to the next (`stop_gradient` at reference decoder.py:186).
 """
 from __future__ import annotations
 
@@ -59,8 +62,8 @@ class MultiheadAttention(nn.Module):
 
 
 class PositionEmbeddingLearned(nn.Module):
-    """conv1d-BN-ReLU-conv1d over tokens; the BN is masked (eval: running
-    statistics, 0 at padded tokens)."""
+    """conv1d-BN-ReLU-conv1d over tokens; the BN is masked (0 at padded
+    tokens; running statistics in eval, batch statistics in train)."""
 
     def __init__(self, in_channels: int, embed_dims: int):
         super().__init__()
@@ -69,12 +72,12 @@ class PositionEmbeddingLearned(nn.Module):
             '1': BatchNormParams(embed_dims),
             '3': Conv1x1(embed_dims, embed_dims, spatial_dims=1)})
 
-    def forward(self, xyz, mask=None):
+    def forward(self, xyz, mask=None, train: bool = False):
         h = self.position_embedding_head
         if mask is None:
             mask = torch.ones(xyz.shape[:2], dtype=torch.bool,
                               device=xyz.device)
-        x = torch.relu(h['1'].masked(h['0'](xyz), mask))
+        x = torch.relu(h['1'].masked(h['0'](xyz), mask, train))
         return h['3'](x)
 
 
@@ -130,15 +133,16 @@ class SparseFeatureFusionTransformerDecoder(nn.Module):
                 feats_coords, pred_bboxes, text_feats, text_padding_mask,
                 reg_branch_fn: Callable, bbox_coder_fn: Callable,
                 feats_mask: Optional[torch.Tensor] = None,
-                query_mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                query_mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         inter, inter_boxes = [], []
-        key_pos = self.cross_posembed(feats_coords, feats_mask)
+        key_pos = self.cross_posembed(feats_coords, feats_mask, train)
         for layer in self.layers:
-            query_pos = self.self_posembed(pred_bboxes, query_mask)
+            query_pos = self.self_posembed(pred_bboxes, query_mask, train)
             query = layer(query, feats, feats, query_pos, key_pos,
                           feats_padding_mask, text_feats, text_padding_mask)
-            pred_bboxes = bbox_coder_fn(query_coords, reg_branch_fn(query))
+            new_pred = bbox_coder_fn(query_coords, reg_branch_fn(query))
+            pred_bboxes = new_pred.detach()
             inter.append(self.norm(query))
-            inter_boxes.append(pred_bboxes)
+            inter_boxes.append(new_pred)
         return torch.stack(inter), torch.stack(inter_boxes)

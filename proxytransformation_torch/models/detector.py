@@ -1,7 +1,8 @@
-"""End-to-end ego-centric 3D visual grounder (the flagship), predict mode.
+"""End-to-end ego-centric 3D visual grounder (the flagship).
 
 Counterpart of proxytransformation_tpu/models/detector.py::
-SparseFeatureFusion3DGrounderPreshape, float32, eval mode:
+SparseFeatureFusion3DGrounderPreshape, float32: `forward` is predict
+(eval mode, no gradient), `loss` the train-mode losses (mode='loss'):
 
   imgs (B,V,H,W,3) ──ResNet50──► 4 image levels ──┐
   input_ids (B,L) ──CLIP text──► text feats ──────┤
@@ -12,12 +13,13 @@ SparseFeatureFusion3DGrounderPreshape, float32, eval mode:
   MinkNeck FPN + prune ──► (B, 4·P, C) tokens
       │ top-k queries by contrastive score
       ▼
-  6-layer decoder with box refinement ──► GroundingHead.predict
+  6-layer decoder with box refinement ──► GroundingHead.predict / .loss
 
 Batch dict (padded, masked tensors on the model's device): imgs, points,
 points_mask, input_ids, text_mask, proj_mats (B,V,4,4), views_mask and
 optionally pcd_rotation / pcd_scale_factor / pcd_trans / pcd_flip_x /
-pcd_flip_y.
+pcd_flip_y; for the loss also gt_bboxes (B,G,9), gt_masks (B,G) and
+positive_maps (B,G,max_text_len).
 """
 from __future__ import annotations
 
@@ -106,7 +108,9 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     def encode_text(self, input_ids, text_mask):
         return self.text_feat_map(self.text_encoder(input_ids, text_mask))
 
-    def extract_feat(self, batch: Dict[str, Any], text_feats):
+    def extract_feat(self, batch: Dict[str, Any], text_feats,
+                     train: bool = False,
+                     generator: Optional[torch.Generator] = None):
         imgs = batch['imgs']
         B, V, H, W, _ = imgs.shape
         img_feats = [f.reshape((B, V) + f.shape[1:])
@@ -114,10 +118,10 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
         xyz = batch['points'][..., :3]
         points, points_mask = self.preshape(
             xyz, batch['points_mask'], text_feats, batch['text_mask'],
-            img_feats[-1])
+            img_feats[-1], train, generator)
         lvl0 = voxelize_points(points, points_mask, points, self.voxel_size,
                                self.n_points, self.voxel_extent)
-        levels, self_maps = self.backbone_3d(lvl0)
+        levels, self_maps = self.backbone_3d(lvl0, train)
 
         def paint_fn(world_xyz, vmask, lvl_idx):
             inv = apply_inverse_aug(
@@ -129,10 +133,12 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                                       valid_mask=vmask,
                                       views_mask=batch['views_mask'])
 
-        return self.neck_3d(levels, self_maps=self_maps, paint_fn=paint_fn)
+        return self.neck_3d(levels, self_maps=self_maps, paint_fn=paint_fn,
+                            train=train)
 
     def pre_decoder(self, feats, xyz, feats_mask, text_feats, text_mask):
-        """Top-k query selection by contrastive score."""
+        """Top-k query selection by contrastive score; the selected boxes
+        carry no gradient (reference detector.py:238)."""
         head = self.bbox_head
         enc_cls = head.cls_branches[0](feats, text_feats, text_mask,
                                        feats_mask)
@@ -147,11 +153,11 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
         rows = topk_idx[..., None]
         return (torch.take_along_dim(feats, rows, dim=1),
                 torch.take_along_dim(xyz, rows, dim=1),
-                torch.take_along_dim(pred_bboxes, rows, dim=1),
+                torch.take_along_dim(pred_bboxes, rows, dim=1).detach(),
                 torch.gather(feats_mask, 1, topk_idx))
 
     def forward_transformer(self, feats, xyz, feats_mask, text_feats,
-                            text_mask):
+                            text_mask, train: bool = False):
         query, query_coords, pred_bboxes, query_mask = self.pre_decoder(
             feats, xyz, feats_mask, text_feats, text_mask)
         hidden, all_boxes = self.decoder(
@@ -159,7 +165,7 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
             text_feats, ~text_mask,
             reg_branch_fn=self.bbox_head.reg_branches[0],
             bbox_coder_fn=self.bbox_head.bbox_pred_to_bbox,
-            feats_mask=feats_mask, query_mask=query_mask)
+            feats_mask=feats_mask, query_mask=query_mask, train=train)
         return hidden, all_boxes, query_mask
 
     @torch.no_grad()
@@ -177,6 +183,32 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                 hidden, all_boxes, text_feats, text_mask, query_mask)
         return {'bboxes_3d': boxes, 'scores_3d': scores,
                 'query_mask': query_mask}
+
+    def loss(self, batch: Dict[str, Any],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        """Train-mode losses with the graph for their gradients: the
+        final layer's 'loss_cls' / 'loss_bbox' and 'd{i}.*' of the other
+        decoder layers. Batch statistics update the running ones in
+        place; dropout and DropPath draw from `generator`. The frozen
+        text tower runs without a graph (its output's `stop_gradient`,
+        reference detector.py:156); the 2D ResNet's BatchNorm stays in
+        eval mode (reference models/resnet.py:8-9). TF32 is off inside;
+        wrap the backward in `device.full_float32()` too (as
+        `engine.train.make_train_step` does)."""
+        with full_float32():
+            text_mask = batch['text_mask']
+            with torch.no_grad():
+                text = self.text_encoder(batch['input_ids'], text_mask)
+            text_feats = self.text_feat_map(text)
+            feats, _, xyz, feats_mask = self.extract_feat(
+                batch, text_feats, train=True, generator=generator)
+            hidden, all_boxes, query_mask = self.forward_transformer(
+                feats, xyz, feats_mask, text_feats, text_mask, train=True)
+            return self.bbox_head.loss(
+                hidden, all_boxes, text_feats, text_mask,
+                batch['gt_bboxes'], batch['gt_masks'],
+                batch['positive_maps'], query_mask)
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,13 @@
-"""Normalization layers in eval mode, under the upstream key names.
+"""Normalization layers under the upstream key names.
 
-Counterpart of proxytransformation_tpu/models/norms.py plus the eval
+Counterpart of proxytransformation_tpu/models/norms.py plus the
 BatchNorms the JAX package writes inline. The JAX package computes the
 same normalization in three orders (flax BatchNorm, MaskedBatchNorm and
-the ResNet's folded affine); `BatchNormParams` keeps one method for each
-so the float32 rounding follows the reference.
+the ResNet's folded affine, which is always in eval mode); `BatchNormParams`
+keeps one method for each so the float32 rounding follows the reference.
+In train mode the first two normalize with batch statistics and update
+the running buffers in place. `torch.nn.BatchNorm*` is not used: its
+running variance is unbiased and its momentum means the other fraction.
 """
 from __future__ import annotations
 
@@ -28,16 +31,46 @@ class BatchNormParams(nn.Module):
         state_dict.pop(prefix + 'num_batches_tracked', None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kw)
 
-    def flax(self, x: torch.Tensor) -> torch.Tensor:
-        """flax `nn.BatchNorm(use_running_average=True)` over the last axis."""
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, var: torch.Tensor,
+                momentum: float) -> None:
+        """running = momentum * running + (1 - momentum) * batch stat."""
+        keep = 1.0 - momentum
+        self.running_mean.copy_(momentum * self.running_mean + keep * mean)
+        self.running_var.copy_(momentum * self.running_var + keep * var)
 
-    def masked(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """`MaskedBatchNorm` in eval mode: running stats, 0 at masked rows."""
-        y = ((x.float() - self.running_mean)
-             / torch.sqrt(self.running_var + self.eps) * self.weight
-             + self.bias)
+    def flax(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """flax `nn.BatchNorm` over the last axis. Eval: running stats.
+        Train (flax 0.12 defaults): batch stats over every other axis,
+        var = E[x²] - E[x]² clipped at 0, the running stats updated in
+        place with momentum 0.99 (the fraction of the old value kept)."""
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=dims)
+            var = torch.maximum((x * x).mean(dim=dims) - mean * mean,
+                                torch.zeros_like(mean))
+            self._update(mean, var, 0.99)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+    def masked(self, x: torch.Tensor, mask: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+        """`MaskedBatchNorm`, 0 at masked rows. Eval: running stats.
+        Train: two-pass mean and variance over the valid rows of every
+        sample, the running stats updated in place with momentum 0.9."""
+        xf = x.float()
+        if train:
+            m = mask[..., None].float()
+            dims = tuple(range(x.ndim - 1))
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(dim=dims) / cnt
+            var = (torch.square(xf - mean) * m).sum(dim=dims) / cnt
+            self._update(mean, var, 0.9)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[..., None], y, torch.zeros_like(y)).to(x.dtype)
 
     def folded(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,8 +88,9 @@ class MaskedBatchNorm(nn.Module):
         super().__init__()
         self.bn = BatchNormParams(channels)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self.bn.masked(x, mask)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        return self.bn.masked(x, mask, train)
 
 
 class MaskedInstanceNorm(nn.Module):

@@ -1,4 +1,4 @@
-"""ProxyTransformation preshape module (the paper's core), eval mode.
+"""ProxyTransformation preshape module (the paper's core).
 
 Counterpart of proxytransformation_tpu/models/preshape.py with static
 shapes: grid-prior clusters refined by a learned offset and a second
@@ -9,11 +9,21 @@ Dropped clusters' points are masked out, not removed.
 
 Like the reference (and the JAX package), every block of a branch reads
 `point_proxy` and only the last block's result is used.
+
+Train mode (reference models/preshape.py:338-460): the PointNets' and the
+transform heads' flax BatchNorms use batch statistics and update their
+running ones; every proxy block drops attention weights, its projection
+and its MLP activations with rate 0.2 and its residual branches with a
+per-sample DropPath of rate linspace(0, 0.2, blocks)[i]. The draws come
+from the `generator` handed to `forward`. FPS keeps its deterministic
+start, as the reference's train step passes no 'fps' rng
+(engine/train.py:121).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -23,6 +33,42 @@ from ..ops.common import recip32
 from ..ops.fps import sample_farthest_points
 from .layers import Conv1x1, linear
 from .norms import BatchNormParams, layer_norm
+
+# the reference's dropout, attention-dropout and drop-path rates
+_DROP = 0.2
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in train mode keep each element with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def draw(self, shape, device, generator: Optional[torch.Generator]
+             ) -> torch.Tensor:
+        """The keep mask (bool), from `generator`."""
+        u = torch.rand(shape, generator=generator, device=device)
+        return u < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        keep = self.draw(self.mask_shape(x), x.device, generator)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
+
+
+class DropPath(Dropout):
+    """Per-sample stochastic depth (reference models/preshape.py:54):
+    one draw per sample, broadcast over the other axes."""
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return (x.shape[0], ) + (1, ) * (x.ndim - 1)
 
 
 def _point_features(center: torch.Tensor, cluster: torch.Tensor
@@ -41,9 +87,9 @@ class _PointMLP(nn.Module):
         super().__init__()
         self.mlp = nn.ModuleDict({'0': Conv1x1(6, out), '1': BatchNormParams(out)})
 
-    def forward(self, center, cluster):
+    def forward(self, center, cluster, train: bool = False):
         x = self.mlp['0'](_point_features(center, cluster))
-        return torch.relu(self.mlp['1'].flax(x))
+        return torch.relu(self.mlp['1'].flax(x, train))
 
 
 class OffsetNetwork(_PointMLP):
@@ -54,15 +100,16 @@ class OffsetNetwork(_PointMLP):
         super().__init__(hidden)
         self.channel_mapper = Conv1x1(hidden, 3, bias=False, spatial_dims=1)
 
-    def forward(self, center, cluster):
-        return self.channel_mapper(super().forward(center, cluster).mean(dim=2))
+    def forward(self, center, cluster, train: bool = False):
+        return self.channel_mapper(
+            super().forward(center, cluster, train).mean(dim=2))
 
 
 class SimplifiedPointNet(_PointMLP):
     """Max-pool PointNet over each cluster → (b, m, C)."""
 
-    def forward(self, center, cluster):
-        return torch.amax(super().forward(center, cluster), dim=2)
+    def forward(self, center, cluster, train: bool = False):
+        return torch.amax(super().forward(center, cluster, train), dim=2)
 
 
 class AttentionPool2d(nn.Module):
@@ -96,10 +143,12 @@ class AttentionPool2d(nn.Module):
 class ProxyAttention(nn.Module):
     """Two-stage linear proxy attention with interpolated cluster biases:
     proxies attend over clusters (unmasked), then clusters attend over
-    proxies (text mask applied)."""
+    proxies (text mask applied). Train mode drops both attention maps
+    (`attn_drop`) and the output (`proj_drop`)."""
 
     def __init__(self, dim: int, num_heads: int, num_cluster: int,
-                 dynamic_drop_radio: float, qkv_bias: bool = False):
+                 dynamic_drop_radio: float, qkv_bias: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         n = int(num_cluster * (1 - dynamic_drop_radio))
@@ -113,8 +162,13 @@ class ProxyAttention(nn.Module):
         self.pb_bias = nn.Parameter(torch.zeros(1, n, 4, 4))
         self.pc_bias = nn.Parameter(torch.zeros(1, n, s, 1))
         self.pr_bias = nn.Parameter(torch.zeros(1, n, 1, s))
+        self.drop_pa = Dropout(attn_drop)
+        self.drop_qa = Dropout(attn_drop)
+        self.drop_proj = Dropout(proj_drop)
 
-    def forward(self, x, proxy, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, proxy, mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         b, n, c = x.shape
         if n != self.pb_bias.shape[1]:
             raise ValueError(
@@ -138,42 +192,54 @@ class ProxyAttention(nn.Module):
         q, k, v, p = heads(q), heads(k), heads(v), heads(p)
         scale = hd ** -0.5
         pa = torch.softmax((p * scale) @ k.transpose(-1, -2), dim=-1)
-        pv = pa @ v
+        pv = self.drop_pa(pa, train, generator) @ v
         qa = (q * scale) @ p.transpose(-1, -2)
         if mask is not None:
             qa = torch.where(mask[:, None, None, :], qa,
                              torch.full_like(qa, -1e9))
-        qa = torch.softmax(qa, dim=-1)
+        qa = self.drop_qa(torch.softmax(qa, dim=-1), train, generator)
         out = (qa @ pv).transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+        return self.drop_proj(self.proj(out), train, generator)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = linear(dim, hidden)
         self.fc2 = linear(hidden, dim)
+        self.drop1 = Dropout(drop)
+        self.drop2 = Dropout(drop)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = self.drop1(F.gelu(self.fc1(x)), train, generator)
+        return self.drop2(self.fc2(x), train, generator)
 
 
 class ProxyBlock(nn.Module):
-    """Pre-norm proxy attention + MLP block."""
+    """Pre-norm proxy attention + MLP block, each residual branch behind
+    a DropPath."""
 
     def __init__(self, dim: int, num_heads: int, num_cluster: int,
                  dynamic_drop_radio: float, mlp_radio: float = 4.0,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = layer_norm(dim)
         self.attn = ProxyAttention(dim, num_heads, num_cluster,
-                                   dynamic_drop_radio, qkv_bias)
+                                   dynamic_drop_radio, qkv_bias, attn_drop,
+                                   drop)
         self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_radio))
+        self.mlp = Mlp(dim, int(dim * mlp_radio), drop)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x, proxy, mask=None):
-        x = x + self.attn(self.norm1(x), proxy, mask)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, proxy, mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        h = self.attn(self.norm1(x), proxy, mask, train, generator)
+        x = x + self.drop_path1(h, train, generator)
+        h = self.mlp(self.norm2(x), train, generator)
+        return x + self.drop_path2(h, train, generator)
 
 
 def grid_unit(grid_size: int, device=None) -> torch.Tensor:
@@ -187,8 +253,8 @@ def grid_unit(grid_size: int, device=None) -> torch.Tensor:
 
 
 class ProxyTransformationNormReverse(nn.Module):
-    """Multi-modal point-cloud preshaping (ProxyTransformation, CVPR'25),
-    eval mode; flagship: grid_size=12, 3 text + 3 image blocks,
+    """Multi-modal point-cloud preshaping (ProxyTransformation, CVPR'25);
+    flagship: grid_size=12, 3 text + 3 image blocks,
     dynamic_drop_radio=0.6, num_sub=30."""
 
     def __init__(self, embed_dim: int = 256, num_heads: int = 8,
@@ -208,9 +274,10 @@ class ProxyTransformationNormReverse(nn.Module):
         self.empty_drop = empty_drop
         nc = grid_size ** 3
 
-        def block():
+        def block(path_rate):
             return ProxyBlock(embed_dim, num_heads, nc, dynamic_drop_radio,
-                              mlp_radio, qkv_bias)
+                              mlp_radio, qkv_bias, _DROP, _DROP,
+                              float(path_rate))
 
         self.get_offsets = OffsetNetwork(embed_dim)
         self.simple_encoder = SimplifiedPointNet(embed_dim)
@@ -218,10 +285,12 @@ class ProxyTransformationNormReverse(nn.Module):
         self.attn_pool2d = AttentionPool2d(img_spacial_dim, embed_dim,
                                            num_heads)
         self.norm_img = layer_norm(embed_dim)
-        self.textformer = nn.ModuleList(block() for _ in range(text_blocks))
+        self.textformer = nn.ModuleList(
+            block(r) for r in np.linspace(0, _DROP, text_blocks))
         self.text_norm = nn.ModuleList(layer_norm(embed_dim)
                                        for _ in range(text_blocks))
-        self.imgformer = nn.ModuleList(block() for _ in range(img_blocks))
+        self.imgformer = nn.ModuleList(
+            block(r) for r in np.linspace(0, _DROP, img_blocks))
         self.img_norm = nn.ModuleList(layer_norm(embed_dim)
                                       for _ in range(img_blocks))
         self.text_trans = linear(embed_dim, 3)
@@ -242,11 +311,11 @@ class ProxyTransformationNormReverse(nn.Module):
         centers = pmin + self.margin + grid * (pmax - pmin - 2 * self.margin)
         return centers, pmin, pmax
 
-    def _deformable_cluster(self, points, mask):
+    def _deformable_cluster(self, points, mask, train):
         centers, pmin, pmax = self._grid_prior(points, mask)
         _, temp_cluster = ball_query(centers, points, self.num_sub,
                                      self.radius, mask)
-        offsets = self.get_offsets(centers, temp_cluster)
+        offsets = self.get_offsets(centers, temp_cluster, train)
         offsets = torch.tanh(offsets) * self.margin
         new_centers = torch.clamp(centers + offsets, pmin, pmax)
         idx, cluster = ball_query(new_centers, points, self.num_sub,
@@ -266,7 +335,7 @@ class ProxyTransformationNormReverse(nn.Module):
         num_keep = int(M * (1 - self.dynamic_drop_radio))
         num_drop = temp_keep - num_keep
         # FPS selects the DROPPED clusters (reference :393)
-        _, fps_drop = sample_farthest_points(center1, num_drop)
+        _, fps_drop = sample_farthest_points(center1.detach(), num_drop)
         keep_mask = torch.ones((B, temp_keep), dtype=torch.bool,
                                device=center.device)
         keep_mask.scatter_(1, fps_drop.long(), False)
@@ -284,26 +353,30 @@ class ProxyTransformationNormReverse(nn.Module):
 
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor,
                 text_feats: torch.Tensor, text_mask: torch.Tensor,
-                img_feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                img_feat: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """points (B, N, 3), points_mask (B, N), text_feats (B, L, C),
         text_mask (B, L), img_feat (B, V, H, W, C_img) the deepest image
         level → (new_points (B, N, 3), new_mask (B, N))."""
-        center, cluster, idx = self._deformable_cluster(points, points_mask)
+        center, cluster, idx = self._deformable_cluster(points, points_mask,
+                                                        train)
         cluster, center, idx, drop_idx = self._dynamic_dropout(
             cluster, center, idx)
         b, m, k, _ = cluster.shape
-        point_proxy = self.simple_encoder(center, cluster)
+        point_proxy = self.simple_encoder(center, cluster, train)
 
         tx = point_proxy
         for blk, norm in zip(self.textformer, self.text_norm):
-            tx = norm(blk(point_proxy, text_feats, text_mask))
-        translate = self.text_trans_norm.flax(self.text_trans(tx))
+            tx = norm(blk(point_proxy, text_feats, text_mask, train,
+                          generator))
+        translate = self.text_trans_norm.flax(self.text_trans(tx), train)
 
         img_proxy = self._img_proxy(img_feat)
         ix = point_proxy
         for blk, norm in zip(self.imgformer, self.img_norm):
-            ix = norm(blk(point_proxy, img_proxy, None))
-        transform = self.img_trans_norm.flax(self.img_trans(ix))
+            ix = norm(blk(point_proxy, img_proxy, None, train, generator))
+        transform = self.img_trans_norm.flax(self.img_trans(ix), train)
 
         transform = transform.reshape(b, m, 3, 3)
         rel = cluster - center[:, :, None, :]

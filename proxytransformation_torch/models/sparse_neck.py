@@ -1,4 +1,4 @@
-"""Sparse FPN neck with score-based voxel pruning (MinkNeck), eval mode.
+"""Sparse FPN neck with score-based voxel pruning (MinkNeck).
 
 Counterpart of proxytransformation_tpu/models/sparse_neck.py: top-down
 FPN over the four backbone levels with a generative transpose-conv up
@@ -40,12 +40,14 @@ class _Transpose(nn.Module):
 def _up_block(in_channels: int, out_channels: int) -> nn.ModuleDict:
     return nn.ModuleDict({'0': _Transpose(in_channels, out_channels),
                           '1': MaskedBatchNorm(out_channels),
-                          '3': SparseConv(out_channels, out_channels, 27),
+                          '3': SparseConv(out_channels, out_channels, 27,
+                                          self_map=True),
                           '4': MaskedBatchNorm(out_channels)})
 
 
 def _out_block(in_channels: int, out_channels: int) -> nn.ModuleDict:
-    return nn.ModuleDict({'0': SparseConv(in_channels, out_channels, 27),
+    return nn.ModuleDict({'0': SparseConv(in_channels, out_channels, 27,
+                                          self_map=True),
                           '1': MaskedBatchNorm(out_channels)})
 
 
@@ -93,7 +95,7 @@ class MinkNeck(nn.Module):
         self.conv_cls = _ConvCls(out_channels, num_classes)
 
     def forward(self, inputs: List[SparseLevel], self_maps=None,
-                paint_fn: Optional[PaintFn] = None):
+                paint_fn: Optional[PaintFn] = None, train: bool = False):
         n = len(inputs)
         P = self.pts_prune_threshold
         Pup = 4 * P  # up-block support: the children-of-survivors analog
@@ -129,9 +131,9 @@ class MinkNeck(nn.Module):
                 up = generative_transpose_apply(
                     cur.feats, parent_idx_c, offset_id, blk['0'].kernel,
                     lvl.mask)
-                up = F.elu(blk['1'](up, lvl.mask))
+                up = F.elu(blk['1'](up, lvl.mask, train))
                 up = blk['3'](up, nbr_up, lvl.mask)
-                up = F.elu(blk['4'](up, lvl.mask))
+                up = F.elu(blk['4'](up, lvl.mask, train))
                 x = skip + up
                 # stage 2: physical prune to P (same score and tie-break)
                 lvl, _, _ = compact_topk(lvl._replace(feats=x), ps_c,
@@ -146,7 +148,8 @@ class MinkNeck(nn.Module):
                            else build_neighbor_map(lvl, lvl, 3, 1))
 
             blk = getattr(self, f'out_block_{i}')
-            out = F.elu(blk['1'](blk['0'](x, nbr_out, lvl.mask), lvl.mask))
+            out = F.elu(blk['1'](blk['0'](x, nbr_out, lvl.mask), lvl.mask,
+                                 train))
             cls_pred = self.conv_cls(out)
             cls_pred = torch.where(lvl.mask[..., None], cls_pred,
                                    torch.zeros_like(cls_pred))

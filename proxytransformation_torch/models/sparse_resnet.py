@@ -24,18 +24,21 @@ from .norms import MaskedBatchNorm, MaskedInstanceNorm
 class SparseConv(nn.Module):
     """Sparse convolution parameters (`kernel` (K³, C_in, C_out), or
     (C_in, C_out) for K³ = 1 as MinkowskiEngine stores it); the geometry
-    comes in as a neighbor map."""
+    comes in as a neighbor map. `self_map` marks a conv whose map is a
+    stride-1 map of a level onto itself (it picks the backward's formula,
+    reference models/sparse_resnet.py:48)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_volume: int):
+                 kernel_volume: int, self_map: bool = False):
         super().__init__()
         shape = ((in_channels, out_channels) if kernel_volume == 1 else
                  (kernel_volume, in_channels, out_channels))
         self.kernel = nn.Parameter(torch.zeros(shape))
+        self.self_map = self_map
 
     def forward(self, feats, nbr, out_mask):
         w = self.kernel if self.kernel.ndim == 3 else self.kernel[None]
-        return sparse_conv(feats, nbr, w, out_mask)
+        return sparse_conv(feats, nbr, w, out_mask, self_map=self.self_map)
 
 
 class SparseBasicBlock(nn.Module):
@@ -43,9 +46,12 @@ class SparseBasicBlock(nn.Module):
 
     def __init__(self, in_channels: int, planes: int, downsample: bool):
         super().__init__()
-        self.conv1 = SparseConv(in_channels, planes, 27)
+        # the stage's first block (the one with a downsample) reads the
+        # strided map, every other conv its level's self map
+        self.conv1 = SparseConv(in_channels, planes, 27,
+                                self_map=not downsample)
         self.norm1 = MaskedBatchNorm(planes)
-        self.conv2 = SparseConv(planes, planes, 27)
+        self.conv2 = SparseConv(planes, planes, 27, self_map=True)
         self.norm2 = MaskedBatchNorm(planes)
         if downsample:
             self.downsample = nn.ModuleList(
@@ -53,14 +59,15 @@ class SparseBasicBlock(nn.Module):
         else:
             self.downsample = None
 
-    def forward(self, feats, out_mask, nbr_conv1, nbr_conv2, nbr_down=None):
+    def forward(self, feats, out_mask, nbr_conv1, nbr_conv2, nbr_down=None,
+                train: bool = False):
         x = torch.relu(self.norm1(self.conv1(feats, nbr_conv1, out_mask),
-                                  out_mask))
-        x = self.norm2(self.conv2(x, nbr_conv2, out_mask), out_mask)
+                                  out_mask, train))
+        x = self.norm2(self.conv2(x, nbr_conv2, out_mask), out_mask, train)
         identity = feats
         if self.downsample is not None:
             conv, norm = self.downsample
-            identity = norm(conv(feats, nbr_down, out_mask), out_mask)
+            identity = norm(conv(feats, nbr_down, out_mask), out_mask, train)
         return torch.relu(x + identity)
 
 
@@ -91,7 +98,7 @@ class MinkResNet(nn.Module):
                 for j in range(n_blocks)))
             inpl = planes
 
-    def forward(self, level0: SparseLevel):
+    def forward(self, level0: SparseLevel, train: bool = False):
         caps = self.capacities
         lvl = downsample_coords(level0, caps[0])
         nbr = build_neighbor_map(level0, lvl, kernel_size=3, stride=2)
@@ -113,7 +120,7 @@ class MinkResNet(nn.Module):
             for j, block in enumerate(getattr(self, f'layer{i + 1}')):
                 first = j == 0
                 x = block(x, new_lvl.mask, nbr_stride3 if first else nbr_self,
-                          nbr_self, nbr_stride1 if first else None)
+                          nbr_self, nbr_stride1 if first else None, train)
             lvl = new_lvl
             outs.append(lvl._replace(feats=x))
             self_maps.append(nbr_self)

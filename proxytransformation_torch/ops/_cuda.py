@@ -29,7 +29,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR.parent / 'build' / 'torch_kernels'
-SOURCES = ('ball_query', 'lookup_pmz', 'sparse_conv')
+SOURCES = ('ball_query', 'lookup_pmz', 'sparse_conv', 'sparse_conv_dw',
+           'row_gather')
 # ball query compares against r² at the boundary: no FMA contraction, so
 # d² rounds exactly like the reference's separate multiplies and adds
 _EXTRA_FLAGS = {'ball_query': ['-fmad=false']}

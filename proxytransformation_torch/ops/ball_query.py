@@ -96,7 +96,9 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, K: int,
     if points_mask is None:
         points_mask = torch.ones(points.shape[:2], dtype=torch.bool,
                                  device=points.device)
-    idx = ball_query_idx(centers.float().contiguous(),
-                         points.float().contiguous(),
+    # the indices carry no gradient (reference ops/ball_query_pallas.py:
+    # 164-165); it flows through the gathered points
+    idx = ball_query_idx(centers.detach().float().contiguous(),
+                         points.detach().float().contiguous(),
                          points_mask.contiguous(), radius_squared(radius), K)
     return idx, masked_gather(points, idx)

@@ -8,9 +8,10 @@ maps are lookups of shifted keys in the sorted keys, built once per
 level pair and shared by every conv on that pair.
 
 Kernels (`csrc/`), each with its plain PyTorch version here: the
-q-1/q/q+1 key lookup (`lookup_pmz.cu`), its center-only form, and the
-gather-GEMM sparse convolution (`sparse_conv.cu`). A CUDA tensor launches
-the kernel, a CPU tensor takes the plain version.
+q-1/q/q+1 key lookup (`lookup_pmz.cu`), its center-only form, the
+gather-GEMM sparse convolution (`sparse_conv.cu`, also the input
+gradient) and its weight gradient (`sparse_conv_dw.cu`). A CUDA tensor
+launches the kernel, a CPU tensor takes the plain version.
 
 Every sort is stable, like every `jnp.argsort` of the reference.
 """
@@ -42,12 +43,26 @@ LOOKUP_CENTER = _cuda.CudaKernel(
      _cuda.ptr],
     source='proxytransformation_torch/csrc/lookup_pmz.cu',
     replaces='proxytransformation_tpu/ops/merge_join_pallas.py:287')
+_CONV_ARGS = [_cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.i32,
+              _cuda.i32, _cuda.i32, _cuda.i32, _cuda.i32, _cuda.i32,
+              _cuda.ptr, _cuda.ptr]
 SPARSE_CONV = _cuda.CudaKernel(
-    'sparse_conv', 'sparse_conv', 'ptt_sparse_conv',
-    [_cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.i32, _cuda.i32,
-     _cuda.i32, _cuda.i32, _cuda.i32, _cuda.i32, _cuda.ptr, _cuda.ptr],
+    'sparse_conv', 'sparse_conv', 'ptt_sparse_conv', _CONV_ARGS,
     source='proxytransformation_torch/csrc/sparse_conv.cu',
     replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:744')
+# the same kernel launched by the conv's backward for the input gradient
+# (reference ops/sparse.py:515, :534), counted and timed on its own
+SPARSE_CONV_DFEATS = _cuda.CudaKernel(
+    'sparse_conv_dfeats', 'sparse_conv', 'ptt_sparse_conv', _CONV_ARGS,
+    source='proxytransformation_torch/csrc/sparse_conv.cu',
+    replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:744')
+SPARSE_CONV_DW = _cuda.CudaKernel(
+    'sparse_conv_dw', 'sparse_conv_dw', 'ptt_sparse_conv_dw',
+    [_cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.i32, _cuda.i32, _cuda.i32,
+     _cuda.i32, _cuda.i32, _cuda.i32, _cuda.i32, _cuda.ptr, _cuda.ptr,
+     _cuda.ptr],
+    source='proxytransformation_torch/csrc/sparse_conv_dw.cu',
+    replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:399')
 
 
 @dataclasses.dataclass
@@ -347,10 +362,9 @@ def sparse_conv_apply(feats: torch.Tensor, nbr: torch.Tensor,
     return out.to(feats.dtype)
 
 
-def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor,
-                     weights: torch.Tensor,
-                     out_mask: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/sparse_conv.cu` (float32 gather-GEMM)."""
+def _launch_conv(kernel: _cuda.CudaKernel, feats: torch.Tensor,
+                 nbr: torch.Tensor, weights: torch.Tensor,
+                 out_mask: torch.Tensor) -> torch.Tensor:
     B, V_in, C_in = feats.shape
     V_out, K3 = nbr.shape[1:]
     C_out = weights.shape[-1]
@@ -360,20 +374,164 @@ def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor,
     _cuda.check_cuda('out_mask', out_mask, torch.bool, (B, V_out))
     out = torch.empty((B, V_out, C_out), dtype=torch.float32,
                       device=feats.device)
-    SPARSE_CONV(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-                out_mask.data_ptr(), B, V_in, V_out, K3, C_in, C_out,
-                out.data_ptr(), _cuda.current_stream(feats))
+    kernel(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+           out_mask.data_ptr(), B, V_in, V_out, K3, C_in, C_out,
+           out.data_ptr(), _cuda.current_stream(feats))
     return out
 
 
+def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor,
+                     weights: torch.Tensor,
+                     out_mask: torch.Tensor) -> torch.Tensor:
+    """Launch `csrc/sparse_conv.cu` (float32 gather-GEMM)."""
+    return _launch_conv(SPARSE_CONV, feats, nbr, weights, out_mask)
+
+
+def sparse_conv_dfeats_cuda(g: torch.Tensor, nbr: torch.Tensor,
+                            weights: torch.Tensor,
+                            out_mask: torch.Tensor) -> torch.Tensor:
+    """The same kernel for the input gradient: a conv of the output
+    gradient over the mirrored or reversed map (see `_SparseConvFn`)."""
+    return _launch_conv(SPARSE_CONV_DFEATS, g, nbr, weights, out_mask)
+
+
+def sparse_conv_dw_plain(feats: torch.Tensor, nbr: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch weight gradient of `sparse_conv_apply`, the
+    version of `csrc/sparse_conv_dw.cu` that the CPU runs: per offset,
+    the gathered input rows (zero on a miss) transposed times the output
+    gradient `g` (B, V_out, C_out), which is already zero at masked
+    outputs. Returns (K3, C_in, C_out) float32."""
+    B, V_out, K3 = nbr.shape
+    C_in = feats.shape[-1]
+    a = feats.float().reshape(B * feats.shape[1], C_in)
+    gf = g.float().reshape(B * V_out, -1)
+    base = (torch.arange(B, device=nbr.device) * feats.shape[1])[:, None]
+    dw = []
+    for k in range(K3):
+        idx = nbr[..., k]
+        hit = (idx >= 0).reshape(-1, 1)
+        rows = torch.where(idx >= 0, idx + base, 0).reshape(-1).long()
+        gathered = a[rows]
+        gathered = torch.where(hit, gathered, torch.zeros_like(gathered))
+        dw.append(gathered.transpose(0, 1) @ gf)
+    return torch.stack(dw)
+
+
+def dw_splits(rows: int, K3: int, C_in: int, C_out: int) -> int:
+    """Row splits of the dW kernel: enough blocks to fill the card
+    (~1024) where one (offset, channel tile) grid is small, with at
+    least 256 map rows per split."""
+    tiles = K3 * -(-C_in // 64) * -(-C_out // 64)
+    return max(1, min(-(-1024 // tiles), -(-rows // 256)))
+
+
+def sparse_conv_dw_cuda(feats: torch.Tensor, nbr: torch.Tensor,
+                        g: torch.Tensor) -> torch.Tensor:
+    """Launch `csrc/sparse_conv_dw.cu`; returns (K3, C_in, C_out) f32."""
+    B, V_in, C_in = feats.shape
+    V_out, K3 = nbr.shape[1:]
+    C_out = g.shape[-1]
+    _cuda.check_cuda('feats', feats, torch.float32, (B, V_in, C_in))
+    _cuda.check_cuda('nbr', nbr, torch.int32, (B, V_out, K3))
+    _cuda.check_cuda('g', g, torch.float32, (B, V_out, C_out))
+    S = dw_splits(B * V_out, K3, C_in, C_out)
+    dw = torch.empty((K3, C_in, C_out), dtype=torch.float32,
+                     device=feats.device)
+    ws = (torch.empty((S, K3, C_in, C_out), dtype=torch.float32,
+                      device=feats.device) if S > 1 else dw)
+    SPARSE_CONV_DW(feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), B, V_in,
+                   V_out, K3, C_in, C_out, S, ws.data_ptr(), dw.data_ptr(),
+                   _cuda.current_stream(feats))
+    return dw
+
+
+def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient: kernel on CUDA, plain on CPU."""
+    if feats.is_cuda:
+        return sparse_conv_dw_cuda(feats.float().contiguous(),
+                                   nbr.contiguous(), g.contiguous())
+    return sparse_conv_dw_plain(feats, nbr, g)
+
+
+def sparse_conv_dfeats(g: torch.Tensor, nbr: torch.Tensor,
+                       weights: torch.Tensor,
+                       out_mask: torch.Tensor) -> torch.Tensor:
+    """The backward's conv of `g`: kernel on CUDA, plain on CPU."""
+    if g.is_cuda:
+        return sparse_conv_dfeats_cuda(g.contiguous(), nbr.contiguous(),
+                                       weights.contiguous(),
+                                       out_mask.contiguous())
+    return sparse_conv_apply(g, nbr, weights, out_mask)
+
+
+def reverse_map(nbr: torch.Tensor, V_in: int) -> torch.Tensor:
+    """rnbr (B, V_in, K3) with rnbr[b, nbr[b, v, k], k] = v, -1 where no
+    output reads that input at that offset: one int32 scatter. A map of
+    `build_neighbor_map` reads each input at most once per offset, so no
+    two writes collide (reference ops/sparse.py:517-530)."""
+    B, V_out, K3 = nbr.shape
+    dev = nbr.device
+    b = torch.arange(B, device=dev)[:, None, None]
+    k = torch.arange(K3, device=dev)[None, None, :]
+    v = torch.arange(V_out, dtype=torch.int32, device=dev)[None, :, None]
+    spare = B * V_in * K3          # one slot past the end takes the misses
+    dst = torch.where(nbr >= 0, (b * V_in + nbr) * K3 + k, spare)
+    rnbr = torch.full((spare + 1, ), -1, dtype=torch.int32, device=dev)
+    rnbr.scatter_(0, dst.reshape(-1), v.expand(B, V_out, K3).reshape(-1))
+    return rnbr[:spare].reshape(B, V_in, K3)
+
+
+class _SparseConvFn(torch.autograd.Function):
+    """A K³>1 sparse conv whose backward follows the reference's
+    `_sparse_conv_pallas_bwd` (ops/sparse.py:487): g masked by out_mask;
+    dW from `sparse_conv_dw`; dfeats a forward conv of g over the same
+    map with mirrored-transposed weights for a self map (kernel_offsets
+    is symmetric under index reversal), or over the reversed map with
+    transposed weights and an all-true mask for a strided one."""
+
+    @staticmethod
+    def forward(ctx, feats, nbr, weights, out_mask, self_map):
+        ctx.save_for_backward(feats, nbr, weights, out_mask)
+        ctx.self_map = self_map
+        if feats.is_cuda:
+            return sparse_conv_cuda(feats.contiguous(), nbr.contiguous(),
+                                    weights.contiguous(),
+                                    out_mask.contiguous())
+        return sparse_conv_apply(feats, nbr, weights, out_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, nbr, weights, out_mask = ctx.saved_tensors
+        g = torch.where(out_mask[..., None], g, torch.zeros_like(g)).float()
+        dfeats = dW = None
+        if ctx.needs_input_grad[2]:
+            dW = sparse_conv_dw(feats, nbr, g).to(weights.dtype)
+        if ctx.needs_input_grad[0]:
+            if ctx.self_map:
+                dfeats = sparse_conv_dfeats(
+                    g, nbr, weights.transpose(1, 2).flip(0), out_mask)
+            else:
+                B, V_in = feats.shape[:2]
+                dfeats = sparse_conv_dfeats(
+                    g, reverse_map(nbr, V_in), weights.transpose(1, 2),
+                    torch.ones((B, V_in), dtype=torch.bool,
+                               device=feats.device))
+            dfeats = dfeats.to(feats.dtype)
+        return dfeats, None, dW, None, None
+
+
 def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
-                out_mask: torch.Tensor) -> torch.Tensor:
-    """Sparse conv: every K³>1 conv on a CUDA tensor launches the kernel;
-    K³ = 1 convs and CPU tensors take the plain version (as the JAX
-    package leaves K³ = 1 to XLA)."""
-    if nbr.shape[-1] > 1 and feats.is_cuda:
-        return sparse_conv_cuda(feats.contiguous(), nbr.contiguous(),
-                                weights.contiguous(), out_mask.contiguous())
+                out_mask: torch.Tensor, self_map: bool = False
+                ) -> torch.Tensor:
+    """Sparse conv: every K³>1 conv goes through `_SparseConvFn` (its
+    kernels on a CUDA tensor, their plain versions on a CPU one); K³ = 1
+    convs take the plain version and autograd on both (as the JAX
+    package leaves K³ = 1 to XLA). `self_map` marks a stride-1 map of a
+    level onto itself, which picks the backward's dfeats formula."""
+    if nbr.shape[-1] > 1:
+        return _SparseConvFn.apply(feats, nbr, weights, out_mask, self_map)
     return sparse_conv_apply(feats, nbr, weights, out_mask)
 
 

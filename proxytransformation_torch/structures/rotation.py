@@ -1,11 +1,31 @@
-"""Rotation pieces used by the grounding head (ZXY convention).
+"""Rotation pieces used by the grounding head and its loss (ZXY
+convention).
 
 Counterpart of proxytransformation_tpu/structures/rotation.py::
-ortho_6d_to_matrix and ::matrix_to_euler_angles.
+euler_angles_to_matrix, ::ortho_6d_to_matrix and ::matrix_to_euler_angles.
 """
 from __future__ import annotations
 
 import torch
+
+
+def _axis_rotation(axis: str, a: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    rows = {'X': ((o, z, z), (z, c, -s), (z, s, c)),
+            'Y': ((c, z, s), (z, o, z), (-s, z, c)),
+            'Z': ((c, -s, z), (s, c, z), (z, z, o))}[axis]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def euler_angles_to_matrix(angles: torch.Tensor,
+                           convention: str = 'ZXY') -> torch.Tensor:
+    """(..., 3) euler angles → (..., 3, 3) rotations,
+    R = R_c0(a0) @ R_c1(a1) @ R_c2(a2) (pytorch3d's order)."""
+    if len(convention) != 3:
+        raise ValueError(f'a convention names 3 axes, got {convention}')
+    m = [_axis_rotation(ax, angles[..., i]) for i, ax in enumerate(convention)]
+    return (m[0] @ m[1]) @ m[2]
 
 
 def matrix_to_euler_angles(matrix: torch.Tensor,

@@ -6,7 +6,8 @@ has no JAX; there, skip the JAX-pinning conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
-Ball query and the lookups must be bit-exact; the sparse conv within
+Ball query, the lookups and the row gather must be bit-exact; the sparse
+conv, its weight gradient and its input gradient within
 |k - p| <= 1e-4 * (1 + max|p|) (float32 sums in another order).
 """
 import numpy as np
@@ -16,8 +17,12 @@ import torch
 from proxytransformation_torch.device import full_float32
 from proxytransformation_torch.models.detector import (
     SparseFeatureFusion3DGrounderPreshape, batch_to_device)
+from proxytransformation_torch.engine.train import (build_optimizer,
+                                                   make_train_step)
+from proxytransformation_torch.models.preshape import Dropout
 from proxytransformation_torch.ops import ball_query as bq
 from proxytransformation_torch.ops import sparse as sp
+from proxytransformation_torch.tools import gather_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +137,101 @@ def test_predict_ignores_callers_tf32(gen):
          torch.backends.cudnn.allow_tf32) = flags
     for k in ('bboxes_3d', 'scores_3d', 'query_mask'):
         assert torch.equal(got[k], want[k]), k
+
+
+def _close(got, want):
+    tol = 1e-4 * (1.0 + float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit', [
+    (3000, 2000, 27, 3, 64, 0.3), (3000, 3000, 27, 64, 96, 0.3),
+    (1000, 800, 8, 200, 33, 0.5), (500, 130, 27, 1024, 256, 0.2),
+    (400, 300, 27, 16, 16, 0.0)])
+def test_sparse_conv_dw_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
+    """dW kernel vs its plain version, and the same bits on a rerun (no
+    float atomics)."""
+    B = 2
+    feats = torch.randn(B, V_in, C_in, device='cuda', generator=gen)
+    nbr = torch.randint(0, V_in, (B, V_out, K3), device='cuda', generator=gen)
+    miss = torch.rand(B, V_out, K3, device='cuda', generator=gen) >= hit
+    nbr = torch.where(miss, -1, nbr).int()
+    g = torch.randn(B, V_out, C_out, device='cuda', generator=gen)
+    got = sp.sparse_conv_dw(feats, nbr, g)
+    _close(got, sp.sparse_conv_dw_plain(feats, nbr, g))
+    assert torch.equal(sp.sparse_conv_dw(feats, nbr, g), got)
+
+
+def _cuda_level_and_map(gen, self_map, C_in):
+    pts = torch.rand(2, 4000, 3, device='cuda', generator=gen) * 2.5
+    mask = torch.rand(2, 4000, device='cuda', generator=gen) < 0.95
+    lvl = sp.voxelize_points(pts, mask, pts, 0.05, 3000, (64, 64, 64))
+    out = lvl if self_map else sp.downsample_coords(lvl, 1500)
+    nbr = sp.build_neighbor_map(lvl, out, 3, 1 if self_map else 2)
+    f = torch.randn(2, 3000, C_in, device='cuda', generator=gen)
+    return torch.where(lvl.mask[..., None], f, torch.zeros_like(f)), nbr, \
+        out.mask
+
+
+@pytest.mark.parametrize('self_map', [True, False])
+def test_sparse_conv_backward_on_card(gen, self_map):
+    """The autograd.Function's kernels (forward, mirrored or reversed
+    dfeats, dW) against autograd of the plain conv on a real map."""
+    f0, nbr, mask = _cuda_level_and_map(gen, self_map, 32)
+    w0 = torch.randn(27, 32, 48, device='cuda', generator=gen) * 0.1
+    cot = torch.randn(2, nbr.shape[1], 48, device='cuda', generator=gen)
+    grads = []
+    for conv in (lambda f, w: sp.sparse_conv(f, nbr, w, mask, self_map),
+                 lambda f, w: sp.sparse_conv_apply(f, nbr, w, mask)):
+        f = f0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        (conv(f, w) * cot).sum().backward()
+        grads.append((f.grad, w.grad))
+    for got, want in zip(*grads):
+        _close(got, want)
+
+
+def test_row_gather_kernel(gen):
+    table, idx = gather_probe.probe_inputs('cuda')
+    assert torch.equal(gather_probe.row_gather(table, idx),
+                       gather_probe.row_gather_plain(table, idx))
+
+
+def test_tiny_train_step_card_vs_cpu(gen):
+    """One train step of the tiny grounder on the card and on the CPU
+    (plain versions), same weights and the same seeded dropout masks:
+    losses within 1e-4 relative and the updated parameters within
+    2.2 lr of each other (Adam's first step moves an entry whose
+    gradient is at rounding level by ±lr either way)."""
+    outs = []
+    for device in ('cuda', 'cpu'):
+        model, batch = _tiny_grounder_and_batch()
+        if device == 'cpu':
+            model = model.cpu()
+            batch = {k: v.cpu() for k, v in batch.items()}
+        rng = np.random.RandomState(0)
+        B, G = 2, 3
+        gt = np.concatenate([rng.uniform(0.5, 2.5, (B, G, 3)),
+                             rng.uniform(0.3, 1.0, (B, G, 3)),
+                             rng.uniform(-0.5, 0.5, (B, G, 3))], -1)
+        pm = np.zeros((B, G, 64), np.float32)
+        pm[:, :, 1] = 1
+        batch.update(batch_to_device({'gt_bboxes': gt.astype(np.float32),
+                                      'gt_masks': np.ones((B, G), bool),
+                                      'positive_maps': pm}, device))
+        for name, mod in model.named_modules():
+            if isinstance(mod, Dropout):
+                seed = sum(map(ord, name))
+                mod.draw = (lambda shape, dev, generator, seed=seed:
+                            torch.from_numpy(np.random.RandomState(seed)
+                                             .rand(*shape) < 0.8).to(dev))
+        metrics = make_train_step(model, build_optimizer(model))(batch)
+        outs.append(({k: float(v) for k, v in metrics.items()},
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}))
+    (m_gpu, s_gpu), (m_cpu, s_cpu) = outs
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k] - v) <= 1e-4 * abs(v) + 1e-6, k
+    for k, v in s_cpu.items():
+        assert float((s_gpu[k] - v).abs().max()) <= 2.2 * 5e-4 + 1e-5, k
