@@ -16,7 +16,7 @@ the optimizer, so they stay bit for bit as they are.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -26,18 +26,26 @@ from ..device import full_float32
 
 Schedule = Callable[[int], float]
 
+# the recipe above, with optax's scale_by_adam defaults for β and eps
+BASE_LR = 5e-4
+WEIGHT_DECAY = 5e-4
+DECODER_LR_MULT = 0.1
+CLIP_NORM = 10.0
+BETAS = (0.9, 0.999)
+EPS = 1e-8
+MILESTONES = (8, 11)
+GAMMA = 0.1
 
-def build_lr_schedule(base_lr: float, steps_per_epoch: int,
-                      max_epochs: int = 12,
-                      milestones: Sequence[int] = (8, 11),
-                      gamma: float = 0.1) -> Schedule:
-    """MultiStep lr by epoch: step → float32 lr, `gamma` applied at each
-    milestone × steps_per_epoch (optax's piecewise_constant_schedule)."""
-    boundaries = sorted({m * steps_per_epoch: gamma for m in milestones}
+
+def build_lr_schedule(steps_per_epoch: int) -> Schedule:
+    """MultiStep lr by epoch: step → float32 lr, BASE_LR scaled by GAMMA
+    at each of MILESTONES × steps_per_epoch (optax's
+    piecewise_constant_schedule)."""
+    boundaries = sorted({m * steps_per_epoch: GAMMA for m in MILESTONES}
                         .items())
 
     def schedule(step: int) -> float:
-        v = np.float32(base_lr)
+        v = np.float32(BASE_LR)
         for threshold, scale in boundaries:
             if step >= threshold:
                 v = np.float32(scale) * v
@@ -61,31 +69,27 @@ def param_label(name: str) -> str:
 
 class AdamW(torch.optim.Optimizer):
     """optax's clip → adam → decoupled weight decay → -lr chain, per
-    parameter group. Each group holds 'lr_mult'; the lr of a step is
-    schedule(count) × lr_mult, count being the number of earlier steps."""
+    parameter group, with the recipe's constants. Each group holds
+    'lr_mult'; the lr of a step is schedule(count) × lr_mult, count being
+    the number of earlier steps."""
 
-    def __init__(self, param_groups, schedule: Schedule,
-                 weight_decay: float = 5e-4, clip_norm: float = 10.0,
-                 betas=(0.9, 0.999), eps: float = 1e-8):
-        super().__init__(param_groups, dict(
-            weight_decay=weight_decay, clip_norm=clip_norm, betas=betas,
-            eps=eps, lr_mult=1.0))
-        self.schedule = schedule
+    def __init__(self, param_groups):
+        super().__init__(param_groups, dict(lr_mult=1.0))
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, schedule: Schedule):
+        b1, b2 = BETAS
         for group in self.param_groups:
             params = group['params']
             if not params:
                 continue
-            b1, b2 = group['betas']
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            if not bool(g_norm < group['clip_norm']):
-                grads = [(g / g_norm) * group['clip_norm'] for g in grads]
+            if not bool(g_norm < CLIP_NORM):
+                grads = [(g / g_norm) * CLIP_NORM for g in grads]
             count = group.setdefault('count', 0)
-            lr = np.float32(self.schedule(count)) * np.float32(group['lr_mult'])
+            lr = np.float32(schedule(count)) * np.float32(group['lr_mult'])
             bc1 = 1 - np.float32(b1) ** np.float32(count + 1)
             bc2 = 1 - np.float32(b2) ** np.float32(count + 1)
             for p, g in zip(params, grads):
@@ -96,20 +100,15 @@ class AdamW(torch.optim.Optimizer):
                 mu = (1 - b1) * g + b1 * st['mu']
                 nu = (1 - b2) * (g * g) + b2 * st['nu']
                 st['mu'], st['nu'] = mu, nu
-                u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2))
-                                         + group['eps'])
-                u = u + group['weight_decay'] * p
+                u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + EPS)
+                u = u + WEIGHT_DECAY * p
                 p.add_(float(-lr) * u)
             group['count'] = count + 1
 
 
-def build_optimizer(model: nn.Module, base_lr: float = 5e-4,
-                    weight_decay: float = 5e-4, decoder_lr_mult: float = 0.1,
-                    clip_norm: float = 10.0,
-                    schedule: Optional[Schedule] = None) -> AdamW:
+def build_optimizer(model: nn.Module) -> AdamW:
     """AdamW over the 'default' and 'decoder' groups of `param_label`;
-    the frozen group stays out. `schedule` defaults to a constant
-    `base_lr`."""
+    the frozen group stays out."""
     groups = {'default': [], 'decoder': []}
     for name, p in model.named_parameters():
         label = param_label(name)
@@ -118,14 +117,15 @@ def build_optimizer(model: nn.Module, base_lr: float = 5e-4,
     return AdamW([{'params': groups['default'], 'name': 'default',
                    'lr_mult': 1.0},
                   {'params': groups['decoder'], 'name': 'decoder',
-                   'lr_mult': decoder_lr_mult}],
-                 schedule or (lambda step: base_lr), weight_decay, clip_norm)
+                   'lr_mult': DECODER_LR_MULT}])
 
 
-def make_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
+def make_train_step(model: nn.Module, optimizer: AdamW,
+                    schedule: Schedule) -> Callable:
     """train_step(batch, generator=None) → metrics: the losses,
     'total_loss' (their sum) and 'grad_norm' (the global norm of every
-    gradient), as float32 scalar tensors. The loss, its backward and the
+    gradient), as float32 scalar tensors; the update takes its lr from
+    `schedule` (`build_lr_schedule`). The loss, its backward and the
     update run with TF32 off."""
 
     def train_step(batch: Dict[str, torch.Tensor],
@@ -139,7 +139,7 @@ def make_train_step(model: nn.Module, optimizer: AdamW) -> Callable:
             total.backward()
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            optimizer.step()
+            optimizer.step(schedule)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics['total_loss'] = total.detach()
         metrics['grad_norm'] = grad_norm

@@ -144,11 +144,10 @@ class ProxyAttention(nn.Module):
     """Two-stage linear proxy attention with interpolated cluster biases:
     proxies attend over clusters (unmasked), then clusters attend over
     proxies (text mask applied). Train mode drops both attention maps
-    (`attn_drop`) and the output (`proj_drop`)."""
+    and the output, each with the reference's rate."""
 
     def __init__(self, dim: int, num_heads: int, num_cluster: int,
-                 dynamic_drop_radio: float, qkv_bias: bool = False,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 dynamic_drop_radio: float, qkv_bias: bool = False):
         super().__init__()
         self.num_heads = num_heads
         n = int(num_cluster * (1 - dynamic_drop_radio))
@@ -162,9 +161,9 @@ class ProxyAttention(nn.Module):
         self.pb_bias = nn.Parameter(torch.zeros(1, n, 4, 4))
         self.pc_bias = nn.Parameter(torch.zeros(1, n, s, 1))
         self.pr_bias = nn.Parameter(torch.zeros(1, n, 1, s))
-        self.drop_pa = Dropout(attn_drop)
-        self.drop_qa = Dropout(attn_drop)
-        self.drop_proj = Dropout(proj_drop)
+        self.drop_pa = Dropout(_DROP)
+        self.drop_qa = Dropout(_DROP)
+        self.drop_proj = Dropout(_DROP)
 
     def forward(self, x, proxy, mask: Optional[torch.Tensor] = None,
                 train: bool = False,
@@ -203,12 +202,12 @@ class ProxyAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
+    def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = linear(dim, hidden)
         self.fc2 = linear(hidden, dim)
-        self.drop1 = Dropout(drop)
-        self.drop2 = Dropout(drop)
+        self.drop1 = Dropout(_DROP)
+        self.drop2 = Dropout(_DROP)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -222,15 +221,13 @@ class ProxyBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, num_cluster: int,
                  dynamic_drop_radio: float, mlp_radio: float = 4.0,
-                 qkv_bias: bool = False, drop: float = 0.0,
-                 attn_drop: float = 0.0, drop_path: float = 0.0):
+                 qkv_bias: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.norm1 = layer_norm(dim)
         self.attn = ProxyAttention(dim, num_heads, num_cluster,
-                                   dynamic_drop_radio, qkv_bias, attn_drop,
-                                   drop)
+                                   dynamic_drop_radio, qkv_bias)
         self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_radio), drop)
+        self.mlp = Mlp(dim, int(dim * mlp_radio))
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
@@ -276,8 +273,7 @@ class ProxyTransformationNormReverse(nn.Module):
 
         def block(path_rate):
             return ProxyBlock(embed_dim, num_heads, nc, dynamic_drop_radio,
-                              mlp_radio, qkv_bias, _DROP, _DROP,
-                              float(path_rate))
+                              mlp_radio, qkv_bias, float(path_rate))
 
         self.get_offsets = OffsetNetwork(embed_dim)
         self.simple_encoder = SimplifiedPointNet(embed_dim)

@@ -29,7 +29,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..data.synthetic import flagship_batch
 from ..device import full_float32
-from ..engine.train import build_optimizer, make_train_step
+from ..engine.train import (build_lr_schedule, build_optimizer,
+                            make_train_step)
 from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
 from ..ops import _cuda
@@ -43,7 +44,8 @@ def main() -> None:
     _cuda.build()
     model = SparseFeatureFusion3DGrounderPreshape().random_init_(0)
     opt = build_optimizer(model)
-    step = make_train_step(model, opt)
+    schedule = build_lr_schedule(steps_per_epoch=1)
+    step = make_train_step(model, opt, schedule)
 
     def batch(seed):
         return batch_to_device(flagship_batch(seed=seed, with_targets=True),
@@ -85,7 +87,7 @@ def main() -> None:
     for ms, n, name in rows[:args.top]:
         print(f'{ms:9.3f} ms {100 * ms / kernel_ms:5.1f} % {n:6d}x  '
               f'{name[:110]}')
-    phases = phase_times(model, opt, batch(2),
+    phases = phase_times(model, opt, schedule, batch(2),
                          torch.Generator(device='cuda').manual_seed(2))
     print('phases of one more step (device ms / host ms): ' + ', '.join(
         f'{k} {d:.1f} / {h:.1f}' for k, (d, h) in phases.items()))
@@ -99,7 +101,7 @@ def main() -> None:
                     for ms, n, name in rows]}, indent=1))
 
 
-def phase_times(model, opt, batch, gen):
+def phase_times(model, opt, schedule, batch, gen):
     """{phase: (device ms, host ms)} of one step: what
     `engine.train.make_train_step` does, with a CUDA event and a host
     clock reading between its three parts."""
@@ -118,7 +120,7 @@ def phase_times(model, opt, batch, gen):
         total.backward()
         events[2].record()
         host.append(time.perf_counter())
-        opt.step()
+        opt.step(schedule)
         events[3].record()
         host.append(time.perf_counter())
     torch.cuda.synchronize()

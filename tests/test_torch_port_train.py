@@ -210,7 +210,8 @@ def run_port(sd, batch, masks, steps, adam=None):
                         'nu': torch.from_numpy(adam['nu'][name].copy())}
             for group in opt.param_groups:
                 group['count'] = 1
-        step = ttrain.make_train_step(model, opt)
+        step = ttrain.make_train_step(
+            model, opt, ttrain.build_lr_schedule(steps_per_epoch=1))
         tb = batch_to_device(batch, 'cpu')
         out = []
         for _ in range(steps):
@@ -593,7 +594,7 @@ def test_lr_schedule_matches_optax():
     """MultiStep milestones [8, 11] x steps per epoch, gamma 0.1: the
     reference's optax schedule, value for value in float32."""
     want = jtrain.build_lr_schedule(5e-4, steps_per_epoch=3)
-    got = ttrain.build_lr_schedule(5e-4, steps_per_epoch=3)
+    got = ttrain.build_lr_schedule(steps_per_epoch=3)
     for step in (0, 1, 23, 24, 25, 32, 33, 34, 100):
         assert got(step) == float(np.float32(want(step))), step
 
