@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the final line):
      bit-exact, the sparse conv within |k - p| <= 1e-4 * (1 + max|p|)
      (float32 sums taken in another order); kernel, plain and library
      times are device times from CUDA events (see `time_ms`), bounds
-     come from this run's inputs;
+     come from this run's inputs; the request's conv plans (one per
+     neighbor map, checked) are counted and timed (`[plan]`);
   5. main path: launch counts reset to 0, three predict requests
      (B=2, 100k surface-scene points, 20 views at 480x480, 32 tokens),
      finite outputs, per-request times and peak memory; every kernel
@@ -37,6 +38,9 @@ Phases (any failure exits non-zero before the final line):
      without column structure (TPU kernel `sparse_conv_gather_gemm`),
      and the row-gather probe (bit-exact against `table[idx]`, timed
      against `torch.index_select`).
+Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW) and
+conv class (stem, stage i strided, stage i self, neck): calls, summed
+ms, bound, and rows multiplied per hit.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, the one before it the kernels' JSON; the last
@@ -250,11 +254,49 @@ def check_lookup_center(calls):
     return rows
 
 
+def _plan(nbr, plan):
+    from proxytransformation_torch.ops import sparse as sp
+    return sp.conv_plan(nbr) if plan is None else plan
+
+
+def rows_multiplied(nbr, out_mask, plan, C_in, C_out):
+    """Rows the forward kernel multiplies for this call: on the tile path
+    each tile's row count times the offsets in the OR of its kept rows'
+    masks; on the narrow paths only the hit rows."""
+    from proxytransformation_torch.ops import sparse as sp
+    B, V, K3 = nbr.shape
+    path, _, _ = sp.conv_launch_shape(B, V, K3, C_in, C_out,
+                                      sp._sm_count(nbr.device))
+    rows = sp.CONV_TILE_ROWS
+    if path != 'tile':
+        return float(((nbr >= 0) & out_mask[..., None]).sum())
+    m = torch.where(out_mask, plan.row_mask, 0).gather(1, plan.order.long())
+    m = torch.nn.functional.pad(m, (0, (-V) % rows)).reshape(B, -1, rows)
+    bits = (m[..., None] >> torch.arange(K3, device=m.device)) & 1
+    return float(bits.amax(2).sum()) * rows
+
+
+def dw_rows_multiplied(nbr, plan, C_in, C_out):
+    """Hit rows the dW kernel multiplies: each split's hits, padded to
+    its 16-hit steps on the tile path."""
+    from proxytransformation_torch.ops import sparse as sp
+    B, V, K3 = nbr.shape
+    tm, _, target, _ = sp.dw_launch_shape(B * V, K3, C_in, C_out,
+                                          sp._sm_count(nbr.device))
+    counts = plan.hit_counts.tolist()
+    chunk, S = sp.dw_split_table(counts, target)
+    if tm == 0:
+        return float(sum(counts))
+    return float(sum(-(-min(chunk, c - s * chunk) // 16) * 16
+                     for c, n in zip(counts, S) for s in range(n)))
+
+
 def check_sparse_conv(calls):
     from proxytransformation_torch.ops import sparse as sp
     rows = []
-    for i, (feats, nbr, w, mask) in enumerate(calls):
-        got = sp.sparse_conv_cuda(feats, nbr, w, mask)
+    for i, (feats, nbr, w, mask, plan) in enumerate(calls):
+        plan = _plan(nbr, plan)
+        got = sp.sparse_conv_cuda(feats, nbr, w, mask, plan)
         want = sp.sparse_conv_apply(feats, nbr, w, mask)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -266,11 +308,14 @@ def check_sparse_conv(calls):
         C_out = w.shape[-1]
         hits = float((nbr >= 0).sum())
         shape = (f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
-                 f'C_out={C_out}')
+                 f'C_out={C_out} launch='
+                 f'{sp.conv_launch_shape(B, V_out, K3, C_in, C_out, sp._sm_count(feats.device))}')
         rows.append(dict(
-            shape=shape, max_abs_err=err,
+            shape=shape, max_abs_err=err, key=(V_in, V_out, C_in, C_out),
+            hits=float(((nbr >= 0) & mask[..., None]).sum()),
+            rows_multiplied=rows_multiplied(nbr, mask, plan, C_in, C_out),
             ms=time_ms(f'sparse_conv {i}',
-                       lambda: sp.sparse_conv_cuda(feats, nbr, w, mask)),
+                       lambda: sp.sparse_conv_cuda(feats, nbr, w, mask, plan)),
             plain_ms=time_ms(f'sparse_conv plain {i}',
                              lambda: sp.sparse_conv_apply(feats, nbr, w,
                                                           mask)),
@@ -284,8 +329,9 @@ def check_sparse_conv_dfeats(calls):
     gradient over the mirrored (self) or reversed (strided) map."""
     from proxytransformation_torch.ops import sparse as sp
     rows = []
-    for i, (g, nbr, w, mask) in enumerate(calls):
-        got = sp.sparse_conv_dfeats_cuda(g, nbr, w, mask)
+    for i, (g, nbr, w, mask, plan) in enumerate(calls):
+        plan = _plan(nbr, plan)
+        got = sp.sparse_conv_dfeats_cuda(g, nbr, w, mask, plan)
         want = sp.sparse_conv_apply(g, nbr, w, mask)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -295,30 +341,37 @@ def check_sparse_conv_dfeats(calls):
         B, V_g, C_out = g.shape
         V_in, K3 = nbr.shape[1:]
         hits = float((nbr >= 0).sum())
+        C_in = w.shape[-1]
         rows.append(dict(
             shape=f'B={B} V_g={V_g} V_in={V_in} K3={K3} C_out={C_out} '
-                  f'C_in={w.shape[-1]}', max_abs_err=err,
+                  f'C_in={C_in}', max_abs_err=err,
+            # the forward conv's shapes: its V_in, V_out, C_in, C_out
+            key=(V_in, V_g, C_in, C_out),
+            hits=float(((nbr >= 0) & mask[..., None]).sum()),
+            rows_multiplied=rows_multiplied(nbr, mask, plan, C_out, C_in),
             ms=time_ms(f'sparse_conv_dfeats {i}',
-                       lambda: sp.sparse_conv_dfeats_cuda(g, nbr, w, mask)),
+                       lambda: sp.sparse_conv_dfeats_cuda(g, nbr, w, mask,
+                                                          plan)),
             plain_ms=time_ms(f'sparse_conv_dfeats plain {i}',
                              lambda: sp.sparse_conv_apply(g, nbr, w, mask)),
             library_ms=None, bytes=nbytes(g, nbr, w, mask, got),
-            ops=2.0 * hits * C_out * w.shape[-1]))
+            ops=2.0 * hits * C_out * C_in))
     return rows
 
 
 def check_sparse_conv_dw(calls):
     from proxytransformation_torch.ops import sparse as sp
     rows = []
-    for i, (feats, nbr, g) in enumerate(calls):
-        got = sp.sparse_conv_dw_cuda(feats, nbr, g)
+    for i, (feats, nbr, g, plan) in enumerate(calls):
+        plan = _plan(nbr, plan)
+        got = sp.sparse_conv_dw_cuda(feats, nbr, g, plan)
         want = sp.sparse_conv_dw_plain(feats, nbr, g)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         tol = CONV_RTOL * (1.0 + float(want.abs().max()))
         require(err <= tol, f'dW {tuple(feats.shape)} x {tuple(g.shape)}: '
                 f'max err {err} > {tol}')
-        require(torch.equal(sp.sparse_conv_dw_cuda(feats, nbr, g), got),
+        require(torch.equal(sp.sparse_conv_dw_cuda(feats, nbr, g, plan), got),
                 'dW differs between two runs')
         B, V_in, C_in = feats.shape
         V_out, K3 = nbr.shape[1:]
@@ -326,15 +379,84 @@ def check_sparse_conv_dw(calls):
         hits = float((nbr >= 0).sum())
         rows.append(dict(
             shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
-                  f'C_out={C_out} splits={sp.dw_splits(B * V_out, K3, C_in, C_out)}',
-            max_abs_err=err,
+                  f'C_out={C_out} launch='
+                  f'{sp.dw_launch_shape(B * V_out, K3, C_in, C_out, sp._sm_count(feats.device))}',
+            max_abs_err=err, key=(V_in, V_out, C_in, C_out), hits=hits,
+            rows_multiplied=dw_rows_multiplied(nbr, plan, C_in, C_out),
             ms=time_ms(f'sparse_conv_dw {i}',
-                       lambda: sp.sparse_conv_dw_cuda(feats, nbr, g)),
+                       lambda: sp.sparse_conv_dw_cuda(feats, nbr, g, plan)),
             plain_ms=time_ms(f'sparse_conv_dw plain {i}',
                              lambda: sp.sparse_conv_dw_plain(feats, nbr, g)),
             library_ms=None, bytes=nbytes(feats, nbr, g, got),
             ops=2.0 * hits * C_in * C_out))
     return rows
+
+
+def plan_cost(forward_calls):
+    """The conv plans one forward builds (one per map and owner, told
+    apart by their tensors): how many, their device launches (profiler)
+    and their summed device time, each alone with a cold L2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from proxytransformation_torch.ops import sparse as sp
+    plans = {call[4].order.data_ptr(): call[1] for call in forward_calls}
+    maps = {nbr.data_ptr() for nbr in plans.values()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for nbr in plans.values():
+            sp.conv_plan(nbr)
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    ms = sum(time_ms(f'conv_plan {i}', lambda: sp.conv_plan(nbr))
+             for i, nbr in enumerate(plans.values()))
+    return dict(plans=len(plans), maps=len(maps), launches=launches, ms=ms)
+
+
+def conv_classes(model, forward_calls):
+    """{(V_in, V_out, C_in, C_out) of a forward conv: its class}, from the
+    order in which one forward launches its 40 convs: the stem, then per
+    stage its strided conv and its self-map convs, then the neck."""
+    labels = ['stem']
+    for i, n in enumerate(model.backbone_3d.stage_blocks):
+        labels += [f'stage {i + 1} strided'] + [f'stage {i + 1} self'] * (
+            2 * n - 1)
+    labels += ['neck'] * (len(forward_calls) - len(labels))
+    out = {}
+    for label, (feats, nbr, w, _, _) in zip(labels, forward_calls):
+        key = (feats.shape[1], nbr.shape[1], feats.shape[2], w.shape[2])
+        require(out.get(key, label) == label,
+                f'conv shapes {key} in two classes')
+        out[key] = label
+    return out
+
+
+CLASS_ORDER = ('stem', *(f'stage {i} {kind}' for i in range(1, 5)
+                         for kind in ('strided', 'self')), 'neck')
+
+
+def conv_class_table(rows_by_kernel, classes):
+    """One line per (kernel, class): calls, summed ms, the bound of the
+    summed bytes and operations, and rows multiplied over hits."""
+    table = []
+    for name, rows in rows_by_kernel.items():
+        groups = {}
+        for r in rows:
+            groups.setdefault(classes[tuple(r['key'])], []).append(r)
+        for label in CLASS_ORDER:
+            rs = groups.get(label)
+            if not rs:
+                continue
+            bound_ms, bound_by = bound(sum(r['bytes'] for r in rs),
+                                       sum(r['ops'] for r in rs))
+            hits = sum(r['hits'] for r in rs)
+            mult = sum(r['rows_multiplied'] for r in rs)
+            table.append(dict(
+                kernel=name, conv_class=label, calls=len(rs),
+                ms=sum(r['ms'] for r in rs), bound_ms=bound_ms,
+                bound_by=bound_by, rows_multiplied=mult, hits=hits,
+                rows_multiplied_per_hit=mult / hits if hits else None))
+    return table
 
 
 def check_conv_autograd(calls) -> list:
@@ -346,11 +468,12 @@ def check_conv_autograd(calls) -> list:
     from proxytransformation_torch.ops import sparse as sp
     gen = torch.Generator(device='cuda').manual_seed(0)
     out = []
-    for i, (feats, nbr, w, mask, self_map) in enumerate(calls):
+    for i, (feats, nbr, w, mask, self_map, plan) in enumerate(calls):
         cot = torch.randn((feats.shape[0], nbr.shape[1], w.shape[-1]),
                           device='cuda', generator=gen)
         grads = []
-        for conv in (lambda f, k: sp.sparse_conv(f, nbr, k, mask, self_map),
+        for conv in (lambda f, k: sp.sparse_conv(f, nbr, k, mask, self_map,
+                                                 plan),
                      lambda f, k: sp.sparse_conv_apply(f, nbr, k, mask)):
             f = feats.detach().clone().requires_grad_()
             k = w.detach().clone().requires_grad_()
@@ -387,7 +510,8 @@ def check_any_map_conv():
         w = torch.tensor((rng.randn(K3, Ci, Co) * 0.1).astype(np.float32),
                          device='cuda')
         mask = torch.tensor(rng.rand(B, Vo) < 0.9, device='cuda')
-        got = sp.sparse_conv_cuda(feats, nbr, w, mask)
+        plan = sp.conv_plan(nbr)
+        got = sp.sparse_conv_cuda(feats, nbr, w, mask, plan)
         want = sp.sparse_conv_apply(feats, nbr, w, mask)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -399,7 +523,8 @@ def check_any_map_conv():
             shape=f'B={B} V_in={Vi} V_out={Vo} K3={K3} C_in={Ci} C_out={Co}',
             max_abs_err=err,
             ms=time_ms(f'any-map conv {Ci}',
-                       lambda: sp.sparse_conv_cuda(feats, nbr, w, mask)),
+                       lambda: sp.sparse_conv_cuda(feats, nbr, w, mask,
+                                                   plan)),
             plain_ms=time_ms(f'any-map conv plain {Ci}',
                              lambda: sp.sparse_conv_apply(feats, nbr, w,
                                                           mask)),
@@ -507,6 +632,14 @@ def run() -> int:
     log('[probe] any-map conv and row gather match their plain versions')
 
     rows = {**predict['rows'], **train['rows'], **probe_rows}
+    table = conv_class_table(
+        {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
+                              'sparse_conv_dw')}, predict['classes'])
+    for r in table:
+        log(f'[conv] {r["kernel"]:18s} {r["conv_class"]:16s} '
+            f'{r["calls"]:2d} calls {r["ms"]:8.3f} ms, bound '
+            f'{r["bound_ms"]:.3f} ms ({r["bound_by"]}), rows multiplied / '
+            f'hits {r["rows_multiplied_per_hit"]:.3f}')
     counts = {**predict['counts'],
               **{k: train['counts'][k] for k in TRAIN_ONLY}}
     kernels = [summarize(name, rows[name], counts[name],
@@ -526,6 +659,7 @@ def run() -> int:
               'request_ms': predict['req_ms'], 'peak_gib': predict['peak'],
               'stage_ms': predict['stages'], 'train': train['summary'],
               'conv_autograd': train['conv_autograd'],
+              'conv_classes': table, 'conv_plans': predict['plans'],
               'kernels': kernels, 'host_time_not_hidden': NOT_HIDDEN,
               'calls': rows, 'seconds': time.perf_counter() - t_start}
     out_dir = Path(__file__).resolve().parent / 'chiprun_out'
@@ -580,6 +714,13 @@ def predict_phases(model, dev):
 
     # 4. kernels against their plain versions
     rows = check_calls(calls, PREDICT_KERNELS)
+    classes = conv_classes(model, calls['sparse_conv'])
+    plans = plan_cost(calls['sparse_conv'])
+    log(f'[plan] {plans["plans"]} conv plans a request over '
+        f'{plans["maps"]} maps: {plans["launches"]} launches, '
+        f'{plans["ms"]:.3f} ms (each alone, cold L2)')
+    require(plans['plans'] == plans['maps'],
+            'a map\'s conv plan was built more than once')
     del calls
 
     # 5. the main path: three requests, counts from 0
@@ -625,7 +766,7 @@ def predict_phases(model, dev):
     # 6. small input: the card against the port's CPU path
     small_input_check()
     return dict(rows=rows, counts=counts, req_ms=req_ms, peak=peak,
-                stages=stages)
+                stages=stages, classes=classes, plans=plans)
 
 
 def train_phases(model, dev):

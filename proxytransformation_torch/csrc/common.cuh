@@ -8,3 +8,36 @@
 extern "C" const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// Asynchronous global -> shared copies (sm_80+). With `valid` false the
+// source size is 0: nothing is read and the destination is zero-filled,
+// so a miss needs no branch around the copy.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}

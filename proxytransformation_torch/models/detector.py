@@ -121,7 +121,7 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
             img_feats[-1], train, generator)
         lvl0 = voxelize_points(points, points_mask, points, self.voxel_size,
                                self.n_points, self.voxel_extent)
-        levels, self_maps = self.backbone_3d(lvl0, train)
+        levels, self_maps, self_plans = self.backbone_3d(lvl0, train)
 
         def paint_fn(world_xyz, vmask, lvl_idx):
             inv = apply_inverse_aug(
@@ -133,7 +133,8 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                                       valid_mask=vmask,
                                       views_mask=batch['views_mask'])
 
-        return self.neck_3d(levels, self_maps=self_maps, paint_fn=paint_fn,
+        return self.neck_3d(levels, self_maps=self_maps,
+                            self_plans=self_plans, paint_fn=paint_fn,
                             train=train)
 
     def pre_decoder(self, feats, xyz, feats_mask, text_feats, text_mask):

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse import (SENTINEL, SparseLevel, build_neighbor_map,
-                          compact_topk, generative_transpose_apply,
+                          compact_topk, conv_plan, generative_transpose_apply,
                           generative_transpose_map, linearize, lookup_center,
                           topk_stable)
 from .norms import MaskedBatchNorm
@@ -77,7 +77,10 @@ class _ConvCls(nn.Module):
 
 class MinkNeck(nn.Module):
     """Returns (feats (B, 4·P, C_out), scores (B, 4·P, num_classes),
-    xyz (B, 4·P, 3), mask (B, 4·P)), coarsest level first."""
+    xyz (B, 4·P, 3), mask (B, 4·P)), coarsest level first. `self_maps`
+    and `self_plans` are the backbone's self maps and their plans; the
+    coarsest level's out block reuses them, and the pruned levels build
+    their own maps and plans."""
 
     def __init__(self, num_classes: int = 1,
                  in_channels: Sequence[int] = (128, 256, 512, 1024),
@@ -95,7 +98,8 @@ class MinkNeck(nn.Module):
         self.conv_cls = _ConvCls(out_channels, num_classes)
 
     def forward(self, inputs: List[SparseLevel], self_maps=None,
-                paint_fn: Optional[PaintFn] = None, train: bool = False):
+                self_plans=None, paint_fn: Optional[PaintFn] = None,
+                train: bool = False):
         n = len(inputs)
         P = self.pts_prune_threshold
         Pup = 4 * P  # up-block support: the children-of-survivors analog
@@ -132,7 +136,7 @@ class MinkNeck(nn.Module):
                     cur.feats, parent_idx_c, offset_id, blk['0'].kernel,
                     lvl.mask)
                 up = F.elu(blk['1'](up, lvl.mask, train))
-                up = blk['3'](up, nbr_up, lvl.mask)
+                up = blk['3'](up, nbr_up, lvl.mask, conv_plan(nbr_up))
                 up = F.elu(blk['4'](up, lvl.mask, train))
                 x = skip + up
                 # stage 2: physical prune to P (same score and tie-break)
@@ -140,16 +144,19 @@ class MinkNeck(nn.Module):
                                          min(P, lvl.capacity))
                 x = lvl.feats
                 nbr_out = build_neighbor_map(lvl, lvl, 3, 1)
+                plan_out = conv_plan(nbr_out)
             else:
                 lvl = fine
                 x = paint_concat(lvl, i)
                 lvl = lvl._replace(feats=x)
                 nbr_out = (self_maps[i] if self_maps is not None
                            else build_neighbor_map(lvl, lvl, 3, 1))
+                plan_out = (self_plans[i] if self_plans is not None
+                            else conv_plan(nbr_out))
 
             blk = getattr(self, f'out_block_{i}')
-            out = F.elu(blk['1'](blk['0'](x, nbr_out, lvl.mask), lvl.mask,
-                                 train))
+            out = F.elu(blk['1'](blk['0'](x, nbr_out, lvl.mask, plan_out),
+                                 lvl.mask, train))
             cls_pred = self.conv_cls(out)
             cls_pred = torch.where(lvl.mask[..., None], cls_pred,
                                    torch.zeros_like(cls_pred))

@@ -16,8 +16,8 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from ..ops.sparse import (SparseLevel, build_neighbor_map, downsample_coords,
-                          sparse_conv, sparse_max_pool)
+from ..ops.sparse import (SparseLevel, build_neighbor_map, conv_plan,
+                          downsample_coords, sparse_conv, sparse_max_pool)
 from .norms import MaskedBatchNorm, MaskedInstanceNorm
 
 
@@ -26,7 +26,8 @@ class SparseConv(nn.Module):
     (C_in, C_out) for K³ = 1 as MinkowskiEngine stores it); the geometry
     comes in as a neighbor map. `self_map` marks a conv whose map is a
     stride-1 map of a level onto itself (it picks the backward's formula,
-    reference models/sparse_resnet.py:48)."""
+    reference models/sparse_resnet.py:48). `plan` is the map's
+    `conv_plan`, built once with the map."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_volume: int, self_map: bool = False):
@@ -36,9 +37,10 @@ class SparseConv(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(shape))
         self.self_map = self_map
 
-    def forward(self, feats, nbr, out_mask):
+    def forward(self, feats, nbr, out_mask, plan=None):
         w = self.kernel if self.kernel.ndim == 3 else self.kernel[None]
-        return sparse_conv(feats, nbr, w, out_mask, self_map=self.self_map)
+        return sparse_conv(feats, nbr, w, out_mask, self_map=self.self_map,
+                           plan=plan)
 
 
 class SparseBasicBlock(nn.Module):
@@ -60,10 +62,12 @@ class SparseBasicBlock(nn.Module):
             self.downsample = None
 
     def forward(self, feats, out_mask, nbr_conv1, nbr_conv2, nbr_down=None,
-                train: bool = False):
-        x = torch.relu(self.norm1(self.conv1(feats, nbr_conv1, out_mask),
-                                  out_mask, train))
-        x = self.norm2(self.conv2(x, nbr_conv2, out_mask), out_mask, train)
+                train: bool = False, plan_conv1=None, plan_conv2=None):
+        x = torch.relu(self.norm1(
+            self.conv1(feats, nbr_conv1, out_mask, plan_conv1), out_mask,
+            train))
+        x = self.norm2(self.conv2(x, nbr_conv2, out_mask, plan_conv2),
+                       out_mask, train)
         identity = feats
         if self.downsample is not None:
             conv, norm = self.downsample
@@ -72,9 +76,11 @@ class SparseBasicBlock(nn.Module):
 
 
 class MinkResNet(nn.Module):
-    """Sparse ResNet over a voxelized cloud; returns the 4 stage levels
-    and their self maps. Capacities are the static per-sample voxel
-    budgets of the 6 internal levels (conv1, pool, stage 1..4)."""
+    """Sparse ResNet over a voxelized cloud; returns the 4 stage levels,
+    their self maps and the self maps' plans. Each map's `conv_plan` is
+    built once, beside it, and serves every conv over it. Capacities are the static
+    per-sample voxel budgets of the 6 internal levels (conv1, pool,
+    stage 1..4)."""
 
     arch_settings = {
         14: (1, 1, 1, 1),
@@ -102,7 +108,7 @@ class MinkResNet(nn.Module):
         caps = self.capacities
         lvl = downsample_coords(level0, caps[0])
         nbr = build_neighbor_map(level0, lvl, kernel_size=3, stride=2)
-        x = self.conv1(level0.feats, nbr, lvl.mask)
+        x = self.conv1(level0.feats, nbr, lvl.mask, conv_plan(nbr))
         x = torch.relu(self.norm1(x, lvl.mask))
         plvl = downsample_coords(lvl, caps[1])
         pnbr = build_neighbor_map(lvl, plvl, kernel_size=2, stride=2)
@@ -110,18 +116,22 @@ class MinkResNet(nn.Module):
         lvl = plvl
 
         outs: List[SparseLevel] = []
-        self_maps = []
+        self_maps, self_plans = [], []
         for i in range(len(self.stage_blocks)):
             new_lvl = downsample_coords(lvl, caps[2 + i])
             nbr_stride3 = build_neighbor_map(lvl, new_lvl, 3, 2)
             # the 1x1 stride-2 map is the k3 map's center offset (index 13)
             nbr_stride1 = nbr_stride3[..., 13:14]
             nbr_self = build_neighbor_map(new_lvl, new_lvl, 3, 1)
+            plan_stride3 = conv_plan(nbr_stride3)
+            plan_self = conv_plan(nbr_self)
             for j, block in enumerate(getattr(self, f'layer{i + 1}')):
                 first = j == 0
                 x = block(x, new_lvl.mask, nbr_stride3 if first else nbr_self,
-                          nbr_self, nbr_stride1 if first else None, train)
+                          nbr_self, nbr_stride1 if first else None, train,
+                          plan_stride3 if first else plan_self, plan_self)
             lvl = new_lvl
             outs.append(lvl._replace(feats=x))
             self_maps.append(nbr_self)
-        return outs, self_maps
+            self_plans.append(plan_self)
+        return outs, self_maps, self_plans

@@ -5,20 +5,24 @@ replacement with static shapes). A level is a capacity-bounded set of
 voxels per sample: int32 linearized keys sorted ascending (invalid slots
 hold SENTINEL), integer coords, features and a validity mask. Neighbor
 maps are lookups of shifted keys in the sorted keys, built once per
-level pair and shared by every conv on that pair.
+level pair and shared by every conv on that pair, together with the
+map's `conv_plan` (row hit masks, mask-sorted rows, per-offset hit
+lists) that the sparse-conv kernels read.
 
 Kernels (`csrc/`), each with its plain PyTorch version here: the
 q-1/q/q+1 key lookup (`lookup_pmz.cu`), its center-only form, the
 gather-GEMM sparse convolution (`sparse_conv.cu`, also the input
 gradient) and its weight gradient (`sparse_conv_dw.cu`). A CUDA tensor
-launches the kernel, a CPU tensor takes the plain version.
+launches the kernel, a CPU tensor takes the plain version (which does
+not read the plan).
 
 Every sort is stable, like every `jnp.argsort` of the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,24 +47,21 @@ LOOKUP_CENTER = _cuda.CudaKernel(
      _cuda.ptr],
     source='proxytransformation_torch/csrc/lookup_pmz.cu',
     replaces='proxytransformation_tpu/ops/merge_join_pallas.py:287')
-_CONV_ARGS = [_cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.i32,
-              _cuda.i32, _cuda.i32, _cuda.i32, _cuda.i32, _cuda.i32,
-              _cuda.ptr, _cuda.ptr]
+_CONV_ARGS = [*[_cuda.ptr] * 6, *[_cuda.i32] * 10, *[_cuda.ptr] * 3]
 SPARSE_CONV = _cuda.CudaKernel(
     'sparse_conv', 'sparse_conv', 'ptt_sparse_conv', _CONV_ARGS,
     source='proxytransformation_torch/csrc/sparse_conv.cu',
     replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:744')
-# the same kernel launched by the conv's backward for the input gradient
-# (reference ops/sparse.py:515, :534), counted and timed on its own
+# the same source launched by the conv's backward for the input gradient
+# (reference ops/sparse.py:515, :534) as its own kernel symbols, counted
+# and timed on its own
 SPARSE_CONV_DFEATS = _cuda.CudaKernel(
     'sparse_conv_dfeats', 'sparse_conv', 'ptt_sparse_conv', _CONV_ARGS,
     source='proxytransformation_torch/csrc/sparse_conv.cu',
     replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:744')
 SPARSE_CONV_DW = _cuda.CudaKernel(
     'sparse_conv_dw', 'sparse_conv_dw', 'ptt_sparse_conv_dw',
-    [_cuda.ptr, _cuda.ptr, _cuda.ptr, _cuda.i32, _cuda.i32, _cuda.i32,
-     _cuda.i32, _cuda.i32, _cuda.i32, _cuda.i32, _cuda.ptr, _cuda.ptr,
-     _cuda.ptr],
+    [*[_cuda.ptr] * 5, *[_cuda.i32] * 10, *[_cuda.ptr] * 3],
     source='proxytransformation_torch/csrc/sparse_conv_dw.cu',
     replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:399')
 
@@ -362,9 +363,93 @@ def sparse_conv_apply(feats: torch.Tensor, nbr: torch.Tensor,
     return out.to(feats.dtype)
 
 
-def _launch_conv(kernel: _cuda.CudaKernel, feats: torch.Tensor,
+class ConvPlan(NamedTuple):
+    """What the sparse-conv kernels read of a neighbor map beyond the map
+    itself, built once per map (`conv_plan`) and shared by every conv,
+    input gradient and weight gradient over it.
+
+    row_mask (B, V) int32: bit k set where nbr[b, v, k] >= 0.
+    order (B, V) int32: each sample's rows stably sorted by row_mask, so
+      rows with the same hit pattern share a kernel tile.
+    hits (K3, B * V) int32: for each offset k, the flattened rows
+      b * V + v that hit it, in row order, then -1.
+    hit_counts (K3,) int32: the number of rows in each list.
+    """
+    row_mask: torch.Tensor
+    order: torch.Tensor
+    hits: torch.Tensor
+    hit_counts: torch.Tensor
+
+
+MAX_PLAN_K3 = 32
+
+
+def conv_plan(nbr: torch.Tensor) -> ConvPlan:
+    """The plan of a (B, V, K3) map: about 25 launches, no host sync (the
+    hit lists are built by one scan and a scatter into a fixed capacity,
+    and their counts stay on the device)."""
+    B, V, K3 = nbr.shape
+    if K3 > MAX_PLAN_K3:
+        raise ValueError(f'conv_plan: K3 = {K3} > {MAX_PLAN_K3}')
+    dev = nbr.device
+    R = B * V
+    hit = torch.empty((K3, R), dtype=torch.bool, device=dev)  # offset-major
+    torch.ge(nbr.reshape(R, K3).t(), 0, out=hit)
+    bits = torch.bitwise_left_shift(
+        1, torch.arange(K3, dtype=torch.int32, device=dev))
+    row_mask = (hit * bits[:, None]).sum(0, dtype=torch.int32).view(B, V)
+    order = torch.argsort(row_mask, dim=1, stable=True).to(torch.int32)
+    # one scan over all offsets' hits in turn (a device-wide scan; a scan
+    # per offset row runs a few blocks): a hit's slot in the flat (K3, R)
+    # buffer is k * R + its rank in offset k's list, i.e. its running
+    # count minus one minus the hits of offsets before k; misses all go
+    # to one spare slot past the end
+    counts = hit.sum(1, dtype=torch.int32)
+    before = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    shift = torch.arange(-1, K3 * R - 1, R, dtype=torch.int32,
+                         device=dev) - before
+    pos = hit.view(-1).cumsum(0, dtype=torch.int32).view(K3, R)
+    dst = torch.where(hit, pos + shift[:, None], K3 * R)
+    hits = torch.full((K3 * R + 1, ), -1, dtype=torch.int32, device=dev)
+    rows = torch.arange(R, dtype=torch.int32, device=dev)
+    hits.index_put_((dst, ), rows.expand(K3, R))
+    return ConvPlan(row_mask, order, hits[:K3 * R].view(K3, R), counts)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def conv_launch_shape(B: int, V_out: int, K3: int, C_in: int, C_out: int,
+                      n_sm: int) -> Tuple[str, int, int]:
+    """(path, output channels a block, splits) of `csrc/sparse_conv.cu`
+    for a call's shapes: the narrow paths for C_in <= 4 or C_out <= 4;
+    else 128-row tiles 128 channels wide (64 where C_out <= 64), their
+    offsets split across blocks (at most 16 ways) where the tiles give
+    fewer than ~5 waves of two resident blocks an SM (a level's padded
+    rows make tiles with no work, and its mask-sorted tiles differ in
+    their active offsets, so few waves leave SMs idle)."""
+    if C_in <= 4:
+        return 'narrow_in', 0, 1
+    if C_out <= 4 and K3 * C_in * 16 <= 48 * 1024:
+        return 'narrow_out', 0, 1
+    cols = 64 if C_out <= 64 else 128
+    blocks = B * -(-V_out // 128) * -(-C_out // cols)
+    target = 10 * n_sm
+    splits = 1 if blocks >= target else min(16, -(-target // blocks))
+    return 'tile', cols, splits
+
+
+_PATHS = {'tile': 0, 'narrow_in': 1, 'narrow_out': 2}
+CONV_TILE_ROWS = 128  # rows of a tile-path block (csrc/sparse_conv.cu)
+CONV_STEP_C = 16      # input channels of one of its pipeline steps
+
+
+def _launch_conv(kernel: _cuda.CudaKernel, role: int, feats: torch.Tensor,
                  nbr: torch.Tensor, weights: torch.Tensor,
-                 out_mask: torch.Tensor) -> torch.Tensor:
+                 out_mask: torch.Tensor,
+                 plan: Optional[ConvPlan]) -> torch.Tensor:
     B, V_in, C_in = feats.shape
     V_out, K3 = nbr.shape[1:]
     C_out = weights.shape[-1]
@@ -372,27 +457,40 @@ def _launch_conv(kernel: _cuda.CudaKernel, feats: torch.Tensor,
     _cuda.check_cuda('nbr', nbr, torch.int32, (B, V_out, K3))
     _cuda.check_cuda('weights', weights, torch.float32, (K3, C_in, C_out))
     _cuda.check_cuda('out_mask', out_mask, torch.bool, (B, V_out))
+    if plan is None:
+        plan = conv_plan(nbr)
+    _cuda.check_cuda('row_mask', plan.row_mask, torch.int32, (B, V_out))
+    _cuda.check_cuda('order', plan.order, torch.int32, (B, V_out))
+    path, cols, splits = conv_launch_shape(B, V_out, K3, C_in, C_out,
+                                           _sm_count(feats.device))
     out = torch.empty((B, V_out, C_out), dtype=torch.float32,
                       device=feats.device)
+    ws = (torch.empty((splits, B, V_out, C_out), dtype=torch.float32,
+                      device=feats.device) if splits > 1 else out)
     kernel(feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-           out_mask.data_ptr(), B, V_in, V_out, K3, C_in, C_out,
-           out.data_ptr(), _cuda.current_stream(feats))
+           out_mask.data_ptr(), plan.row_mask.data_ptr(),
+           plan.order.data_ptr(), B, V_in, V_out, K3, C_in, C_out, role,
+           _PATHS[path], cols, splits, ws.data_ptr(), out.data_ptr(),
+           _cuda.current_stream(feats))
     return out
 
 
 def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor,
-                     weights: torch.Tensor,
-                     out_mask: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/sparse_conv.cu` (float32 gather-GEMM)."""
-    return _launch_conv(SPARSE_CONV, feats, nbr, weights, out_mask)
+                     weights: torch.Tensor, out_mask: torch.Tensor,
+                     plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """Launch `csrc/sparse_conv.cu` (float32 gather-GEMM) over the map's
+    plan, built here when none is given."""
+    return _launch_conv(SPARSE_CONV, 0, feats, nbr, weights, out_mask, plan)
 
 
 def sparse_conv_dfeats_cuda(g: torch.Tensor, nbr: torch.Tensor,
-                            weights: torch.Tensor,
-                            out_mask: torch.Tensor) -> torch.Tensor:
-    """The same kernel for the input gradient: a conv of the output
-    gradient over the mirrored or reversed map (see `_SparseConvFn`)."""
-    return _launch_conv(SPARSE_CONV_DFEATS, g, nbr, weights, out_mask)
+                            weights: torch.Tensor, out_mask: torch.Tensor,
+                            plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """The same source for the input gradient, as its own kernel symbols:
+    a conv of the output gradient over the mirrored or reversed map (see
+    `_SparseConvFn`)."""
+    return _launch_conv(SPARSE_CONV_DFEATS, 1, g, nbr, weights, out_mask,
+                        plan)
 
 
 def sparse_conv_dw_plain(feats: torch.Tensor, nbr: torch.Tensor,
@@ -418,51 +516,83 @@ def sparse_conv_dw_plain(feats: torch.Tensor, nbr: torch.Tensor,
     return torch.stack(dw)
 
 
-def dw_splits(rows: int, K3: int, C_in: int, C_out: int) -> int:
-    """Row splits of the dW kernel: enough blocks to fill the card
-    (~1024) where one (offset, channel tile) grid is small, with at
-    least 256 map rows per split."""
-    tiles = K3 * -(-C_in // 64) * -(-C_out // 64)
-    return max(1, min(-(-1024 // tiles), -(-rows // 256)))
+# hits a dW split takes at least and at most (csrc/sparse_conv_dw.cu)
+DW_MIN_CHUNK, DW_MAX_CHUNK = 256, 4096
+
+
+def dw_split_table(counts, pairs_target: int) -> Tuple[int, list]:
+    """(chunk, splits of each offset) as `csrc/sparse_conv_dw.cu::
+    split_table` derives them on the device from the hit counts (a list
+    here): equal chunks of all offsets' hits, about `pairs_target` of
+    them."""
+    H = sum(counts)
+    chunk = min(max(-(-H // pairs_target), DW_MIN_CHUNK), DW_MAX_CHUNK)
+    return chunk, [-(-c // chunk) for c in counts]
+
+
+def dw_launch_shape(rows: int, K3: int, C_in: int, C_out: int,
+                    n_sm: int) -> Tuple[int, int, int, int]:
+    """(tm, tn, pairs_target, grid_pairs) of `csrc/sparse_conv_dw.cu`:
+    tm 0 is the narrow path (C_in <= 4, 64 output channels a block), else
+    a block covers 16 * tm input and 16 * tn output channels (128 or
+    64); the hits are cut into about `pairs_target` splits, enough for ~8
+    blocks an SM (4 waves of two) over the channel tiles; `grid_pairs` is
+    the most splits the kernel's table can give for `rows` map rows."""
+    tm = 0 if C_in <= 4 else 8 if C_in > 64 else 4
+    tn = 8 if C_out > 64 and tm else 4
+    c_tiles = 1 if tm == 0 else -(-C_in // (16 * tm))
+    tiles = c_tiles * -(-C_out // (16 * tn))
+    pairs_target = max(1, -(-8 * n_sm // tiles))
+    grid_pairs = max(pairs_target, -(-K3 * rows // DW_MAX_CHUNK)) + K3
+    return tm, tn, pairs_target, grid_pairs
 
 
 def sparse_conv_dw_cuda(feats: torch.Tensor, nbr: torch.Tensor,
-                        g: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/sparse_conv_dw.cu`; returns (K3, C_in, C_out) f32."""
+                        g: torch.Tensor,
+                        plan: Optional[ConvPlan] = None) -> torch.Tensor:
+    """Launch `csrc/sparse_conv_dw.cu` over the map's per-offset hit
+    lists (built here when no plan is given); returns (K3, C_in, C_out)
+    f32."""
     B, V_in, C_in = feats.shape
     V_out, K3 = nbr.shape[1:]
     C_out = g.shape[-1]
     _cuda.check_cuda('feats', feats, torch.float32, (B, V_in, C_in))
     _cuda.check_cuda('nbr', nbr, torch.int32, (B, V_out, K3))
     _cuda.check_cuda('g', g, torch.float32, (B, V_out, C_out))
-    S = dw_splits(B * V_out, K3, C_in, C_out)
+    if plan is None:
+        plan = conv_plan(nbr)
+    _cuda.check_cuda('hits', plan.hits, torch.int32, (K3, B * V_out))
+    _cuda.check_cuda('hit_counts', plan.hit_counts, torch.int32, (K3, ))
+    tm, tn, pairs_target, grid_pairs = dw_launch_shape(
+        B * V_out, K3, C_in, C_out, _sm_count(feats.device))
     dw = torch.empty((K3, C_in, C_out), dtype=torch.float32,
                      device=feats.device)
-    ws = (torch.empty((S, K3, C_in, C_out), dtype=torch.float32,
-                      device=feats.device) if S > 1 else dw)
-    SPARSE_CONV_DW(feats.data_ptr(), nbr.data_ptr(), g.data_ptr(), B, V_in,
-                   V_out, K3, C_in, C_out, S, ws.data_ptr(), dw.data_ptr(),
-                   _cuda.current_stream(feats))
+    ws = torch.empty((grid_pairs, C_in, C_out), dtype=torch.float32,
+                     device=feats.device)
+    SPARSE_CONV_DW(feats.data_ptr(), nbr.data_ptr(), g.data_ptr(),
+                   plan.hits.data_ptr(), plan.hit_counts.data_ptr(), B, V_in,
+                   V_out, K3, C_in, C_out, tm, tn, pairs_target, grid_pairs,
+                   ws.data_ptr(), dw.data_ptr(), _cuda.current_stream(feats))
     return dw
 
 
-def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor,
-                   g: torch.Tensor) -> torch.Tensor:
+def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
+                   plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """Weight gradient: kernel on CUDA, plain on CPU."""
     if feats.is_cuda:
         return sparse_conv_dw_cuda(feats.float().contiguous(),
-                                   nbr.contiguous(), g.contiguous())
+                                   nbr.contiguous(), g.contiguous(), plan)
     return sparse_conv_dw_plain(feats, nbr, g)
 
 
 def sparse_conv_dfeats(g: torch.Tensor, nbr: torch.Tensor,
-                       weights: torch.Tensor,
-                       out_mask: torch.Tensor) -> torch.Tensor:
+                       weights: torch.Tensor, out_mask: torch.Tensor,
+                       plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """The backward's conv of `g`: kernel on CUDA, plain on CPU."""
     if g.is_cuda:
         return sparse_conv_dfeats_cuda(g.contiguous(), nbr.contiguous(),
                                        weights.contiguous(),
-                                       out_mask.contiguous())
+                                       out_mask.contiguous(), plan)
     return sparse_conv_apply(g, nbr, weights, out_mask)
 
 
@@ -487,51 +617,59 @@ class _SparseConvFn(torch.autograd.Function):
     """A K³>1 sparse conv whose backward follows the reference's
     `_sparse_conv_pallas_bwd` (ops/sparse.py:487): g masked by out_mask;
     dW from `sparse_conv_dw`; dfeats a forward conv of g over the same
-    map with mirrored-transposed weights for a self map (kernel_offsets
-    is symmetric under index reversal), or over the reversed map with
-    transposed weights and an all-true mask for a strided one."""
+    map (and the same plan) with mirrored-transposed weights for a self
+    map (kernel_offsets is symmetric under index reversal), or over the
+    reversed map (whose plan the kernel's wrapper builds) with transposed
+    weights and an all-true mask for a strided one."""
 
     @staticmethod
-    def forward(ctx, feats, nbr, weights, out_mask, self_map):
+    def forward(ctx, feats, nbr, weights, out_mask, self_map, plan):
         ctx.save_for_backward(feats, nbr, weights, out_mask)
         ctx.self_map = self_map
+        ctx.plan = plan
         if feats.is_cuda:
             return sparse_conv_cuda(feats.contiguous(), nbr.contiguous(),
                                     weights.contiguous(),
-                                    out_mask.contiguous())
+                                    out_mask.contiguous(), plan)
         return sparse_conv_apply(feats, nbr, weights, out_mask)
 
     @staticmethod
     def backward(ctx, g):
         feats, nbr, weights, out_mask = ctx.saved_tensors
+        plan = ctx.plan
         g = torch.where(out_mask[..., None], g, torch.zeros_like(g)).float()
         dfeats = dW = None
         if ctx.needs_input_grad[2]:
-            dW = sparse_conv_dw(feats, nbr, g).to(weights.dtype)
+            dW = sparse_conv_dw(feats, nbr, g, plan).to(weights.dtype)
         if ctx.needs_input_grad[0]:
             if ctx.self_map:
                 dfeats = sparse_conv_dfeats(
-                    g, nbr, weights.transpose(1, 2).flip(0), out_mask)
+                    g, nbr, weights.transpose(1, 2).flip(0), out_mask, plan)
             else:
                 B, V_in = feats.shape[:2]
+                # the reversed map's plan: built by the kernel's wrapper
                 dfeats = sparse_conv_dfeats(
                     g, reverse_map(nbr, V_in), weights.transpose(1, 2),
                     torch.ones((B, V_in), dtype=torch.bool,
                                device=feats.device))
             dfeats = dfeats.to(feats.dtype)
-        return dfeats, None, dW, None, None
+        return dfeats, None, dW, None, None, None
 
 
 def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
-                out_mask: torch.Tensor, self_map: bool = False
-                ) -> torch.Tensor:
+                out_mask: torch.Tensor, self_map: bool = False,
+                plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """Sparse conv: every K³>1 conv goes through `_SparseConvFn` (its
     kernels on a CUDA tensor, their plain versions on a CPU one); K³ = 1
     convs take the plain version and autograd on both (as the JAX
     package leaves K³ = 1 to XLA). `self_map` marks a stride-1 map of a
-    level onto itself, which picks the backward's dfeats formula."""
+    level onto itself, which picks the backward's dfeats formula. `plan`
+    is the map's `conv_plan`, built once where the map is built; the
+    kernels build it themselves when none is given, the plain versions
+    do not read it."""
     if nbr.shape[-1] > 1:
-        return _SparseConvFn.apply(feats, nbr, weights, out_mask, self_map)
+        return _SparseConvFn.apply(feats, nbr, weights, out_mask, self_map,
+                                   plan)
     return sparse_conv_apply(feats, nbr, weights, out_mask)
 
 

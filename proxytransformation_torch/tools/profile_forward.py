@@ -8,6 +8,9 @@ views at 480x480, 32 tokens). Prints the device time by kernel name and
 the device's busy and idle share of the request's wall time (the union
 of kernel intervals over the host-clock span of the request, which ends
 in a synchronize), and writes both to chiprun_out/profile_forward.json.
+The sparse conv's kernels are also summed by role (forward, input
+gradient, weight gradient: `csrc/sparse_conv.cu` and
+`csrc/sparse_conv_dw.cu` give each role its own kernel symbols).
 Fails when the profiler recorded no device activity.
 """
 from __future__ import annotations
@@ -26,6 +29,26 @@ from ..data.synthetic import flagship_batch
 from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
 from ..ops import _cuda
+
+
+# substrings of the kernel symbols of each sparse-conv role
+CONV_ROLES = (('forward', 'sparse_conv_fwd_'),
+              ('dfeats', 'sparse_conv_dfeats_'),
+              ('dW', 'sparse_conv_dw_'))
+
+
+def conv_roles(rows):
+    """{role: (device ms, launches)} of the sparse conv, from the
+    (ms, count, name) rows of a profile."""
+    return {role: (sum(ms for ms, _, name in rows if tag in name),
+                   sum(n for _, n, name in rows if tag in name))
+            for role, tag in CONV_ROLES}
+
+
+def print_conv_roles(roles) -> None:
+    print('sparse conv by role: ' + ', '.join(
+        f'{role} {ms:.3f} ms ({n} launches)'
+        for role, (ms, n) in roles.items()))
 
 
 def _union_us(intervals):
@@ -75,12 +98,14 @@ def main() -> None:
     for ms, n, name in rows[:args.top]:
         print(f'{ms:9.3f} ms {100 * ms / kernel_ms:5.1f} % {n:6d}x  '
               f'{name[:110]}')
+    roles = conv_roles(rows)
+    print_conv_roles(roles)
     out = Path(__file__).resolve().parents[2] / 'chiprun_out'
     out.mkdir(exist_ok=True)
     (out / 'profile_forward.json').write_text(json.dumps({
         'device': torch.cuda.get_device_name(0), 'wall_ms': wall_ms,
         'busy_ms': busy_ms, 'idle_share': 1 - busy_ms / wall_ms,
-        'launches': len(kernels),
+        'launches': len(kernels), 'sparse_conv_roles': roles,
         'kernels': [{'name': name, 'ms': ms, 'count': n}
                     for ms, n, name in rows]}, indent=1))
 

@@ -7,7 +7,8 @@ grounder at full width with random weights (seed 0) and its AdamW
 optimizer, takes one warm-up step, then traces one step (B=2, 100k
 surface-scene points, 20 views at 480x480, 32 tokens, 8 gt boxes a
 sample; batch and dropout seed 1). Prints the device time by kernel name,
-the device's busy and idle share of the step's wall time (the union of
+the sparse conv's device time by role (forward, dfeats, dW), the
+device's busy and idle share of the step's wall time (the union of
 kernel intervals over the host-clock span of the step, which ends in a
 synchronize), the launch count and the peak memory, and writes them to
 chiprun_out/profile_train.json. Then one more step without the profiler
@@ -34,7 +35,7 @@ from ..engine.train import (build_lr_schedule, build_optimizer,
 from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
 from ..ops import _cuda
-from .profile_forward import _union_us
+from .profile_forward import _union_us, conv_roles, print_conv_roles
 
 
 def main() -> None:
@@ -87,6 +88,8 @@ def main() -> None:
     for ms, n, name in rows[:args.top]:
         print(f'{ms:9.3f} ms {100 * ms / kernel_ms:5.1f} % {n:6d}x  '
               f'{name[:110]}')
+    roles = conv_roles(rows)
+    print_conv_roles(roles)
     phases = phase_times(model, opt, schedule, batch(2),
                          torch.Generator(device='cuda').manual_seed(2))
     print('phases of one more step (device ms / host ms): ' + ', '.join(
@@ -97,6 +100,7 @@ def main() -> None:
         'device': torch.cuda.get_device_name(0), 'wall_ms': wall_ms,
         'busy_ms': busy_ms, 'idle_share': 1 - busy_ms / wall_ms,
         'launches': len(kernels), 'peak_gib': peak, 'phases_ms': phases,
+        'sparse_conv_roles': roles,
         'kernels': [{'name': name, 'ms': ms, 'count': n}
                     for ms, n, name in rows]}, indent=1))
 

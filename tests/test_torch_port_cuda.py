@@ -163,6 +163,117 @@ def test_sparse_conv_dw_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
     assert torch.equal(sp.sparse_conv_dw(feats, nbr, g), got)
 
 
+def _random_map(gen, B, V_in, V_out, K3, hit):
+    nbr = torch.randint(0, V_in, (B, V_out, K3), device='cuda', generator=gen)
+    miss = torch.rand(B, V_out, K3, device='cuda', generator=gen) >= hit
+    return torch.where(miss, -1, nbr).int()
+
+
+def _all_three(gen, feats, nbr, w, out_mask, plan=None):
+    """Forward, input gradient and weight gradient kernels against their
+    plain versions on one map; returns the dW kernel's result."""
+    _close(sp.sparse_conv_cuda(feats, nbr, w, out_mask, plan),
+           sp.sparse_conv_apply(feats, nbr, w, out_mask))
+    g = torch.randn(feats.shape[0], nbr.shape[1], w.shape[-1], device='cuda',
+                    generator=gen)
+    wt = w.transpose(1, 2).contiguous()
+    # the same hit pattern, its entries folded into g's rows
+    nbr_g = torch.where(nbr >= 0, nbr % nbr.shape[1], -1).int()
+    _close(sp.sparse_conv_dfeats_cuda(g, nbr_g, wt, out_mask, plan),
+           sp.sparse_conv_apply(g, nbr_g, wt, out_mask))
+    dw = sp.sparse_conv_dw_cuda(feats, nbr, g, plan)
+    _close(dw, sp.sparse_conv_dw_plain(feats, nbr, g))
+    return dw
+
+
+@pytest.mark.parametrize('K3', [27, 8])
+@pytest.mark.parametrize('C_in,C_out', [(3, 64), (64, 3), (3, 3), (3, 130)])
+def test_narrow_widths(gen, K3, C_in, C_out):
+    """C_in <= 4 (the stem) and C_out <= 4 (the stem's input gradient)
+    take the narrow paths; the dW of C_in <= 4 its narrow path."""
+    B, V_in, V_out = 2, 3000, 2100
+    feats = torch.randn(B, V_in, C_in, device='cuda', generator=gen)
+    nbr = _random_map(gen, B, V_in, V_out, K3, 0.3)
+    w = torch.randn(K3, C_in, C_out, device='cuda', generator=gen) * 0.1
+    out_mask = torch.rand(B, V_out, device='cuda', generator=gen) > 0.1
+    assert sp.conv_launch_shape(B, V_out, K3, C_in, C_out, 132)[0] != 'tile'
+    _all_three(gen, feats, nbr, w, out_mask)
+
+
+def test_all_miss_map(gen):
+    """No row hits any offset: zero outputs and a zero dW."""
+    B, V = 2, 700
+    nbr = torch.full((B, V, 27), -1, dtype=torch.int32, device='cuda')
+    mask = torch.ones(B, V, dtype=torch.bool, device='cuda')
+    for C_in, C_out in ((3, 64), (64, 64), (64, 3)):
+        feats = torch.randn(B, V, C_in, device='cuda', generator=gen)
+        w = torch.randn(27, C_in, C_out, device='cuda', generator=gen)
+        assert torch.equal(sp.sparse_conv_cuda(feats, nbr, w, mask),
+                           torch.zeros(B, V, C_out, device='cuda'))
+        g = torch.randn(B, V, C_out, device='cuda', generator=gen)
+        assert torch.equal(sp.sparse_conv_dw_cuda(feats, nbr, g),
+                           torch.zeros(27, C_in, C_out, device='cuda'))
+
+
+def test_every_row_the_same_mask(gen):
+    """One hit pattern over all rows: every tile walks the same offsets."""
+    B, V_in, V_out, C = 2, 900, 1000, 96
+    nbr = torch.randint(0, V_in, (B, V_out, 27), device='cuda', generator=gen)
+    pattern = torch.rand(27, device='cuda', generator=gen) < 0.4
+    nbr = torch.where(pattern, nbr, -1).int()
+    plan = sp.conv_plan(nbr)
+    assert int(torch.unique(plan.row_mask).numel()) == 1
+    feats = torch.randn(B, V_in, C, device='cuda', generator=gen)
+    w = torch.randn(27, C, C, device='cuda', generator=gen) * 0.1
+    mask = torch.ones(B, V_out, dtype=torch.bool, device='cuda')
+    _all_three(gen, feats, nbr, w, mask, plan)
+
+
+@pytest.mark.parametrize('V_out', [129, 1000, 8191])
+def test_rows_not_a_multiple_of_the_tile(gen, V_out):
+    B, V_in, C_in, C_out = 2, 1500, 36, 72
+    feats = torch.randn(B, V_in, C_in, device='cuda', generator=gen)
+    nbr = _random_map(gen, B, V_in, V_out, 27, 0.35)
+    w = torch.randn(27, C_in, C_out, device='cuda', generator=gen) * 0.1
+    out_mask = torch.rand(B, V_out, device='cuda', generator=gen) > 0.2
+    _all_three(gen, feats, nbr, w, out_mask)
+
+
+def test_offset_split_path_at_a_small_level(gen):
+    """A stage-4-like level (1000 rows, 512 -> 256): too few tiles for
+    the card, so the offsets are split across blocks and added in order;
+    the same bits twice."""
+    B, V, C_in, C_out = 2, 1000, 512, 256
+    path, rows, splits = sp.conv_launch_shape(
+        B, V, 27, C_in, C_out, sp._sm_count(torch.device('cuda')))
+    assert path == 'tile' and splits > 1
+    feats = torch.randn(B, V, C_in, device='cuda', generator=gen)
+    nbr = _random_map(gen, B, V, V, 27, 0.4)
+    w = torch.randn(27, C_in, C_out, device='cuda', generator=gen) * 0.05
+    mask = torch.rand(B, V, device='cuda', generator=gen) > 0.3
+    got = sp.sparse_conv_cuda(feats, nbr, w, mask)
+    _close(got, sp.sparse_conv_apply(feats, nbr, w, mask))
+    assert torch.equal(sp.sparse_conv_cuda(feats, nbr, w, mask), got)
+
+
+@pytest.mark.parametrize('C_in', [3, 64, 256])
+def test_dw_bit_equal_over_splits(gen, C_in):
+    """dW with at least two splits of one offset's hits: the same bits on
+    a rerun."""
+    B, V, C_out = 2, 6000, 64
+    feats = torch.randn(B, V, C_in, device='cuda', generator=gen)
+    nbr = _random_map(gen, B, V, V, 27, 0.4)
+    g = torch.randn(B, V, C_out, device='cuda', generator=gen)
+    plan = sp.conv_plan(nbr)
+    _, _, target, _ = sp.dw_launch_shape(B * V, 27, C_in, C_out,
+                                         sp._sm_count(torch.device('cuda')))
+    _, S = sp.dw_split_table(plan.hit_counts.tolist(), target)
+    assert max(S) >= 2
+    got = sp.sparse_conv_dw_cuda(feats, nbr, g, plan)
+    _close(got, sp.sparse_conv_dw_plain(feats, nbr, g))
+    assert torch.equal(sp.sparse_conv_dw_cuda(feats, nbr, g, plan), got)
+
+
 def _cuda_level_and_map(gen, self_map, C_in):
     pts = torch.rand(2, 4000, 3, device='cuda', generator=gen) * 2.5
     mask = torch.rand(2, 4000, device='cuda', generator=gen) < 0.95

@@ -189,7 +189,7 @@ def backbone_levels(weights):
     port.load_state_dict(sub(sd, 'backbone_3d.'))
     tl0 = tsp.voxelize_points(t(pts), t(mask), t(pts), 0.05, 1024, EXTENT)
     with torch.no_grad():
-        touts, tmaps = port(tl0)
+        touts, tmaps, _ = port(tl0)
     return jouts, jmaps, touts, tmaps
 
 
