@@ -14,8 +14,15 @@ Phases (any failure exits non-zero before the final line):
      bit-exact, the sparse conv within |k - p| <= 1e-4 * (1 + max|p|)
      (float32 sums taken in another order); kernel, plain and library
      times are device times from CUDA events (see `time_ms`), bounds
-     come from this run's inputs; the request's conv plans (one per
-     neighbor map, checked) are counted and timed (`[plan]`);
+     come from this run's inputs; one `[ball_query]` line a call (ms,
+     and ms of the two passes without their shared-memory staging,
+     which must agree too, and `warm_ms`; centers with fewer than K
+     hits, points a first-K scan visits, segments) and one `[lookup_pmz]`
+     line a call (V, Q, ms, `warm_ms`, bound, `torch.searchsorted` of q-1
+     alone, tiles over the window capacity; the kernel's tile windows
+     checked against `lookup_tile_windows`), after the floor of the
+     timing method (`timing_floor_ms`); the request's conv plans (one
+     per neighbor map, checked) are counted and timed (`[plan]`);
   5. main path: launch counts reset to 0, three predict requests
      (B=2, 100k surface-scene points, 20 views at 480x480, 32 tokens),
      finite outputs, per-request times and peak memory; every kernel
@@ -43,8 +50,10 @@ conv class (stem, stage i strided, stage i self, neck): calls, summed
 ms, bound, and rows multiplied per hit.
 
 The line before the last holds the card's name and power limit as
-nvidia-smi gives them, the one before it the kernels' JSON; the last
-line is {"ok": true, "device": {...}}. Per-call details go to
+nvidia-smi gives them, the one before it the kernels' JSON (`launches`:
+device kernels on the main path, the wrapper's calls times the kernels
+a call launches — two for the ball query); the last line is
+{"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -180,6 +189,31 @@ def time_ms(label: str, fn, reps: int = 3) -> float:
     return total / reps
 
 
+def warm_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn` among `reps` back-to-back calls
+    with a warm L2, behind a spin that hides the host's queueing: what a
+    call costs in a stream of them, without the cold start that
+    `time_ms` keeps."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * _SPIN_CYCLES_PER_MS))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timing_floor_ms() -> float:
+    """`time_ms` of one launch that writes 4 bytes: the cold-start floor
+    under every kernel time of this script."""
+    x = torch.empty(1, device='cuda')
+    return time_ms('floor', lambda: x.fill_(1.0))
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -188,48 +222,101 @@ def nbytes(*ts) -> int:
 # per-kernel checks
 # --------------------------------------------------------------------------
 def check_ball_query(calls):
+    """Each captured call through the kernels (and through their passes
+    without the shared-memory staging) against the plain version;
+    one line a call: ms, centers with fewer than K hits, points a
+    first-K scan visits, segments."""
+    from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import ball_query as bq
     rows = []
     for i, (centers, points, mask, r2, K) in enumerate(calls):
         got = bq.ball_query_idx_cuda(centers, points, mask, r2, K)
+        direct = bq.ball_query_idx_cuda(centers, points, mask, r2, K,
+                                        staged=False)
         want = bq.ball_query_idx_plain(centers, points, mask, r2, K)
         torch.cuda.synchronize()
         require(torch.equal(got, want), 'ball query differs from plain at '
                 f'{(got != want).nonzero()[:1].tolist()}')
+        require(torch.equal(direct, want),
+                'ball query without staging differs from plain')
         B, M, _ = centers.shape
         N = points.shape[1]
         last = got[..., K - 1].long()
         scanned = torch.where(last >= 0, last + 1, torch.full_like(last, N))
         ops = 8.0 * float(scanned.sum())
         byts = nbytes(centers, points, mask, got)
-        rows.append(dict(
+        shape = bq.ball_query_launch_shape(B, M, N, K,
+                                           _cuda.sm_count(centers.device))
+        row = dict(
             shape=f'B={B} M={M} N={N} K={K}', max_abs_err=0,
             ms=time_ms(f'ball_query {i}', lambda: bq.ball_query_idx_cuda(
+                centers, points, mask, r2, K)),
+            ms_unstaged=time_ms(f'ball_query unstaged {i}',
+                                lambda: bq.ball_query_idx_cuda(
+                                    centers, points, mask, r2, K,
+                                    staged=False)),
+            warm_ms=warm_ms(lambda: bq.ball_query_idx_cuda(
                 centers, points, mask, r2, K)),
             plain_ms=time_ms(f'ball_query plain {i}',
                              lambda: bq.ball_query_idx_plain(
                                  centers, points, mask, r2, K)),
-            library_ms=None, bytes=byts, ops=ops))
+            library_ms=None, bytes=byts, ops=ops,
+            short_centers=int((last < 0).sum()),
+            points_scanned=int(scanned.sum()), segments=shape.segments,
+            seg_len=shape.seg_len)
+        rows.append(row)
+        log(f'[ball_query] call {i} ({row["shape"]}): {row["ms"]:.4f} ms '
+            f'(without staging {row["ms_unstaged"]:.4f} ms, warm '
+            f'{row["warm_ms"]:.4f} ms), bound {bound(byts, ops)[0]:.4f} ms; '
+            f'{row["short_centers"]} centers with fewer than {K} hits, '
+            f'{row["points_scanned"]} points a first-K scan visits, head '
+            f'{shape.head} points, {shape.segments} segments of '
+            f'{shape.seg_len} points')
     return rows
 
 
 def check_lookup_pmz(calls):
+    """Each captured call against the plain version, the kernel's tile
+    windows against `lookup_tile_windows`; one line a call: V, Q, ms,
+    bound, tiles over the window capacity. The library yardstick is
+    `torch.searchsorted` of q-1 alone, not the same function."""
     from proxytransformation_torch.ops import sparse as sp
     rows = []
     for i, (keys, queries) in enumerate(calls):
-        got = sp.lookup_pmz_cuda(keys, queries)
+        B, V = keys.shape
+        Q = queries.shape[1]
+        tiles, capacity, _, _ = sp.lookup_launch_shape(B, V, Q)
+        window = torch.empty((B, tiles), dtype=torch.int32, device='cuda')
+        got = sp.lookup_pmz_cuda(keys, queries, window)
         want = sp.lookup_pmz_plain(keys, queries)
         torch.cuda.synchronize()
         for g, w, name in zip(got, want, ('q-1', 'q', 'q+1')):
             require(torch.equal(g, w), f'lookup {name} differs from plain')
-        B, V = keys.shape
-        rows.append(dict(
-            shape=f'B={B} V={V} Q={queries.shape[1]}', max_abs_err=0,
+        require(torch.equal(window.long(),
+                            sp.lookup_tile_windows(keys, queries)[1]),
+                'lookup tile windows differ from lookup_tile_windows')
+        qm1 = queries - 1
+        byts = nbytes(keys, queries, *got)
+        row = dict(
+            shape=f'B={B} V={V} Q={Q}', max_abs_err=0,
             ms=time_ms(f'lookup_pmz {i}',
                        lambda: sp.lookup_pmz_cuda(keys, queries)),
             plain_ms=time_ms(f'lookup_pmz plain {i}',
                              lambda: sp.lookup_pmz_plain(keys, queries)),
-            library_ms=None, bytes=nbytes(keys, queries, *got), ops=0.0))
+            library_ms=time_ms(f'lookup_pmz library {i}',
+                               lambda: torch.searchsorted(keys, qm1)),
+            warm_ms=warm_ms(lambda: sp.lookup_pmz_cuda(keys, queries)),
+            library_warm_ms=warm_ms(lambda: torch.searchsorted(keys, qm1)),
+            bytes=byts, ops=0.0, tiles=B * tiles,
+            tiles_over_capacity=int((window > capacity).sum()),
+            capacity=capacity)
+        rows.append(row)
+        log(f'[lookup_pmz] call {i}: V={V} Q={Q}: {row["ms"]:.4f} ms (warm '
+            f'{row["warm_ms"]:.4f} ms), bound {bound(byts, 0.0)[0]:.4f} ms, '
+            f'searchsorted of q-1 alone {row["library_ms"]:.4f} ms (warm '
+            f'{row["library_warm_ms"]:.4f} ms); '
+            f'{row["tiles_over_capacity"]} of {B * tiles} tiles over the '
+            f'{capacity}-key window capacity')
     return rows
 
 
@@ -263,10 +350,11 @@ def rows_multiplied(nbr, out_mask, plan, C_in, C_out):
     """Rows the forward kernel multiplies for this call: on the tile path
     each tile's row count times the offsets in the OR of its kept rows'
     masks; on the narrow paths only the hit rows."""
+    from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     B, V, K3 = nbr.shape
     path, _, _ = sp.conv_launch_shape(B, V, K3, C_in, C_out,
-                                      sp._sm_count(nbr.device))
+                                      _cuda.sm_count(nbr.device))
     rows = sp.CONV_TILE_ROWS
     if path != 'tile':
         return float(((nbr >= 0) & out_mask[..., None]).sum())
@@ -279,10 +367,11 @@ def rows_multiplied(nbr, out_mask, plan, C_in, C_out):
 def dw_rows_multiplied(nbr, plan, C_in, C_out):
     """Hit rows the dW kernel multiplies: each split's hits, padded to
     its 16-hit steps on the tile path."""
+    from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     B, V, K3 = nbr.shape
     tm, _, target, _ = sp.dw_launch_shape(B * V, K3, C_in, C_out,
-                                          sp._sm_count(nbr.device))
+                                          _cuda.sm_count(nbr.device))
     counts = plan.hit_counts.tolist()
     chunk, S = sp.dw_split_table(counts, target)
     if tm == 0:
@@ -292,6 +381,7 @@ def dw_rows_multiplied(nbr, plan, C_in, C_out):
 
 
 def check_sparse_conv(calls):
+    from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     rows = []
     for i, (feats, nbr, w, mask, plan) in enumerate(calls):
@@ -309,7 +399,7 @@ def check_sparse_conv(calls):
         hits = float((nbr >= 0).sum())
         shape = (f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
                  f'C_out={C_out} launch='
-                 f'{sp.conv_launch_shape(B, V_out, K3, C_in, C_out, sp._sm_count(feats.device))}')
+                 f'{sp.conv_launch_shape(B, V_out, K3, C_in, C_out, _cuda.sm_count(feats.device))}')
         rows.append(dict(
             shape=shape, max_abs_err=err, key=(V_in, V_out, C_in, C_out),
             hits=float(((nbr >= 0) & mask[..., None]).sum()),
@@ -360,6 +450,7 @@ def check_sparse_conv_dfeats(calls):
 
 
 def check_sparse_conv_dw(calls):
+    from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     rows = []
     for i, (feats, nbr, g, plan) in enumerate(calls):
@@ -380,7 +471,7 @@ def check_sparse_conv_dw(calls):
         rows.append(dict(
             shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
                   f'C_out={C_out} launch='
-                  f'{sp.dw_launch_shape(B * V_out, K3, C_in, C_out, sp._sm_count(feats.device))}',
+                  f'{sp.dw_launch_shape(B * V_out, K3, C_in, C_out, _cuda.sm_count(feats.device))}',
             max_abs_err=err, key=(V_in, V_out, C_in, C_out), hits=hits,
             rows_multiplied=dw_rows_multiplied(nbr, plan, C_in, C_out),
             ms=time_ms(f'sparse_conv_dw {i}',
@@ -560,9 +651,10 @@ def bound(byts: float, ops: float):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def summarize(name, rows, launches, per_train_step):
+def summarize(name, rows, calls, calls_per_train_step):
     """The kernel's entry of the kernels line: one request's (or train
-    step's) calls summed."""
+    step's) calls summed; `launches` counts device kernels, the wrapper's
+    calls times the kernels a call launches."""
     from proxytransformation_torch.ops import _cuda
     k = _cuda.KERNELS[name]
     for r in rows:
@@ -572,13 +664,15 @@ def summarize(name, rows, launches, per_train_step):
     lib = [r['library_ms'] for r in rows]
     return {
         'name': name, 'route': 'cuda', 'source': k.source,
-        'replaces': k.replaces, 'launches': launches,
+        'replaces': k.replaces, 'launches': calls * k.kernels_per_call,
+        'wrapper_calls': calls,
         'max_abs_err': max(r['max_abs_err'] for r in rows),
         'ms': sum(r['ms'] for r in rows),
         'plain_ms': sum(r['plain_ms'] for r in rows),
         'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None if None in lib else sum(lib),
-        'calls_checked': len(rows), 'launches_per_train_step': per_train_step,
+        'calls_checked': len(rows),
+        'launches_per_train_step': calls_per_train_step * k.kernels_per_call,
     }
 
 
@@ -661,6 +755,7 @@ def run() -> int:
               'conv_autograd': train['conv_autograd'],
               'conv_classes': table, 'conv_plans': predict['plans'],
               'kernels': kernels, 'host_time_not_hidden': NOT_HIDDEN,
+              'time_ms_floor': predict['floor'],
               'calls': rows, 'seconds': time.perf_counter() - t_start}
     out_dir = Path(__file__).resolve().parent / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)
@@ -713,6 +808,8 @@ def predict_phases(model, dev):
                 f'kernel {name} is not on the predict path')
 
     # 4. kernels against their plain versions
+    floor = timing_floor_ms()
+    log(f'[kernel] time_ms floor (one 4-byte fill, cold L2): {floor:.4f} ms')
     rows = check_calls(calls, PREDICT_KERNELS)
     classes = conv_classes(model, calls['sparse_conv'])
     plans = plan_cost(calls['sparse_conv'])
@@ -766,7 +863,7 @@ def predict_phases(model, dev):
     # 6. small input: the card against the port's CPU path
     small_input_check()
     return dict(rows=rows, counts=counts, req_ms=req_ms, peak=peak,
-                stages=stages, classes=classes, plans=plans)
+                stages=stages, classes=classes, plans=plans, floor=floor)
 
 
 def train_phases(model, dev):

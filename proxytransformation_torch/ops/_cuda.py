@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
@@ -107,6 +108,11 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+@lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def current_stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -128,18 +134,21 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
 class CudaKernel:
     """One C entry point of a kernel library, with a launch counter.
 
-    `launches` goes up by one for each successful launch, so a run can
-    show that the main path went through the kernel.
+    `launches` goes up by one for each successful call of the entry
+    point, so a run can show that the main path went through the kernel;
+    the entry point launches `kernels_per_call` device kernels.
     """
 
     def __init__(self, name: str, library: str, symbol: str,
-                 argtypes: Sequence, source: str, replaces: str):
+                 argtypes: Sequence, source: str, replaces: str,
+                 kernels_per_call: int = 1):
         self.name = name
         self.library = library
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.source = source
         self.replaces = replaces
+        self.kernels_per_call = kernels_per_call
         self.launches = 0
         self._fn = None
         KERNELS[name] = self

@@ -21,7 +21,6 @@ Every sort is stable, like every `jnp.argsort` of the reference.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,8 +36,7 @@ DEFAULT_EXTENT: Extent = (1280, 1280, 512)
 
 LOOKUP_PMZ = _cuda.CudaKernel(
     'lookup_pmz', 'lookup_pmz', 'ptt_lookup_pmz',
-    [_cuda.ptr, _cuda.ptr, _cuda.i32, _cuda.i32, _cuda.i32, _cuda.ptr,
-     _cuda.ptr, _cuda.ptr, _cuda.ptr],
+    [_cuda.ptr, _cuda.ptr, *[_cuda.i32] * 5, *[_cuda.ptr] * 5],
     source='proxytransformation_torch/csrc/lookup_pmz.cu',
     replaces='proxytransformation_tpu/ops/merge_join_pallas.py:194')
 LOOKUP_CENTER = _cuda.CudaKernel(
@@ -292,17 +290,87 @@ def lookup_center_plain(keys: torch.Tensor, queries: torch.Tensor
     return torch.where(hit, lo, torch.full_like(lo, -1)).to(torch.int32)
 
 
-def lookup_pmz_cuda(keys: torch.Tensor, queries: torch.Tensor
+# csrc/lookup_pmz.cu::lookup_pmz_kernel: queries a block, the most keys
+# of a tile's window it holds in shared memory, and the most fences
+LOOKUP_TILE = 1024
+LOOKUP_MAX_WINDOW = 6144
+LOOKUP_MAX_FENCES = 256
+
+
+class LookupLaunch(NamedTuple):
+    """How `ptt_lookup_pmz` cuts a call: `tiles` a sample of
+    `LOOKUP_TILE` queries; windows of up to `capacity` keys in shared
+    memory (a multiple of 4 that holds a whole sample's keys where they
+    are fewer than `LOOKUP_MAX_WINDOW`); `fence_step` F, 0 where the
+    whole row fits, else the power of two that keeps ceil(V / F) fences
+    within `LOOKUP_MAX_FENCES`; `smem` the dynamic shared-memory bytes
+    (the capacity, 4 keys of 16-byte lead, and the fences)."""
+    tiles: int
+    capacity: int
+    fence_step: int
+    smem: int
+
+
+def lookup_launch_shape(B: int, V: int, Q: int) -> LookupLaunch:
+    """The `LookupLaunch` of a call's shapes."""
+    capacity = min(LOOKUP_MAX_WINDOW, max(4, -(-V // 4) * 4))
+    fence_step = 0
+    if V > capacity:
+        fence_step = 1 << max(0, (-(-V // LOOKUP_MAX_FENCES) - 1).bit_length())
+    smem = 4 * (capacity + 4 + (LOOKUP_MAX_FENCES if fence_step else 0))
+    return LookupLaunch(-(-Q // LOOKUP_TILE), capacity, fence_step, smem)
+
+
+def lookup_tile_windows(keys: torch.Tensor, queries: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, n), each (B, tiles) int64: the row keys [lo, lo + n) that
+    each tile of `ptt_lookup_pmz` searches, in plain PyTorch (`n` is the
+    kernel's `window_len`). The whole row where it fits the capacity,
+    else the stretch between the fences around lower_bound(qmin - 1) and
+    lower_bound(qmax + 2) over the tile's non-SENTINEL queries; (0, 0)
+    for a tile without one."""
+    B, V = keys.shape
+    Q = queries.shape[1]
+    tiles, capacity, step, _ = lookup_launch_shape(B, V, Q)
+    q = torch.nn.functional.pad(queries.long(), (0, tiles * LOOKUP_TILE - Q),
+                                value=SENTINEL).view(B, tiles, LOOKUP_TILE)
+    live = q != SENTINEL
+    zero = torch.zeros((B, tiles), dtype=torch.int64, device=keys.device)
+    if not step:
+        return zero, torch.where(live.any(-1), V, zero)
+    qmin = torch.where(live, q, SENTINEL).amin(-1)
+    qmax = torch.where(live, q, -SENTINEL - 1).amax(-1)
+    fences = keys[:, ::step].long().contiguous()
+    nf = fences.shape[1]
+    c = torch.searchsorted(fences, (qmin - 1).contiguous())
+    d = torch.searchsorted(fences, (qmax + 2).contiguous())
+    lo = torch.where(c > 0, (c - 1) * step + 1, 0)
+    n = torch.where(d < nf, d * step, V) - lo
+    has = live.any(-1)
+    return torch.where(has, lo, zero), torch.where(has, n, zero)
+
+
+def lookup_pmz_cuda(keys: torch.Tensor, queries: torch.Tensor,
+                    window_len: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch `ptt_lookup_pmz`; returns three (B, Q) int32 tensors."""
+    """Launch `ptt_lookup_pmz`; returns three (B, Q) int32 tensors. Into
+    `window_len` ((B, tiles) int32), when given, the kernel writes each
+    tile's key-window length (`lookup_tile_windows`'s n)."""
     B, V = keys.shape
     Q = queries.shape[1]
     _cuda.check_cuda('keys', keys, torch.int32, (B, V))
     _cuda.check_cuda('queries', queries, torch.int32, (B, Q))
+    if keys.data_ptr() % 16:
+        raise ValueError('keys: expected a 16-byte aligned tensor')
+    tiles, capacity, fence_step, _ = lookup_launch_shape(B, V, Q)
+    if window_len is not None:
+        _cuda.check_cuda('window_len', window_len, torch.int32, (B, tiles))
     outs = [torch.empty((B, Q), dtype=torch.int32, device=keys.device)
             for _ in range(3)]
-    LOOKUP_PMZ(keys.data_ptr(), queries.data_ptr(), B, V, Q,
-               *(o.data_ptr() for o in outs), _cuda.current_stream(keys))
+    LOOKUP_PMZ(keys.data_ptr(), queries.data_ptr(), B, V, Q, capacity,
+               fence_step, *(o.data_ptr() for o in outs),
+               None if window_len is None else window_len.data_ptr(),
+               _cuda.current_stream(keys))
     return tuple(outs)
 
 
@@ -323,8 +391,10 @@ def lookup_pmz(keys: torch.Tensor, queries: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(q-1, q, q+1) index lookup: kernel on CUDA, plain on CPU."""
     if keys.is_cuda:
-        return lookup_pmz_cuda(keys.contiguous(),
-                               queries.to(torch.int32).contiguous())
+        keys = keys.contiguous()
+        if keys.data_ptr() % 16:  # the kernel loads keys 16 bytes at a time
+            keys = keys.clone()
+        return lookup_pmz_cuda(keys, queries.to(torch.int32).contiguous())
     return lookup_pmz_plain(keys, queries)
 
 
@@ -416,11 +486,6 @@ def conv_plan(nbr: torch.Tensor) -> ConvPlan:
     return ConvPlan(row_mask, order, hits[:K3 * R].view(K3, R), counts)
 
 
-@lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def conv_launch_shape(B: int, V_out: int, K3: int, C_in: int, C_out: int,
                       n_sm: int) -> Tuple[str, int, int]:
     """(path, output channels a block, splits) of `csrc/sparse_conv.cu`
@@ -462,7 +527,7 @@ def _launch_conv(kernel: _cuda.CudaKernel, role: int, feats: torch.Tensor,
     _cuda.check_cuda('row_mask', plan.row_mask, torch.int32, (B, V_out))
     _cuda.check_cuda('order', plan.order, torch.int32, (B, V_out))
     path, cols, splits = conv_launch_shape(B, V_out, K3, C_in, C_out,
-                                           _sm_count(feats.device))
+                                           _cuda.sm_count(feats.device))
     out = torch.empty((B, V_out, C_out), dtype=torch.float32,
                       device=feats.device)
     ws = (torch.empty((splits, B, V_out, C_out), dtype=torch.float32,
@@ -564,7 +629,7 @@ def sparse_conv_dw_cuda(feats: torch.Tensor, nbr: torch.Tensor,
     _cuda.check_cuda('hits', plan.hits, torch.int32, (K3, B * V_out))
     _cuda.check_cuda('hit_counts', plan.hit_counts, torch.int32, (K3, ))
     tm, tn, pairs_target, grid_pairs = dw_launch_shape(
-        B * V_out, K3, C_in, C_out, _sm_count(feats.device))
+        B * V_out, K3, C_in, C_out, _cuda.sm_count(feats.device))
     dw = torch.empty((K3, C_in, C_out), dtype=torch.float32,
                      device=feats.device)
     ws = torch.empty((grid_pairs, C_in, C_out), dtype=torch.float32,

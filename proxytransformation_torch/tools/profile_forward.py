@@ -10,7 +10,8 @@ of kernel intervals over the host-clock span of the request, which ends
 in a synchronize), and writes both to chiprun_out/profile_forward.json.
 The sparse conv's kernels are also summed by role (forward, input
 gradient, weight gradient: `csrc/sparse_conv.cu` and
-`csrc/sparse_conv_dw.cu` give each role its own kernel symbols).
+`csrc/sparse_conv_dw.cu` give each role its own kernel symbols), and the
+ball query's (head and tail passes) and the lookups' kernels by family.
 Fails when the profiler recorded no device activity.
 """
 from __future__ import annotations
@@ -37,18 +38,25 @@ CONV_ROLES = (('forward', 'sparse_conv_fwd_'),
               ('dW', 'sparse_conv_dw_'))
 
 
-def conv_roles(rows):
-    """{role: (device ms, launches)} of the sparse conv, from the
-    (ms, count, name) rows of a profile."""
-    return {role: (sum(ms for ms, _, name in rows if tag in name),
-                   sum(n for _, n, name in rows if tag in name))
-            for role, tag in CONV_ROLES}
+# substrings of the kernel symbols of the ball query (its head and tail
+# passes) and of the two lookups
+KERNEL_FAMILIES = (('ball_query', 'ball_query_'),
+                   ('lookup_pmz', 'lookup_pmz_'),
+                   ('lookup_center', 'lookup_center_'))
 
 
-def print_conv_roles(roles) -> None:
-    print('sparse conv by role: ' + ', '.join(
-        f'{role} {ms:.3f} ms ({n} launches)'
-        for role, (ms, n) in roles.items()))
+def sum_by_tag(rows, tags):
+    """{label: (device ms, launches)} of the kernels whose symbol holds
+    each (label, tag)'s tag, from the (ms, count, name) rows of a
+    profile."""
+    return {label: (sum(ms for ms, _, name in rows if tag in name),
+                    sum(n for _, n, name in rows if tag in name))
+            for label, tag in tags}
+
+
+def print_sums(title, sums) -> None:
+    print(f'{title}: ' + ', '.join(f'{label} {ms:.3f} ms ({n} launches)'
+                                   for label, (ms, n) in sums.items()))
 
 
 def _union_us(intervals):
@@ -98,14 +106,17 @@ def main() -> None:
     for ms, n, name in rows[:args.top]:
         print(f'{ms:9.3f} ms {100 * ms / kernel_ms:5.1f} % {n:6d}x  '
               f'{name[:110]}')
-    roles = conv_roles(rows)
-    print_conv_roles(roles)
+    roles = sum_by_tag(rows, CONV_ROLES)
+    print_sums('sparse conv by role', roles)
+    families = sum_by_tag(rows, KERNEL_FAMILIES)
+    print_sums('point and key kernels', families)
     out = Path(__file__).resolve().parents[2] / 'chiprun_out'
     out.mkdir(exist_ok=True)
     (out / 'profile_forward.json').write_text(json.dumps({
         'device': torch.cuda.get_device_name(0), 'wall_ms': wall_ms,
         'busy_ms': busy_ms, 'idle_share': 1 - busy_ms / wall_ms,
         'launches': len(kernels), 'sparse_conv_roles': roles,
+        'kernel_families': families,
         'kernels': [{'name': name, 'ms': ms, 'count': n}
                     for ms, n, name in rows]}, indent=1))
 

@@ -7,7 +7,8 @@ grounder at full width with random weights (seed 0) and its AdamW
 optimizer, takes one warm-up step, then traces one step (B=2, 100k
 surface-scene points, 20 views at 480x480, 32 tokens, 8 gt boxes a
 sample; batch and dropout seed 1). Prints the device time by kernel name,
-the sparse conv's device time by role (forward, dfeats, dW), the
+the sparse conv's device time by role (forward, dfeats, dW) and the
+ball query's and the lookups' by family, the
 device's busy and idle share of the step's wall time (the union of
 kernel intervals over the host-clock span of the step, which ends in a
 synchronize), the launch count and the peak memory, and writes them to
@@ -35,7 +36,8 @@ from ..engine.train import (build_lr_schedule, build_optimizer,
 from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
 from ..ops import _cuda
-from .profile_forward import _union_us, conv_roles, print_conv_roles
+from .profile_forward import (CONV_ROLES, KERNEL_FAMILIES, _union_us,
+                              print_sums, sum_by_tag)
 
 
 def main() -> None:
@@ -88,8 +90,10 @@ def main() -> None:
     for ms, n, name in rows[:args.top]:
         print(f'{ms:9.3f} ms {100 * ms / kernel_ms:5.1f} % {n:6d}x  '
               f'{name[:110]}')
-    roles = conv_roles(rows)
-    print_conv_roles(roles)
+    roles = sum_by_tag(rows, CONV_ROLES)
+    print_sums('sparse conv by role', roles)
+    families = sum_by_tag(rows, KERNEL_FAMILIES)
+    print_sums('point and key kernels', families)
     phases = phase_times(model, opt, schedule, batch(2),
                          torch.Generator(device='cuda').manual_seed(2))
     print('phases of one more step (device ms / host ms): ' + ', '.join(
@@ -100,7 +104,7 @@ def main() -> None:
         'device': torch.cuda.get_device_name(0), 'wall_ms': wall_ms,
         'busy_ms': busy_ms, 'idle_share': 1 - busy_ms / wall_ms,
         'launches': len(kernels), 'peak_gib': peak, 'phases_ms': phases,
-        'sparse_conv_roles': roles,
+        'sparse_conv_roles': roles, 'kernel_families': families,
         'kernels': [{'name': name, 'ms': ms, 'count': n}
                     for ms, n, name in rows]}, indent=1))
 

@@ -6,7 +6,8 @@ has no JAX; there, skip the JAX-pinning conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
-Ball query, the lookups and the row gather must be bit-exact; the sparse
+Ball query (staged and not), the lookups (and the lookup's tile
+windows) and the row gather must be bit-exact; the sparse
 conv, its weight gradient and its input gradient within
 |k - p| <= 1e-4 * (1 + max|p|) (float32 sums in another order).
 """
@@ -20,6 +21,7 @@ from proxytransformation_torch.models.detector import (
 from proxytransformation_torch.engine.train import (
     BASE_LR, build_lr_schedule, build_optimizer, make_train_step)
 from proxytransformation_torch.models.preshape import Dropout
+from proxytransformation_torch.ops import _cuda
 from proxytransformation_torch.ops import ball_query as bq
 from proxytransformation_torch.ops import sparse as sp
 from proxytransformation_torch.tools import gather_probe
@@ -53,6 +55,80 @@ def test_ball_query_kernel(gen, B, M, N, K, radius):
     assert torch.equal(got, want)
 
 
+def _planted_cloud(K, launch, N, M, B=3, r=0.5):
+    """Sample 0: isolated centers 3 apart on the x axis with planted hits
+    (center 0 none; 1 fewer than K, in the head and spread over tail
+    segments 0-7; 2 exactly K with the K-th on the last point of tail
+    segment 1, more after; 3 only in the last tail segment; 4 points at
+    exactly r on the axes, which miss, and just inside; 5 hits with
+    masked points between them; 6 exactly K ending on the head's last
+    point, more after). Sample 1: centers inside a random cloud (~26
+    hits each at r = 0.5). Sample 2: all masked."""
+    rng = np.random.RandomState(K)
+    S, L, H = launch.segments, launch.seg_len, launch.head
+    pts = rng.uniform(50, 60, (B, N, 3)).astype(np.float32)
+    mask = rng.rand(B, N) > 0.05
+    centers = rng.uniform(50, 60, (B, M, 3)).astype(np.float32)
+    centers[0] = 0
+    centers[0, :, 0] = 3 * np.arange(M)
+
+    def plant(m, idx, keep=True):
+        idx = np.asarray(idx, np.int64)
+        pts[0, idx] = centers[0, m] + rng.uniform(-0.25, 0.25, (idx.size, 3))
+        mask[0, idx] = keep
+
+    n1 = max(K - 3, 0)
+    plant(1, [*([11] if n1 else []),
+              *(H + 7 + np.arange(n1 - 1) * (8 * L // max(n1, 1)))])
+    plant(2, [*(20 + np.arange(max(K - 2, 0))), *([H + 5] if K > 1 else []),
+              H + 2 * L - 1, *(H + 2 * L + 5 + np.arange(3))])
+    plant(3, H + (S - 1) * L + 3 * np.arange(K + 5))
+    c4 = centers[0, 4]
+    on = [c4 + np.float32(r) * e for e in np.eye(3, dtype=np.float32)]
+    on += [c4 - np.float32(r) * e for e in np.eye(3, dtype=np.float32)]
+    inside = c4.copy()
+    inside[0] = np.nextafter(c4[0] + np.float32(r), np.float32(0))
+    pts[0, 100:106] = np.stack(on)
+    pts[0, 106] = inside
+    mask[0, 100:107] = True
+    plant(5, 300 + np.arange(2 * K))
+    mask[0, 301:300 + 2 * K:2] = False
+    plant(6, [*(H - K + np.arange(K)), H + 1, H + 2])
+    mask[2] = False
+    return (torch.tensor(centers, device='cuda'),
+            torch.tensor(pts, device='cuda'), torch.tensor(mask, device='cuda'))
+
+
+@pytest.mark.parametrize('K', [1, 30, 64])
+def test_ball_query_planted_segments(gen, K):
+    """Planted cases across the head and the tail segments, B = 3, N not
+    a multiple of the chunk or the segment, M not a multiple of the tile:
+    the kernels, staged and not, equal the plain version bit for bit."""
+    B, M, N, r = 3, 45, 50001, 0.5
+    launch = bq.ball_query_launch_shape(B, M, N, K,
+                                        _cuda.sm_count(torch.device('cuda')))
+    H, L = launch.head, launch.seg_len
+    assert launch.segments >= 8 and (N - H) % L
+    centers, pts, mask = _planted_cloud(K, launch, N, M, B, r)
+    r2 = bq.radius_squared(r)
+    want = bq.ball_query_idx_plain(centers, pts, mask, r2, K)
+    for staged in (True, False):
+        got = bq.ball_query_idx_cuda(centers, pts, mask, r2, K, staged)
+        assert torch.equal(got, want), staged
+    w = want[0].cpu().numpy()
+    assert (w[0] == -1).all()
+    assert (w[1, max(K - 3, 0):] == -1).all()
+    assert w[2, K - 1] == H + 2 * L - 1
+    assert (w[3, :K] >= H + (launch.segments - 1) * L).all()
+    assert w[4, 0] == 106 and (w[4, 1:] == -1).all()
+    assert (w[5, :K] % 2 == 0).all() and (w[5, :K] >= 300).all()
+    assert w[6, K - 1] == H - 1
+    assert (want[2] == -1).all()
+    assert (want[1] >= 0).any()
+    if K >= 30:  # ~26 hits a center: some centers stay short
+        assert (want[1, :, K - 1] == -1).any()
+
+
 def _keys(gen, B, V, hi, n_valid):
     keys = torch.full((B, V), sp.SENTINEL, dtype=torch.int32, device='cuda')
     for b in range(B):
@@ -73,6 +149,65 @@ def test_lookup_kernels(gen, B, V, Q, n_valid):
         assert torch.equal(g, w)
     assert torch.equal(sp.lookup_center(keys, q),
                        sp.lookup_center_plain(keys, q))
+
+
+def _lookup_case(case):
+    """(keys, queries) of one windowed-lookup case, as numpy int32."""
+    rng = np.random.RandomState(len(case))
+    top = sp.SENTINEL - 1
+    B, V = 2, 20000
+    keys = np.full((B, V), sp.SENTINEL, np.int64)
+    for b in range(B):
+        keys[b, :15000] = np.sort(rng.choice(60000, 15000, replace=False))
+    # column-like runs: each sample's keys shifted, in ascending order
+    q = np.concatenate([keys[:, :15000] + d for d in (-7, 0, 3)], axis=1)
+    if case == 'random_order':
+        q = rng.permutation(q.T).T
+    elif case == 'sentinel_tile':
+        q[:, sp.LOOKUP_TILE:2 * sp.LOOKUP_TILE] = sp.SENTINEL
+    elif case == 'oversized':
+        q[:, :sp.LOOKUP_TILE // 2] = keys[:, :sp.LOOKUP_TILE // 2]
+        q[:, sp.LOOKUP_TILE // 2:sp.LOOKUP_TILE] = \
+            keys[:, 15000 - sp.LOOKUP_TILE // 2:15000] - 1
+    elif case == 'v1':
+        keys = np.array([[5], [sp.SENTINEL]], np.int64)
+        q = rng.randint(2, 9, (B, 3000))
+        q[:, ::5] = sp.SENTINEL
+    elif case == 'below':
+        q = rng.randint(-2**31, -1, (B, 5000))
+        q[:, :3] = [-2**31, -2**31 + 1, -2]
+    elif case == 'near_max':
+        keys = np.full((B, 40), sp.SENTINEL, np.int64)
+        keys[0, :3] = [top - 3, top - 2, top]
+        keys[1, :2] = [top - 1, top]
+        q = rng.randint(top - 8, top + 1, (B, 2500))
+        q[:, 1::7] = sp.SENTINEL
+    return (np.ascontiguousarray(keys, np.int32),
+            np.ascontiguousarray(q, np.int32))
+
+
+LOOKUP_CASES = ['random_order', 'sentinel_tile', 'oversized', 'v1', 'below',
+                'near_max']
+
+
+@pytest.mark.parametrize('case', LOOKUP_CASES)
+def test_lookup_pmz_windows(gen, case):
+    """The windowed lookup equals the plain version bit for bit, and its
+    tile windows equal `lookup_tile_windows`."""
+    keys, q = (torch.tensor(a, device='cuda') for a in _lookup_case(case))
+    B, V = keys.shape
+    tiles, capacity, _, _ = sp.lookup_launch_shape(B, V, q.shape[1])
+    window = torch.empty((B, tiles), dtype=torch.int32, device='cuda')
+    got = sp.lookup_pmz_cuda(keys, q, window)
+    for g, w in zip(got, sp.lookup_pmz_plain(keys, q)):
+        assert torch.equal(g, w)
+    assert torch.equal(window.long(), sp.lookup_tile_windows(keys, q)[1])
+    assert torch.equal(sp.lookup_center(keys, q),
+                       sp.lookup_center_plain(keys, q))
+    if case in ('random_order', 'oversized'):
+        assert bool((window > capacity).any())
+    if case == 'sentinel_tile':
+        assert bool((window[:, 1] == 0).all())
 
 
 @pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit', [
@@ -245,7 +380,7 @@ def test_offset_split_path_at_a_small_level(gen):
     the same bits twice."""
     B, V, C_in, C_out = 2, 1000, 512, 256
     path, rows, splits = sp.conv_launch_shape(
-        B, V, 27, C_in, C_out, sp._sm_count(torch.device('cuda')))
+        B, V, 27, C_in, C_out, _cuda.sm_count(torch.device('cuda')))
     assert path == 'tile' and splits > 1
     feats = torch.randn(B, V, C_in, device='cuda', generator=gen)
     nbr = _random_map(gen, B, V, V, 27, 0.4)
@@ -266,7 +401,7 @@ def test_dw_bit_equal_over_splits(gen, C_in):
     g = torch.randn(B, V, C_out, device='cuda', generator=gen)
     plan = sp.conv_plan(nbr)
     _, _, target, _ = sp.dw_launch_shape(B * V, 27, C_in, C_out,
-                                         sp._sm_count(torch.device('cuda')))
+                                         _cuda.sm_count(torch.device('cuda')))
     _, S = sp.dw_split_table(plan.hit_counts.tolist(), target)
     assert max(S) >= 2
     got = sp.sparse_conv_dw_cuda(feats, nbr, g, plan)
