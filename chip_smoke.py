@@ -15,12 +15,11 @@ Phases (any failure exits non-zero before the final line):
      (float32 sums taken in another order); kernel, plain and library
      times are device times from CUDA events (see `time_ms`), bounds
      come from this run's inputs; one `[ball_query]` line a call (ms,
-     and ms of the two passes without their shared-memory staging,
-     which must agree too, and `warm_ms`; centers with fewer than K
-     hits, points a first-K scan visits, segments) and one `[lookup_pmz]`
-     line a call (V, Q, ms, `warm_ms`, bound, `torch.searchsorted` of q-1
-     alone, tiles over the window capacity; the kernel's tile windows
-     checked against `lookup_tile_windows`), after the floor of the
+     `warm_ms`, centers with fewer than K hits, points a first-K scan
+     visits, segments) and one `[lookup_pmz]` line a call (V, Q, ms,
+     `warm_ms`, bound, `torch.searchsorted` of q-1 alone, tiles over
+     the window capacity; the kernel's tile windows checked against
+     `lookup_tile_windows`), after the floor of the
      timing method (`timing_floor_ms`); the request's conv plans (one
      per neighbor map, checked) are counted and timed (`[plan]`);
   5. main path: launch counts reset to 0, three predict requests
@@ -222,23 +221,18 @@ def nbytes(*ts) -> int:
 # per-kernel checks
 # --------------------------------------------------------------------------
 def check_ball_query(calls):
-    """Each captured call through the kernels (and through their passes
-    without the shared-memory staging) against the plain version;
-    one line a call: ms, centers with fewer than K hits, points a
-    first-K scan visits, segments."""
+    """Each captured call through the kernels against the plain
+    version; one line a call: ms, centers with fewer than K hits, points
+    a first-K scan visits, segments."""
     from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import ball_query as bq
     rows = []
     for i, (centers, points, mask, r2, K) in enumerate(calls):
         got = bq.ball_query_idx_cuda(centers, points, mask, r2, K)
-        direct = bq.ball_query_idx_cuda(centers, points, mask, r2, K,
-                                        staged=False)
         want = bq.ball_query_idx_plain(centers, points, mask, r2, K)
         torch.cuda.synchronize()
         require(torch.equal(got, want), 'ball query differs from plain at '
                 f'{(got != want).nonzero()[:1].tolist()}')
-        require(torch.equal(direct, want),
-                'ball query without staging differs from plain')
         B, M, _ = centers.shape
         N = points.shape[1]
         last = got[..., K - 1].long()
@@ -251,10 +245,6 @@ def check_ball_query(calls):
             shape=f'B={B} M={M} N={N} K={K}', max_abs_err=0,
             ms=time_ms(f'ball_query {i}', lambda: bq.ball_query_idx_cuda(
                 centers, points, mask, r2, K)),
-            ms_unstaged=time_ms(f'ball_query unstaged {i}',
-                                lambda: bq.ball_query_idx_cuda(
-                                    centers, points, mask, r2, K,
-                                    staged=False)),
             warm_ms=warm_ms(lambda: bq.ball_query_idx_cuda(
                 centers, points, mask, r2, K)),
             plain_ms=time_ms(f'ball_query plain {i}',
@@ -266,8 +256,8 @@ def check_ball_query(calls):
             seg_len=shape.seg_len)
         rows.append(row)
         log(f'[ball_query] call {i} ({row["shape"]}): {row["ms"]:.4f} ms '
-            f'(without staging {row["ms_unstaged"]:.4f} ms, warm '
-            f'{row["warm_ms"]:.4f} ms), bound {bound(byts, ops)[0]:.4f} ms; '
+            f'(warm {row["warm_ms"]:.4f} ms), bound '
+            f'{bound(byts, ops)[0]:.4f} ms; '
             f'{row["short_centers"]} centers with fewer than {K} hits, '
             f'{row["points_scanned"]} points a first-K scan visits, head '
             f'{shape.head} points, {shape.segments} segments of '

@@ -49,11 +49,9 @@
 // one. A warp reads each point once and tests it against its live
 // centers: a __ballot_sync over "valid and within radius" per center
 // gives the step's hits, a popc of the lanes below each hit its slot, so
-// hits land in point order.
-//
-// `staged` = 0 runs the same passes with each warp reading the points
-// straight from global memory (no shared memory, no barriers in the
-// scan); chip_smoke.py times both.
+// hits land in point order. Staging was measured against each warp
+// reading the points straight from global memory: 1.3-1.7x faster on
+// the flagship's calls (PERF.md).
 //
 // Exactness: d² = (dx*dx + dy*dy) + dz*dz with dx = p - c, computed with
 // round-to-nearest intrinsics (and -fmad=false) so nothing contracts into
@@ -125,7 +123,6 @@ __device__ __forceinline__ void load_center(const float* __restrict__ centers,
 // this segment) each center's running count goes to prog[seg] after
 // every chunk, and the earlier segments' are read back. Called by every
 // thread of the block.
-template <bool kStaged>
 __device__ __forceinline__ void scan_points(const float* __restrict__ pts,
                                             const uint8_t* __restrict__ msk, int lo,
                                             int hi, float r2, int seg, Centers& c,
@@ -133,23 +130,19 @@ __device__ __forceinline__ void scan_points(const float* __restrict__ pts,
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   float4 next[kPointsPerThread];
-  if (kStaged) {
+#pragma unroll
+  for (int k = 0; k < kPointsPerThread; ++k)
+    next[k] = load_point(pts, msk, lo + threadIdx.x + k * kThreads, hi);
+  for (int base = lo; base < hi; base += kChunk) {
 #pragma unroll
     for (int k = 0; k < kPointsPerThread; ++k)
-      next[k] = load_point(pts, msk, lo + threadIdx.x + k * kThreads, hi);
-  }
-  for (int base = lo; base < hi; base += kChunk) {
-    if (kStaged) {
+      chunk[threadIdx.x + k * kThreads] = next[k];
+    __syncthreads();
+    // the next chunk's loads stay in flight while the warps test this one
+    if (base + kChunk < hi) {
 #pragma unroll
       for (int k = 0; k < kPointsPerThread; ++k)
-        chunk[threadIdx.x + k * kThreads] = next[k];
-      __syncthreads();
-      // the next chunk's loads stay in flight while the warps test this one
-      if (base + kChunk < hi) {
-#pragma unroll
-        for (int k = 0; k < kPointsPerThread; ++k)
-          next[k] = load_point(pts, msk, base + kChunk + threadIdx.x + k * kThreads, hi);
-      }
+        next[k] = load_point(pts, msk, base + kChunk + threadIdx.x + k * kThreads, hi);
     }
     bool live[kPerWarp];
     bool any = false;
@@ -164,7 +157,7 @@ __device__ __forceinline__ void scan_points(const float* __restrict__ pts,
 #pragma unroll 4
       for (int step = 0; step < kChunk / 32; ++step) {
         const int off = step * 32 + lane;
-        const float4 p = kStaged ? chunk[off] : load_point(pts, msk, base + off, hi);
+        const float4 p = chunk[off];
 #pragma unroll
         for (int j = 0; j < kPerWarp; ++j) {
           const bool within = live[j] && within_radius(p, c.x[j], c.y[j], c.z[j], r2);
@@ -186,19 +179,14 @@ __device__ __forceinline__ void scan_points(const float* __restrict__ pts,
       }
       full &= c.count[j] + c.earlier[j] >= c.need[j];
     }
-    if (kStaged) {
-      // also the barrier before the next chunk overwrites shared memory
-      if (__syncthreads_and(full)) break;
-    } else if (full) {
-      break;
-    }
+    // also the barrier before the next chunk overwrites shared memory
+    if (__syncthreads_and(full)) break;
   }
 }
 
 // Block = 16 consecutive centers of one sample. Points [0, head): each
 // center's hits to out (then -1), min(hits, K) to cnt; a center still
 // short of K goes to its sample's list, its running counts to 0.
-template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 ball_query_head_kernel(const float* __restrict__ centers,
                        const float* __restrict__ points,
@@ -206,7 +194,7 @@ ball_query_head_kernel(const float* __restrict__ centers,
                        float r2, int head, int S, int* __restrict__ cnt,
                        int* __restrict__ ctrl, int* __restrict__ list,
                        int* __restrict__ prog, int* __restrict__ out) {
-  __shared__ float4 chunk[kStaged ? kChunk : 1];
+  __shared__ float4 chunk[kChunk];
   const int lane = threadIdx.x & 31;
   const int groups = (M + kGroup - 1) / kGroup;
   const int b = blockIdx.x / groups;
@@ -219,8 +207,8 @@ ball_query_head_kernel(const float* __restrict__ centers,
     c.out[j] = out + c.row[j] * K;
     c.prog[j] = nullptr;
   }
-  scan_points<kStaged>(points + static_cast<long long>(b) * N * 3,
-                       mask + static_cast<long long>(b) * N, 0, head, r2, -1, c, chunk);
+  scan_points(points + static_cast<long long>(b) * N * 3,
+              mask + static_cast<long long>(b) * N, 0, head, r2, -1, c, chunk);
 #pragma unroll
   for (int j = 0; j < kPerWarp; ++j) {
     if (c.need[j] == 0) continue;  // uniform per warp
@@ -242,7 +230,6 @@ ball_query_head_kernel(const float* __restrict__ centers,
 // hits in the segment go to ws_idx[(row * S + s) * K ...], their number
 // to ws_cnt[row * S + s]; the group's last item fills out[row][cnt .. K)
 // from the segments in order.
-template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 ball_query_tail_kernel(const float* __restrict__ centers,
                        const float* __restrict__ points,
@@ -252,7 +239,7 @@ ball_query_tail_kernel(const float* __restrict__ centers,
                        const int* __restrict__ list, int* __restrict__ prog,
                        int* __restrict__ ws_idx, int* __restrict__ ws_cnt,
                        int* __restrict__ out) {
-  __shared__ float4 chunk[kStaged ? kChunk : 1];
+  __shared__ float4 chunk[kChunk];
   __shared__ int item;
   __shared__ bool last;
   const int lane = threadIdx.x & 31;
@@ -286,9 +273,8 @@ ball_query_tail_kernel(const float* __restrict__ centers,
     }
     const int seg_lo = min(N, head + s * seg_len);
     const int seg_hi = min(N, seg_lo + seg_len);
-    scan_points<kStaged>(points + static_cast<long long>(b) * N * 3,
-                         mask + static_cast<long long>(b) * N, seg_lo, seg_hi, r2, s, c,
-                         chunk);
+    scan_points(points + static_cast<long long>(b) * N * 3,
+                mask + static_cast<long long>(b) * N, seg_lo, seg_hi, r2, s, c, chunk);
 #pragma unroll
     for (int j = 0; j < kPerWarp; ++j) {
       if (c.need[j] > 0 && lane == 0)
@@ -342,7 +328,7 @@ ball_query_tail_kernel(const float* __restrict__ centers,
 extern "C" int ptt_ball_query(const void* centers, const void* points,
                               const void* mask, int B, int M, int N, int K,
                               float r2, int head, int segments, int seg_len,
-                              int tail_blocks, int staged, void* cnt, void* ctrl,
+                              int tail_blocks, void* cnt, void* ctrl,
                               void* list, void* prog, void* ws_idx, void* ws_cnt,
                               void* out, void* stream) {
   if (segments < 1 || segments > kMaxSegments || seg_len < 0 || head < 0 ||
@@ -354,16 +340,14 @@ extern "C" int ptt_ball_query(const void* centers, const void* points,
     const size_t ctrl_bytes = (kListLen + B + static_cast<size_t>(B) * groups) * sizeof(int);
     cudaError_t err = cudaMemsetAsync(ctrl, 0, ctrl_bytes, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    auto head_kernel = staged ? ball_query_head_kernel<true> : ball_query_head_kernel<false>;
-    head_kernel<<<B * groups, kThreads, 0, st>>>(
+    ball_query_head_kernel<<<B * groups, kThreads, 0, st>>>(
         static_cast<const float*>(centers), static_cast<const float*>(points),
         static_cast<const uint8_t*>(mask), M, N, K, r2, head, segments,
         static_cast<int*>(cnt), static_cast<int*>(ctrl), static_cast<int*>(list),
         static_cast<int*>(prog), static_cast<int*>(out));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    auto tail_kernel = staged ? ball_query_tail_kernel<true> : ball_query_tail_kernel<false>;
-    tail_kernel<<<tail_blocks, kThreads, 0, st>>>(
+    ball_query_tail_kernel<<<tail_blocks, kThreads, 0, st>>>(
         static_cast<const float*>(centers), static_cast<const float*>(points),
         static_cast<const uint8_t*>(mask), B, M, N, K, r2, head, segments, seg_len,
         static_cast<const int*>(cnt), static_cast<int*>(ctrl),

@@ -55,6 +55,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 4;
 constexpr int kTile = kThreads * kPerThread;  // queries a block
 constexpr int kMaxFences = 256;
+// the dynamic shared memory a launch gets without cudaFuncSetAttribute;
+// lookup_launch_shape keeps every window within it
+constexpr int kDefaultSmem = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int V,
@@ -291,7 +294,7 @@ int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThre
 // (B * ceil(Q / 1024)) int32; all contiguous on the device. A window of
 // up to `capacity` keys (a multiple of 4) goes to shared memory, which
 // holds capacity + 4 keys (a window starts up to 3 keys into it) and,
-// with fence_step > 0, kMaxFences fences.
+// with fence_step > 0, kMaxFences fences: at most 48 KB in all.
 extern "C" int ptt_lookup_pmz(const void* keys, const void* queries, int B,
                               int V, int Q, int capacity, int fence_step,
                               void* out_minus, void* out_center, void* out_plus,
@@ -300,19 +303,13 @@ extern "C" int ptt_lookup_pmz(const void* keys, const void* queries, int B,
       fence_step == 0 ? V <= capacity
                       : (fence_step & (fence_step - 1)) == 0 &&
                             (V + fence_step - 1) / fence_step <= kMaxFences;
-  if (!aligned16(keys) || capacity < 0 || capacity % 4 != 0 || !fences_ok)
+  const int smem = (capacity + 4 + (fence_step ? kMaxFences : 0)) *
+                   static_cast<int>(sizeof(int));
+  if (!aligned16(keys) || capacity < 0 || capacity % 4 != 0 || !fences_ok ||
+      smem > kDefaultSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (Q + kTile - 1) / kTile;
   if (B > 0 && tiles > 0) {
-    const int smem = (capacity + 4 + (fence_step ? kMaxFences : 0)) *
-                     static_cast<int>(sizeof(int));
-    static int smem_set = 48 * 1024;  // the default dynamic shared-memory limit
-    if (smem > smem_set) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          lookup_pmz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      smem_set = smem;
-    }
     lookup_pmz_kernel<<<B * tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(keys), static_cast<const int*>(queries), B, V, Q,
         tiles, capacity, fence_step, static_cast<int*>(out_minus),

@@ -21,7 +21,7 @@ from .common import masked_gather
 BALL_QUERY = _cuda.CudaKernel(
     'ball_query', 'ball_query', 'ptt_ball_query',
     [_cuda.ptr, _cuda.ptr, _cuda.ptr, *[_cuda.i32] * 4, _cuda.f32,
-     *[_cuda.i32] * 5, *[_cuda.ptr] * 8],
+     *[_cuda.i32] * 4, *[_cuda.ptr] * 8],
     source='proxytransformation_torch/csrc/ball_query.cu',
     replaces='proxytransformation_tpu/ops/ball_query_pallas.py:100',
     kernels_per_call=2)
@@ -103,22 +103,19 @@ class BallQueryLaunch(NamedTuple):
                 self.ws_cnt)
 
 
-def ball_query_launch_shape(B: int, M: int, N: int, K: int, n_sm: int,
-                            head: int = BALL_QUERY_HEAD,
-                            segments: Optional[int] = None
+def ball_query_launch_shape(B: int, M: int, N: int, K: int, n_sm: int
                             ) -> BallQueryLaunch:
-    """The cut of a call: a head of `head` points, then `segments` tail
-    segments (by default as many as the points allow: at most 32, each
-    at least `_MIN_SEGMENT_CHUNKS` chunks long), each a whole number of
-    chunks but the last, none empty unless the head holds every point;
+    """The cut of a call: a head of `BALL_QUERY_HEAD` points, then as
+    many tail segments as the rest allows (at most 32, each at least
+    `_MIN_SEGMENT_CHUNKS` chunks long), each a whole number of chunks but
+    the last, none empty unless the head holds every point;
     `_TAIL_BLOCKS_PER_SM` persistent tail blocks an SM."""
-    head = min(N, head)
+    head = min(N, BALL_QUERY_HEAD)
     rest = N - head
-    want = segments or BALL_QUERY_MAX_SEGMENTS
     segments, seg_len = 1, 0
     if rest:
         most = -(-rest // (_MIN_SEGMENT_CHUNKS * BALL_QUERY_CHUNK))
-        segments = max(1, min(want, most, BALL_QUERY_MAX_SEGMENTS))
+        segments = max(1, min(most, BALL_QUERY_MAX_SEGMENTS))
         chunks = -(-rest // BALL_QUERY_CHUNK)
         seg_len = -(-chunks // segments) * BALL_QUERY_CHUNK
         segments = -(-rest // seg_len)
@@ -132,28 +129,23 @@ def ball_query_launch_shape(B: int, M: int, N: int, K: int, n_sm: int,
 
 def ball_query_idx_cuda(centers: torch.Tensor, points: torch.Tensor,
                         points_mask: torch.Tensor, radius2: float,
-                        K: int, staged: bool = True,
-                        shape: Optional[BallQueryLaunch] = None
-                        ) -> torch.Tensor:
+                        K: int) -> torch.Tensor:
     """Launch `csrc/ball_query.cu`'s head and tail passes; returns
-    (B, M, K) int32. `staged=False` runs both passes without their
-    shared-memory staging, and `shape` replaces the launch shape (the
-    comparisons of chip_smoke.py and tools/ball_query_sweep.py)."""
+    (B, M, K) int32."""
     B, M, _ = centers.shape
     N = points.shape[1]
     _cuda.check_cuda('centers', centers, torch.float32, (B, M, 3))
     _cuda.check_cuda('points', points, torch.float32, (B, N, 3))
     _cuda.check_cuda('points_mask', points_mask, torch.bool, (B, N))
-    if shape is None:
-        shape = ball_query_launch_shape(B, M, N, K,
-                                        _cuda.sm_count(centers.device))
+    shape = ball_query_launch_shape(B, M, N, K,
+                                    _cuda.sm_count(centers.device))
     dev = centers.device
     out = torch.empty((B, M, K), dtype=torch.int32, device=dev)
     ws = [torch.empty(s, dtype=torch.int32, device=dev)
           for s in shape.workspaces]
     BALL_QUERY(centers.data_ptr(), points.data_ptr(), points_mask.data_ptr(),
                B, M, N, K, ctypes.c_float(radius2), shape.head,
-               shape.segments, shape.seg_len, shape.tail_blocks, int(staged),
+               shape.segments, shape.seg_len, shape.tail_blocks,
                *(w.data_ptr() for w in ws), out.data_ptr(),
                _cuda.current_stream(centers))
     return out

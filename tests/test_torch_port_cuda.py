@@ -6,7 +6,7 @@ has no JAX; there, skip the JAX-pinning conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
-Ball query (staged and not), the lookups (and the lookup's tile
+Ball query, the lookups (and the lookup's tile
 windows) and the row gather must be bit-exact; the sparse
 conv, its weight gradient and its input gradient within
 |k - p| <= 1e-4 * (1 + max|p|) (float32 sums in another order).
@@ -103,7 +103,7 @@ def _planted_cloud(K, launch, N, M, B=3, r=0.5):
 def test_ball_query_planted_segments(gen, K):
     """Planted cases across the head and the tail segments, B = 3, N not
     a multiple of the chunk or the segment, M not a multiple of the tile:
-    the kernels, staged and not, equal the plain version bit for bit."""
+    the kernels equal the plain version bit for bit."""
     B, M, N, r = 3, 45, 50001, 0.5
     launch = bq.ball_query_launch_shape(B, M, N, K,
                                         _cuda.sm_count(torch.device('cuda')))
@@ -112,9 +112,8 @@ def test_ball_query_planted_segments(gen, K):
     centers, pts, mask = _planted_cloud(K, launch, N, M, B, r)
     r2 = bq.radius_squared(r)
     want = bq.ball_query_idx_plain(centers, pts, mask, r2, K)
-    for staged in (True, False):
-        got = bq.ball_query_idx_cuda(centers, pts, mask, r2, K, staged)
-        assert torch.equal(got, want), staged
+    got = bq.ball_query_idx_cuda(centers, pts, mask, r2, K)
+    assert torch.equal(got, want)
     w = want[0].cpu().numpy()
     assert (w[0] == -1).all()
     assert (w[1, max(K - 3, 0):] == -1).all()

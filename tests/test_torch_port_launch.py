@@ -19,7 +19,9 @@ from proxytransformation_torch.ops import ball_query as bq
 from proxytransformation_torch.ops import sparse as sp
 
 H100_SMS = 132
-SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block can use
+# dynamic shared memory a launch gets without opting in through
+# cudaFuncSetAttribute, which `ptt_lookup_pmz` does not do
+DEFAULT_DYNAMIC_SMEM = 48 * 1024
 FLAGSHIP = (2, 1728, 100_000, 30)  # B, M (grid 12³), N, K of the preshape
 
 
@@ -71,8 +73,6 @@ def test_ball_query_fills_the_card_at_the_flagship():
     assert ws_bytes == 4 * (B * M * (2 + shape.segments * (K + 2))
                             + 1 + B + 216)
     assert ws_bytes < 16 * 2**20
-    assert bq.ball_query_launch_shape(B, M, N, K, H100_SMS,
-                                      segments=8).segments == 8
 
 
 @pytest.mark.parametrize('B,V,Q', [(2, 100_000, 900_000), (2, 2000, 18_000),
@@ -83,7 +83,8 @@ def test_lookup_launch_shape(B, V, Q):
     holds a whole sample's keys below `LOOKUP_MAX_WINDOW`; above it the
     fences are a power of two apart and at most `LOOKUP_MAX_FENCES`;
     shared memory holds the capacity, the 16-byte lead and the fences,
-    within a Hopper block's 227 KB."""
+    within the 48 KB a launch gets by default (and so within a Hopper
+    block's 227 KB)."""
     tiles, capacity, step, smem = sp.lookup_launch_shape(B, V, Q)
     assert (tiles - 1) * sp.LOOKUP_TILE < max(Q, 1) <= tiles * sp.LOOKUP_TILE
     assert capacity % 4 == 0 and capacity <= sp.LOOKUP_MAX_WINDOW
@@ -95,7 +96,7 @@ def test_lookup_launch_shape(B, V, Q):
         assert step & (step - 1) == 0
         assert -(-V // step) <= sp.LOOKUP_MAX_FENCES < -(-V // (step // 2))
         assert smem == 4 * (capacity + 4 + sp.LOOKUP_MAX_FENCES)
-    assert smem <= SMEM_PER_BLOCK
+    assert smem <= DEFAULT_DYNAMIC_SMEM
 
 
 def _windowed_lookup(keys, queries):
