@@ -19,7 +19,9 @@ Phases (any failure exits non-zero before the final line):
      visits, segments) and one `[lookup_pmz]` line a call (V, Q, ms,
      `warm_ms`, bound, `torch.searchsorted` of q-1 alone, tiles over
      the window capacity; the kernel's tile windows checked against
-     `lookup_tile_windows`), after the floor of the
+     `lookup_tile_windows`) and one `[lookup_center]` line a call (the
+     same, with whether the whole key row fits in shared memory, and
+     `torch.searchsorted` of q), after the floor of the
      timing method (`timing_floor_ms`); the request's conv plans (one
      per neighbor map, checked) are counted and timed (`[plan]`);
   5. main path: launch counts reset to 0, three predict requests
@@ -43,7 +45,7 @@ Phases (any failure exits non-zero before the final line):
   9. probes off the main path: the conv kernel on sorted random maps
      without column structure (TPU kernel `sparse_conv_gather_gemm`),
      and the row-gather probe (bit-exact against `table[idx]`, timed
-     against `torch.index_select`).
+     cold and warm against `torch.index_select`: `[row_gather]`).
 Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW) and
 conv class (stem, stage i strided, stage i self, neck): calls, summed
 ms, bound, and rows multiplied per hit.
@@ -311,23 +313,50 @@ def check_lookup_pmz(calls):
 
 
 def check_lookup_center(calls):
+    """Each captured call against the plain version, the kernel's tile
+    windows against `lookup_tile_windows`; one line a call: V, Q,
+    whether the whole key row fits shared memory or fences place the
+    windows, ms, warm ms, bound, and `torch.searchsorted` of q (the
+    search alone)."""
     from proxytransformation_torch.ops import sparse as sp
     rows = []
     for i, (keys, queries) in enumerate(calls):
-        got = sp.lookup_center_cuda(keys, queries)
+        B, V = keys.shape
+        Q = queries.shape[1]
+        tiles, capacity, step, _ = sp.lookup_launch_shape(B, V, Q)
+        window = torch.empty((B, tiles), dtype=torch.int32, device='cuda')
+        got = sp.lookup_center_cuda(keys, queries, window)
         want = sp.lookup_center_plain(keys, queries)
         torch.cuda.synchronize()
         require(torch.equal(got, want), 'center lookup differs from plain')
-        B, V = keys.shape
-        rows.append(dict(
-            shape=f'B={B} V={V} Q={queries.shape[1]}', max_abs_err=0,
+        require(torch.equal(window.long(),
+                            sp.lookup_tile_windows(keys, queries)[1]),
+                'center lookup tile windows differ from lookup_tile_windows')
+        byts = nbytes(keys, queries, got)
+        row = dict(
+            shape=f'B={B} V={V} Q={Q}', max_abs_err=0,
             ms=time_ms(f'lookup_center {i}',
                        lambda: sp.lookup_center_cuda(keys, queries)),
             plain_ms=time_ms(f'lookup_center plain {i}',
                              lambda: sp.lookup_center_plain(keys, queries)),
             library_ms=time_ms(f'lookup_center library {i}',
                                lambda: torch.searchsorted(keys, queries)),
-            bytes=nbytes(keys, queries, got), ops=0.0))
+            warm_ms=warm_ms(lambda: sp.lookup_center_cuda(keys, queries)),
+            library_warm_ms=warm_ms(
+                lambda: torch.searchsorted(keys, queries)),
+            bytes=byts, ops=0.0, tiles=B * tiles, whole_row=step == 0,
+            tiles_over_capacity=int((window > capacity).sum()),
+            capacity=capacity)
+        rows.append(row)
+        where = ('whole row in shared memory' if step == 0 else
+                 f'windows placed by fences every {step} keys, '
+                 f'{row["tiles_over_capacity"]} of {B * tiles} tiles over '
+                 f'the {capacity}-key capacity')
+        log(f'[lookup_center] call {i}: V={V} Q={Q}, {where}: '
+            f'{row["ms"]:.4f} ms (warm {row["warm_ms"]:.4f} ms), bound '
+            f'{bound(byts, 0.0)[0]:.5f} ms, searchsorted '
+            f'{row["library_ms"]:.4f} ms (warm '
+            f'{row["library_warm_ms"]:.4f} ms)')
     return rows
 
 
@@ -621,7 +650,7 @@ def check_row_gather():
     require(torch.equal(got, gp.row_gather_plain(table, idx)),
             'row gather differs from table[idx]')
     lidx = idx.long()
-    return [dict(
+    row = dict(
         shape=f'table={tuple(table.shape)} idx={tuple(idx.shape)}',
         max_abs_err=0,
         ms=time_ms('row_gather', lambda: gp.row_gather_cuda(table, idx)),
@@ -629,8 +658,15 @@ def check_row_gather():
                          lambda: gp.row_gather_plain(table, idx)),
         library_ms=time_ms('row_gather library',
                            lambda: torch.index_select(table, 0, lidx)),
+        warm_ms=warm_ms(lambda: gp.row_gather_cuda(table, idx)),
+        library_warm_ms=warm_ms(lambda: torch.index_select(table, 0, lidx)),
         # each gathered row read once, the indices, the output
-        bytes=2 * nbytes(got) + nbytes(idx), ops=0.0)]
+        bytes=2 * nbytes(got) + nbytes(idx), ops=0.0)
+    log(f'[row_gather] {row["shape"]}: {row["ms"]:.4f} ms (warm '
+        f'{row["warm_ms"]:.4f} ms), bound {bound(row["bytes"], 0.0)[0]:.5f} '
+        f'ms, index_select {row["library_ms"]:.4f} ms (warm '
+        f'{row["library_warm_ms"]:.4f} ms), plain {row["plain_ms"]:.4f} ms')
+    return [row]
 
 
 def bound(byts: float, ops: float):

@@ -23,28 +23,32 @@
 // search in global memory still left ~7 dependent round trips a block
 // (~9 us a launch at any size).
 //
-// Design of ptt_lookup_pmz, after the TPU kernel's merge-join window:
-// a block takes a tile of 1024 consecutive queries of one sample (4 a
-// thread). While its queries load, it loads into shared memory either
-// the sample's whole key row (V <= capacity), or every F-th key (the
-// fences, at most 256; F a power of two). The block-wide min and max of
-// its non-SENTINEL queries then place the tile's window among the
-// fences in shared memory: [lo, hi) holds lower_bound(qmin-1) ..
-// lower_bound(qmax+2), the only keys its answers can reach, and at most
-// F-1 more keys at each end. The block loads that window with 16-byte
-// loads, up to `capacity` keys, and each thread searches it in shared
-// memory for the lower bound of q-1 (binary lifting, the same steps for
-// all its queries, so their loads overlap); the three slots from there
-// answer q-1, q, q+1 (keys are unique among valid entries; compares in
-// 64 bits so q±1 cannot overflow). A block waits for two dependent
-// loads, or one where the whole row fits. A tile whose window exceeds
-// the capacity narrows each query to F keys by the fences and searches
-// those in global memory; it gives the same answers, and the kernel
-// reports each tile's window length when asked. Answers do not depend
-// on query order: build_neighbor_map's ascending column runs only keep
-// windows about as long as the tile.
+// Design, after the TPU kernel's merge-join window: a block takes a tile
+// of 1024 consecutive queries of one sample (4 a thread). While its
+// queries load, it loads into shared memory either the sample's whole
+// key row (V <= capacity), or every F-th key (the fences, at most 256; F
+// a power of two). The block-wide min and max of its non-SENTINEL
+// queries then place the tile's window among the fences in shared
+// memory: [lo, hi) holds lower_bound(qmin-1) .. lower_bound(qmax+2), the
+// only keys its answers can reach, and at most F-1 more keys at each
+// end. The block loads that window with 16-byte loads, up to `capacity`
+// keys, and each thread searches it in shared memory (binary lifting,
+// the same steps for all its queries, so their loads overlap). A block
+// waits for two dependent loads, or one where the whole row fits. A tile
+// whose window exceeds the capacity narrows each query to F keys by the
+// fences and searches those in global memory; it gives the same answers,
+// and the kernel reports each tile's window length when asked. Answers
+// do not depend on query order: build_neighbor_map's ascending column
+// runs keep windows about as long as the tile, and the neck's parent
+// keys (not ascending) search rows that fit whole.
 //
-// ptt_lookup_center still searches each query on its own.
+// One body, two output forms, each its own kernel symbol so a profile
+// tells them apart: lookup_pmz_kernel searches the lower bound of q-1,
+// and the three slots from there answer q-1, q, q+1 (keys are unique
+// among valid entries; compares in 64 bits so q±1 cannot overflow);
+// lookup_center_tile_kernel searches the lower bound of q and answers it
+// where the key there equals q. The pmz window holds every center
+// answer, so both forms share it.
 #include "common.cuh"
 
 namespace {
@@ -59,16 +63,6 @@ constexpr int kMaxFences = 256;
 // lookup_launch_shape keeps every window within it
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int V,
-                                           long long x) {
-  int lo = 0, hi = V;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (static_cast<long long>(keys[mid]) < x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // How many of fence[0, nf) are below x, counted by one warp (every lane
 // returns it).
@@ -124,20 +118,21 @@ __device__ __forceinline__ int stage_keys(const int* __restrict__ keys, long lon
   return static_cast<int>(f_lo - a0);
 }
 
-// One block per (sample, tile of kTile queries). fence_step F: 0 where
-// the whole row fits in `capacity`, else a power of two with
-// ceil(V / F) <= kMaxFences. window_len, when not null, receives each
-// tile's window length (0 for an all-SENTINEL tile).
-__global__ void __launch_bounds__(kThreads)
-lookup_pmz_kernel(const int* __restrict__ keys, const int* __restrict__ queries,
-                  int B, int V, int Q, int tiles, int capacity, int fence_step,
-                  int* __restrict__ out_minus, int* __restrict__ out_center,
-                  int* __restrict__ out_plus, int* __restrict__ window_len) {
-  extern __shared__ int4 window4[];  // capacity + 4 keys, then the fences
+// One block per (sample, tile of kTile queries), the body of both
+// kernels; kCenter picks the output form (out_minus and out_plus unused
+// when set). fence_step F: 0 where the whole row fits in `capacity`,
+// else a power of two with ceil(V / F) <= kMaxFences. window_len, when
+// not null, receives each tile's window length (0 for an all-SENTINEL
+// tile). Shared memory: `window4` (dynamic: capacity + 4 keys, then the
+// fences), `red` (2 x kWarps) and `ends` (2), declared by the kernels.
+template <bool kCenter>
+__device__ __forceinline__ void lookup_tile(
+    const int* __restrict__ keys, const int* __restrict__ queries, int B, int V, int Q,
+    int tiles, int capacity, int fence_step, int* __restrict__ out_minus,
+    int* __restrict__ out_center, int* __restrict__ out_plus, int* __restrict__ window_len,
+    int4* window4, int (*red)[kWarps], int* ends) {
   int* window = reinterpret_cast<int*>(window4);
   int* fence = window + capacity + 4;
-  __shared__ int red[2][kWarps];
-  __shared__ int ends[2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long b = blockIdx.x / tiles;
@@ -193,7 +188,9 @@ lookup_pmz_kernel(const int* __restrict__ keys, const int* __restrict__ queries,
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int i = q0 + k * kThreads + threadIdx.x;
-      if (i < Q) out_minus[b * Q + i] = out_center[b * Q + i] = out_plus[b * Q + i] = -1;
+      if (i >= Q) continue;
+      out_center[b * Q + i] = -1;
+      if constexpr (!kCenter) out_minus[b * Q + i] = out_plus[b * Q + i] = -1;
     }
     return;
   }
@@ -219,9 +216,11 @@ lookup_pmz_kernel(const int* __restrict__ keys, const int* __restrict__ queries,
   }
   if (window_len != nullptr && threadIdx.x == 0) window_len[blockIdx.x] = n;
 
+  // the lower bound searched: of q-1 (its three slots answer q-1, q,
+  // q+1) or of q
   long long x[kPerThread];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) x[k] = static_cast<long long>(q[k]) - 1;
+  for (int k = 0; k < kPerThread; ++k) x[k] = static_cast<long long>(q[k]) - (kCenter ? 0 : 1);
   // keys w[0, wn) with w[j] = row key lo + j
   const int* w;
   int wn, pos[kPerThread], zero[kPerThread], len[kPerThread];
@@ -254,6 +253,11 @@ lookup_pmz_kernel(const int* __restrict__ keys, const int* __restrict__ queries,
   for (int k = 0; k < kPerThread; ++k) {
     const int i = q0 + k * kThreads + threadIdx.x;
     if (i >= Q) continue;
+    const long long t = b * Q + i;
+    if constexpr (kCenter) {
+      out_center[t] = q[k] != kSentinel && pos[k] < wn && w[pos[k]] == q[k] ? lo + pos[k] : -1;
+      continue;
+    }
     int rm = -1, rc = -1, rp = -1;
     if (q[k] != kSentinel) {
       // keys past the window exceed q+1, so the slots stop at its end
@@ -263,29 +267,67 @@ lookup_pmz_kernel(const int* __restrict__ keys, const int* __restrict__ queries,
         if (d == -1) rm = lo + j; else if (d == 0) rc = lo + j; else rp = lo + j;
       }
     }
-    const long long t = b * Q + i;
     out_minus[t] = rm;
     out_center[t] = rc;
     out_plus[t] = rp;
   }
 }
 
-__global__ void lookup_center_kernel(const int* __restrict__ keys,
-                                     const int* __restrict__ queries, int B,
-                                     int V, int Q, int* __restrict__ out) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(B) * Q) return;
-  const int* kb = keys + (t / Q) * V;
-  const int q = queries[t];
-  int r = -1;
-  if (q != kSentinel) {
-    const int lo = lower_bound(kb, V, q);
-    if (lo < V && kb[lo] == q) r = lo;
-  }
-  out[t] = r;
+__global__ void __launch_bounds__(kThreads)
+lookup_pmz_kernel(const int* __restrict__ keys, const int* __restrict__ queries,
+                  int B, int V, int Q, int tiles, int capacity, int fence_step,
+                  int* __restrict__ out_minus, int* __restrict__ out_center,
+                  int* __restrict__ out_plus, int* __restrict__ window_len) {
+  extern __shared__ int4 window4[];
+  __shared__ int red[2][kWarps];
+  __shared__ int ends[2];
+  lookup_tile<false>(keys, queries, B, V, Q, tiles, capacity, fence_step, out_minus,
+                     out_center, out_plus, window_len, window4, red, ends);
 }
 
-int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
+__global__ void __launch_bounds__(kThreads)
+lookup_center_tile_kernel(const int* __restrict__ keys, const int* __restrict__ queries,
+                          int B, int V, int Q, int tiles, int capacity, int fence_step,
+                          int* __restrict__ out, int* __restrict__ window_len) {
+  extern __shared__ int4 window4[];
+  __shared__ int red[2][kWarps];
+  __shared__ int ends[2];
+  lookup_tile<true>(keys, queries, B, V, Q, tiles, capacity, fence_step, nullptr, out,
+                    nullptr, window_len, window4, red, ends);
+}
+
+// The launch of either form, or cudaErrorInvalidValue for arguments the
+// kernels do not take.
+template <bool kCenter>
+int launch_lookup(const void* keys, const void* queries, int B, int V, int Q, int capacity,
+                  int fence_step, void* out_minus, void* out_center, void* out_plus,
+                  void* window_len, void* stream) {
+  const bool fences_ok =
+      fence_step == 0 ? V <= capacity
+                      : (fence_step & (fence_step - 1)) == 0 &&
+                            (V + fence_step - 1) / fence_step <= kMaxFences;
+  const int smem = (capacity + 4 + (fence_step ? kMaxFences : 0)) *
+                   static_cast<int>(sizeof(int));
+  if (!aligned16(keys) || capacity < 0 || capacity % 4 != 0 || !fences_ok ||
+      smem > kDefaultSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (Q + kTile - 1) / kTile;
+  if (B > 0 && tiles > 0) {
+    const int* k = static_cast<const int*>(keys);
+    const int* qs = static_cast<const int*>(queries);
+    int* wl = static_cast<int*>(window_len);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if constexpr (kCenter) {
+      lookup_center_tile_kernel<<<B * tiles, kThreads, smem, s>>>(
+          k, qs, B, V, Q, tiles, capacity, fence_step, static_cast<int*>(out_center), wl);
+    } else {
+      lookup_pmz_kernel<<<B * tiles, kThreads, smem, s>>>(
+          k, qs, B, V, Q, tiles, capacity, fence_step, static_cast<int*>(out_minus),
+          static_cast<int*>(out_center), static_cast<int*>(out_plus), wl);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -299,34 +341,14 @@ extern "C" int ptt_lookup_pmz(const void* keys, const void* queries, int B,
                               int V, int Q, int capacity, int fence_step,
                               void* out_minus, void* out_center, void* out_plus,
                               void* window_len, void* stream) {
-  const bool fences_ok =
-      fence_step == 0 ? V <= capacity
-                      : (fence_step & (fence_step - 1)) == 0 &&
-                            (V + fence_step - 1) / fence_step <= kMaxFences;
-  const int smem = (capacity + 4 + (fence_step ? kMaxFences : 0)) *
-                   static_cast<int>(sizeof(int));
-  if (!aligned16(keys) || capacity < 0 || capacity % 4 != 0 || !fences_ok ||
-      smem > kDefaultSmem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (Q + kTile - 1) / kTile;
-  if (B > 0 && tiles > 0) {
-    lookup_pmz_kernel<<<B * tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(keys), static_cast<const int*>(queries), B, V, Q,
-        tiles, capacity, fence_step, static_cast<int*>(out_minus),
-        static_cast<int*>(out_center), static_cast<int*>(out_plus),
-        static_cast<int*>(window_len));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_lookup<false>(keys, queries, B, V, Q, capacity, fence_step, out_minus,
+                              out_center, out_plus, window_len, stream);
 }
 
+// The center-only form: the same arguments as ptt_lookup_pmz, one output.
 extern "C" int ptt_lookup_center(const void* keys, const void* queries, int B,
-                                 int V, int Q, void* out, void* stream) {
-  const long long n = static_cast<long long>(B) * Q;
-  if (n > 0) {
-    lookup_center_kernel<<<blocks_for(n), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(keys), static_cast<const int*>(queries), B, V, Q,
-        static_cast<int*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int V, int Q, int capacity, int fence_step, void* out,
+                                 void* window_len, void* stream) {
+  return launch_lookup<true>(keys, queries, B, V, Q, capacity, fence_step, nullptr, out,
+                             nullptr, window_len, stream);
 }

@@ -41,8 +41,7 @@ LOOKUP_PMZ = _cuda.CudaKernel(
     replaces='proxytransformation_tpu/ops/merge_join_pallas.py:194')
 LOOKUP_CENTER = _cuda.CudaKernel(
     'lookup_center', 'lookup_pmz', 'ptt_lookup_center',
-    [_cuda.ptr, _cuda.ptr, _cuda.i32, _cuda.i32, _cuda.i32, _cuda.ptr,
-     _cuda.ptr],
+    [_cuda.ptr, _cuda.ptr, *[_cuda.i32] * 5, *[_cuda.ptr] * 3],
     source='proxytransformation_torch/csrc/lookup_pmz.cu',
     replaces='proxytransformation_tpu/ops/merge_join_pallas.py:287')
 _CONV_ARGS = [*[_cuda.ptr] * 6, *[_cuda.i32] * 10, *[_cuda.ptr] * 3]
@@ -290,18 +289,18 @@ def lookup_center_plain(keys: torch.Tensor, queries: torch.Tensor
     return torch.where(hit, lo, torch.full_like(lo, -1)).to(torch.int32)
 
 
-# csrc/lookup_pmz.cu::lookup_pmz_kernel: queries a block, the most keys
-# of a tile's window it holds in shared memory, and the most fences
+# csrc/lookup_pmz.cu (both forms): queries a block, the most keys of a
+# tile's window it holds in shared memory, and the most fences
 LOOKUP_TILE = 1024
 LOOKUP_MAX_WINDOW = 6144
 LOOKUP_MAX_FENCES = 256
 
 
 class LookupLaunch(NamedTuple):
-    """How `ptt_lookup_pmz` cuts a call: `tiles` a sample of
-    `LOOKUP_TILE` queries; windows of up to `capacity` keys in shared
-    memory (a multiple of 4 that holds a whole sample's keys where they
-    are fewer than `LOOKUP_MAX_WINDOW`); `fence_step` F, 0 where the
+    """How `ptt_lookup_pmz` and `ptt_lookup_center` cut a call: `tiles` a
+    sample of `LOOKUP_TILE` queries; windows of up to `capacity` keys in
+    shared memory (a multiple of 4 that holds a whole sample's keys where
+    they are fewer than `LOOKUP_MAX_WINDOW`); `fence_step` F, 0 where the
     whole row fits, else the power of two that keeps ceil(V / F) fences
     within `LOOKUP_MAX_FENCES`; `smem` the dynamic shared-memory bytes
     (the capacity, 4 keys of 16-byte lead, and the fences)."""
@@ -324,8 +323,8 @@ def lookup_launch_shape(B: int, V: int, Q: int) -> LookupLaunch:
 def lookup_tile_windows(keys: torch.Tensor, queries: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, n), each (B, tiles) int64: the row keys [lo, lo + n) that
-    each tile of `ptt_lookup_pmz` searches, in plain PyTorch (`n` is the
-    kernel's `window_len`). The whole row where it fits the capacity,
+    each tile of `ptt_lookup_pmz` or `ptt_lookup_center` searches, in
+    plain PyTorch (`n` is the kernels' `window_len`). The whole row where it fits the capacity,
     else the stretch between the fences around lower_bound(qmin - 1) and
     lower_bound(qmax + 2) over the tile's non-SENTINEL queries; (0, 0)
     for a tile without one."""
@@ -350,21 +349,30 @@ def lookup_tile_windows(keys: torch.Tensor, queries: torch.Tensor
     return torch.where(has, lo, zero), torch.where(has, n, zero)
 
 
-def lookup_pmz_cuda(keys: torch.Tensor, queries: torch.Tensor,
-                    window_len: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch `ptt_lookup_pmz`; returns three (B, Q) int32 tensors. Into
-    `window_len` ((B, tiles) int32), when given, the kernel writes each
-    tile's key-window length (`lookup_tile_windows`'s n)."""
+def _lookup_launch(keys: torch.Tensor, queries: torch.Tensor,
+                   window_len: Optional[torch.Tensor]) -> LookupLaunch:
+    """Check a lookup kernel's arguments; its `LookupLaunch`."""
     B, V = keys.shape
     Q = queries.shape[1]
     _cuda.check_cuda('keys', keys, torch.int32, (B, V))
     _cuda.check_cuda('queries', queries, torch.int32, (B, Q))
     if keys.data_ptr() % 16:
         raise ValueError('keys: expected a 16-byte aligned tensor')
-    tiles, capacity, fence_step, _ = lookup_launch_shape(B, V, Q)
+    launch = lookup_launch_shape(B, V, Q)
     if window_len is not None:
-        _cuda.check_cuda('window_len', window_len, torch.int32, (B, tiles))
+        _cuda.check_cuda('window_len', window_len, torch.int32,
+                         (B, launch.tiles))
+    return launch
+
+
+def lookup_pmz_cuda(keys: torch.Tensor, queries: torch.Tensor,
+                    window_len: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch `ptt_lookup_pmz`; returns three (B, Q) int32 tensors. Into
+    `window_len` ((B, tiles) int32), when given, the kernel writes each
+    tile's key-window length (`lookup_tile_windows`'s n)."""
+    _, capacity, fence_step, _ = _lookup_launch(keys, queries, window_len)
+    (B, V), Q = keys.shape, queries.shape[1]
     outs = [torch.empty((B, Q), dtype=torch.int32, device=keys.device)
             for _ in range(3)]
     LOOKUP_PMZ(keys.data_ptr(), queries.data_ptr(), B, V, Q, capacity,
@@ -374,34 +382,41 @@ def lookup_pmz_cuda(keys: torch.Tensor, queries: torch.Tensor,
     return tuple(outs)
 
 
-def lookup_center_cuda(keys: torch.Tensor, queries: torch.Tensor
+def lookup_center_cuda(keys: torch.Tensor, queries: torch.Tensor,
+                       window_len: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """Launch `ptt_lookup_center`; returns (B, Q) int32."""
-    B, V = keys.shape
-    Q = queries.shape[1]
-    _cuda.check_cuda('keys', keys, torch.int32, (B, V))
-    _cuda.check_cuda('queries', queries, torch.int32, (B, Q))
+    """Launch `ptt_lookup_center`, the same tiles and windows as
+    `ptt_lookup_pmz`; returns (B, Q) int32. `window_len` as there."""
+    _, capacity, fence_step, _ = _lookup_launch(keys, queries, window_len)
+    (B, V), Q = keys.shape, queries.shape[1]
     out = torch.empty((B, Q), dtype=torch.int32, device=keys.device)
-    LOOKUP_CENTER(keys.data_ptr(), queries.data_ptr(), B, V, Q,
-                  out.data_ptr(), _cuda.current_stream(keys))
+    LOOKUP_CENTER(keys.data_ptr(), queries.data_ptr(), B, V, Q, capacity,
+                  fence_step, out.data_ptr(),
+                  None if window_len is None else window_len.data_ptr(),
+                  _cuda.current_stream(keys))
     return out
+
+
+def _aligned_keys(keys: torch.Tensor) -> torch.Tensor:
+    """`keys` contiguous at a 16-byte aligned address (the kernels load
+    keys 16 bytes at a time)."""
+    keys = keys.contiguous()
+    return keys.clone() if keys.data_ptr() % 16 else keys
 
 
 def lookup_pmz(keys: torch.Tensor, queries: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(q-1, q, q+1) index lookup: kernel on CUDA, plain on CPU."""
     if keys.is_cuda:
-        keys = keys.contiguous()
-        if keys.data_ptr() % 16:  # the kernel loads keys 16 bytes at a time
-            keys = keys.clone()
-        return lookup_pmz_cuda(keys, queries.to(torch.int32).contiguous())
+        return lookup_pmz_cuda(_aligned_keys(keys),
+                               queries.to(torch.int32).contiguous())
     return lookup_pmz_plain(keys, queries)
 
 
 def lookup_center(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Exact-match index lookup: kernel on CUDA, plain on CPU."""
     if keys.is_cuda:
-        return lookup_center_cuda(keys.contiguous(),
+        return lookup_center_cuda(_aligned_keys(keys),
                                   queries.to(torch.int32).contiguous())
     return lookup_center_plain(keys, queries)
 

@@ -39,7 +39,9 @@ def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def row_gather_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/row_gather.cu`; returns (len(idx), C) float32."""
+    """Launch `csrc/row_gather.cu`; returns (len(idx), C) float32. The
+    kernel copies rows 16 bytes at a time and refuses (RuntimeError) a C
+    that is not a multiple of 4 or a table not 16-byte aligned."""
     rows, c = table.shape
     n = idx.shape[0]
     _cuda.check_cuda('table', table, torch.float32, (rows, c))

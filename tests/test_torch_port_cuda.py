@@ -148,6 +148,39 @@ def test_lookup_kernels(gen, B, V, Q, n_valid):
         assert torch.equal(g, w)
     assert torch.equal(sp.lookup_center(keys, q),
                        sp.lookup_center_plain(keys, q))
+    # a misaligned key row: the kernels refuse it, the dispatchers copy it
+    flat = torch.empty(B * V + 1, dtype=torch.int32, device='cuda')
+    shifted = flat[1:].view(B, V)
+    shifted.copy_(keys)
+    for kernel in (sp.lookup_pmz_cuda, sp.lookup_center_cuda):
+        with pytest.raises(ValueError, match='16-byte'):
+            kernel(shifted, q)
+    assert torch.equal(sp.lookup_center(shifted, q),
+                       sp.lookup_center_plain(keys, q))
+
+
+def _neck_parents(rng, B, extent, n_fine, V_fine, V_coarse):
+    """(keys, queries) as the neck asks them (`MinkNeck`,
+    `generative_transpose_map`): each query is the parent key
+    linearize(coords // 2) of a fine voxel, in the fine level's key order
+    (not ascending: the parent key drops each time y or x steps on), and
+    SENTINEL at a masked or empty voxel; the keys are the parents the
+    coarse level kept (a random 70%: pruned parents miss), sorted and
+    SENTINEL-padded."""
+    ex, ey, ez = extent
+    cy, cz = ey // 2, ez // 2
+    keys = np.full((B, V_coarse), sp.SENTINEL, np.int64)
+    q = np.full((B, V_fine), sp.SENTINEL, np.int64)
+    for b in range(B):
+        fine = np.sort(rng.choice(ex * ey * ez, n_fine, replace=False))
+        x, y, z = fine // (ey * ez), fine // ez % ey, fine % ez
+        parents = ((x // 2) * cy + y // 2) * cz + z // 2
+        q[b, :n_fine] = np.where(rng.rand(n_fine) < 0.9, parents, sp.SENTINEL)
+        found = np.unique(parents)
+        kept = rng.choice(found, min(V_coarse, int(0.7 * found.size)),
+                          replace=False)
+        keys[b, :kept.size] = np.sort(kept)
+    return keys, q
 
 
 def _lookup_case(case):
@@ -181,32 +214,46 @@ def _lookup_case(case):
         keys[1, :2] = [top - 1, top]
         q = rng.randint(top - 8, top + 1, (B, 2500))
         q[:, 1::7] = sp.SENTINEL
+    elif case == 'neck_parents':  # a coarse row that fits whole
+        keys, q = _neck_parents(rng, B, (48, 48, 16), 6000, 8000, 3000)
+    elif case == 'neck_fenced':  # the same over a row placed by fences
+        keys, q = _neck_parents(rng, B, (96, 96, 32), 40000, 45000, 20000)
     return (np.ascontiguousarray(keys, np.int32),
             np.ascontiguousarray(q, np.int32))
 
 
 LOOKUP_CASES = ['random_order', 'sentinel_tile', 'oversized', 'v1', 'below',
-                'near_max']
+                'near_max', 'neck_parents', 'neck_fenced']
 
 
 @pytest.mark.parametrize('case', LOOKUP_CASES)
 def test_lookup_pmz_windows(gen, case):
-    """The windowed lookup equals the plain version bit for bit, and its
-    tile windows equal `lookup_tile_windows`."""
+    """Both windowed lookups, q-1/q/q+1 and center-only, equal their
+    plain versions bit for bit, and the tile windows of each equal
+    `lookup_tile_windows`."""
     keys, q = (torch.tensor(a, device='cuda') for a in _lookup_case(case))
     B, V = keys.shape
-    tiles, capacity, _, _ = sp.lookup_launch_shape(B, V, q.shape[1])
+    tiles, capacity, step, _ = sp.lookup_launch_shape(B, V, q.shape[1])
     window = torch.empty((B, tiles), dtype=torch.int32, device='cuda')
     got = sp.lookup_pmz_cuda(keys, q, window)
     for g, w in zip(got, sp.lookup_pmz_plain(keys, q)):
         assert torch.equal(g, w)
-    assert torch.equal(window.long(), sp.lookup_tile_windows(keys, q)[1])
-    assert torch.equal(sp.lookup_center(keys, q),
-                       sp.lookup_center_plain(keys, q))
+    want_window = sp.lookup_tile_windows(keys, q)[1]
+    assert torch.equal(window.long(), want_window)
+    center_window = torch.full_like(window, -5)
+    center = sp.lookup_center_cuda(keys, q, center_window)
+    assert torch.equal(center, sp.lookup_center_plain(keys, q))
+    assert torch.equal(center_window.long(), want_window)
+    assert torch.equal(sp.lookup_center(keys, q), center)
     if case in ('random_order', 'oversized'):
         assert bool((window > capacity).any())
     if case == 'sentinel_tile':
         assert bool((window[:, 1] == 0).all())
+    if case == 'neck_parents':
+        # the row whole in every live tile; the last tiles hold only
+        # SENTINEL
+        assert step == 0 and set(window.tolist()[0]) == {0, V}
+        assert int((center >= 0).sum()) > 4000
 
 
 @pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit', [
@@ -437,10 +484,35 @@ def test_sparse_conv_backward_on_card(gen, self_map):
         _close(got, want)
 
 
-def test_row_gather_kernel(gen):
-    table, idx = gather_probe.probe_inputs('cuda')
+@pytest.mark.parametrize('rows,C,n', [(14336, 64, 256), (50, 4, 13),
+                                      (1000, 132, 300)])
+def test_row_gather_kernel(gen, rows, C, n):
+    """The probe's shapes, a row of one float4, and rows wider than the 16
+    lanes' step with a ragged last block."""
+    if (rows, C, n) == (gather_probe.ROWS, gather_probe.C, gather_probe.T):
+        table, idx = gather_probe.probe_inputs('cuda')
+    else:
+        table = torch.randn(rows, C, device='cuda', generator=gen)
+        idx = torch.randint(0, rows, (n, ), device='cuda', generator=gen)
+        idx = idx.int()
     assert torch.equal(gather_probe.row_gather(table, idx),
                        gather_probe.row_gather_plain(table, idx))
+
+
+def test_row_gather_refuses_what_it_cannot_copy(gen):
+    """A width that is not a multiple of 4 floats, or a table off a
+    16-byte boundary: the kernel returns an error and the wrapper
+    raises; no other path runs."""
+    table, idx = gather_probe.probe_inputs('cuda')
+    with pytest.raises(RuntimeError, match='ptt_row_gather'):
+        gather_probe.row_gather_cuda(table[:, :6].contiguous(), idx)
+    flat = torch.empty(table.numel() + 1, device='cuda')
+    shifted = flat[1:].view(table.shape)
+    shifted.copy_(table)
+    with pytest.raises(RuntimeError, match='ptt_row_gather'):
+        gather_probe.row_gather_cuda(shifted, idx)
+    with pytest.raises(RuntimeError, match='ptt_row_gather'):
+        gather_probe.row_gather(table[:, :6], idx)
 
 
 def _grad_tol(want, grad_norm):

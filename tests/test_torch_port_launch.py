@@ -5,9 +5,11 @@
 both take their cut from pure functions of the shapes
 (`ball_query_launch_shape`, `lookup_launch_shape`), held here to what
 the kernels assume. The window each lookup tile searches
-(`lookup_tile_windows`) is held to the plain lookup: searching only the
-window gives the same answers. And the port's plain ball query equals
-the JAX package's `_ball_query_idx` at points exactly on the radius.
+(`lookup_tile_windows`) is held to the plain lookups: searching only the
+window gives the same answers, in the q-1/q/q+1 form and in the
+center-only form (over the card tests' cases, the neck's parent keys
+among them). And the port's plain ball query equals the JAX package's
+`_ball_query_idx` at points exactly on the radius.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 from proxytransformation_tpu.ops.ball_query import _ball_query_idx
 from proxytransformation_torch.ops import ball_query as bq
 from proxytransformation_torch.ops import sparse as sp
+from test_torch_port_cuda import LOOKUP_CASES, _lookup_case
 
 H100_SMS = 132
 # dynamic shared memory a launch gets without opting in through
@@ -165,6 +168,50 @@ def test_tile_windows_hold_every_answer(case, V):
         # sorted runs: windows about a tile long, but where a tile spans
         # two runs
         assert int((lens <= 3 * sp.LOOKUP_TILE).sum()) >= lens.numel() - 4
+
+
+def _windowed_center(keys, queries):
+    """What `ptt_lookup_center` computes, in numpy: per tile, the lower
+    bound of q inside the tile's window only, answered where the key
+    there equals q."""
+    B, Q = queries.shape
+    los, lens = (a.numpy() for a in sp.lookup_tile_windows(
+        torch.from_numpy(keys), torch.from_numpy(queries)))
+    out = np.full((B, Q), -1, np.int32)
+    k64 = keys.astype(np.int64)
+    for b in range(B):
+        for t in range(los.shape[1]):
+            tile = slice(t * sp.LOOKUP_TILE, (t + 1) * sp.LOOKUP_TILE)
+            qs = queries[b, tile].astype(np.int64)
+            live = qs != sp.SENTINEL
+            if not live.any():
+                assert lens[b, t] == 0
+                continue
+            lo = los[b, t]
+            w = k64[b, lo:lo + lens[b, t]]
+            p = np.searchsorted(w, qs)
+            at = np.append(w, sp.SENTINEL)[p]  # an empty window holds none
+            out[b, tile] = np.where(live & (at == qs), lo + p, -1)
+    return out
+
+
+@pytest.mark.parametrize('case', LOOKUP_CASES)
+def test_center_tile_windows_hold_every_answer(case):
+    """The center-only form searches the q-1/q/q+1 form's windows for
+    the lower bound of q: that gives `lookup_center_plain`'s answers bit
+    for bit. The neck's parent keys are not ascending within a tile; its
+    coarse rows fit the shared-memory capacity whole, and a wider row
+    places the same queries' windows by the fences."""
+    keys, q = _lookup_case(case)
+    want = sp.lookup_center_plain(torch.from_numpy(keys),
+                                  torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(_windowed_center(keys, q), want)
+    if case.startswith('neck'):
+        live = q[0][q[0] != sp.SENTINEL]
+        assert (np.diff(live) < 0).sum() > 100
+        assert (want >= 0).sum() > 4000 and (want == -1).sum() > 1000
+        step = sp.lookup_launch_shape(*keys.shape, q.shape[1]).fence_step
+        assert (step == 0) == (case == 'neck_parents')
 
 
 @pytest.mark.parametrize('K', [1, 4, 30])

@@ -28,6 +28,7 @@ from proxytransformation_torch.ops import ball_query as tbq
 from proxytransformation_torch.ops import common as tcommon
 from proxytransformation_torch.ops import sparse as tsp
 from proxytransformation_torch.ops.fps import sample_farthest_points as t_fps
+from test_torch_port_cuda import _neck_parents
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -255,6 +256,26 @@ def test_lookups_bit_exact():
     np.testing.assert_array_equal(
         np.asarray(lookup_stream(jk, jq, tile=256, interpret=True)), c_want)
     assert all((n(g) >= 0).sum() > 30 for g in got)
+
+
+def test_center_lookup_neck_parents():
+    """The neck's parent-key lookup (`MinkNeck`, `generative_transpose_map`):
+    queries linearize(coords // 2) in the fine level's key order, not
+    ascending, SENTINEL at masked voxels, against pruned coarse keys.
+    The port's `lookup_center` (CPU) equals `_batched_lookup` and the
+    Pallas `lookup_stream` in interpret mode bit for bit."""
+    keys, queries = _neck_parents(np.random.RandomState(11), 2, (24, 24, 16),
+                                  1500, 2000, 800)
+    keys, queries = keys.astype(np.int32), queries.astype(np.int32)
+    live = queries[0][queries[0] != tsp.SENTINEL]
+    assert (np.diff(live) < 0).any()
+    jk, jq = jnp.asarray(keys), jnp.asarray(queries)
+    want = np.asarray(jsp._batched_lookup(jk, jq))
+    got = n(tsp.lookup_center(t(keys), t(queries)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        np.asarray(lookup_stream(jk, jq, tile=256, interpret=True)), want)
+    assert (got >= 0).sum() > 1000 and (got[queries != tsp.SENTINEL] == -1).any()
 
 
 # --------------------------------------------------------------------------
