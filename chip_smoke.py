@@ -33,8 +33,11 @@ Phases (any failure exits non-zero before the final line):
      path (plain versions) on the same weights and batch;
   7. train capture (grad mode): one full-width B=2 loss and backward
      (flagship targets: 8 gt boxes a sample) records the inputs of every
-     kernel call; each dW and dfeats call is held against its plain
-     version within the sparse conv's tolerance, and the whole conv
+     kernel call; each call is held against its plain version, as in
+     phase 4 (ball query and lookups bit-exact with their windows, dW,
+     dfeats and the forward conv within the sparse conv's tolerance;
+     the train step's keys differ from a request's: train-mode dropout
+     feeds the neck's pruning), and the whole conv
      autograd.Function against autograd of the plain conv at every
      captured conv, the neck's pruned levels included;
   8. train main path: launch counts reset to 0, three AdamW steps
@@ -782,7 +785,8 @@ def run() -> int:
               'conv_classes': table, 'conv_plans': predict['plans'],
               'kernels': kernels, 'host_time_not_hidden': NOT_HIDDEN,
               'time_ms_floor': predict['floor'],
-              'calls': rows, 'seconds': time.perf_counter() - t_start}
+              'calls': rows, 'train_step_calls': train['path_rows'],
+              'seconds': time.perf_counter() - t_start}
     out_dir = Path(__file__).resolve().parent / 'chiprun_out'
     out_dir.mkdir(exist_ok=True)
     (out_dir / 'chip_smoke.json').write_text(json.dumps(detail, indent=1))
@@ -805,13 +809,13 @@ CHECKS = {'ball_query': check_ball_query, 'lookup_pmz': check_lookup_pmz,
           'sparse_conv_dw': check_sparse_conv_dw}
 
 
-def check_calls(calls, names):
+def check_calls(calls, names, where='a request'):
     rows = {}
     for name in names:
         t0 = time.perf_counter()
         rows[name] = CHECKS[name](calls[name])
-        log(f'[kernel] {name}: {len(rows[name])} calls match their plain '
-            f'version ({time.perf_counter() - t0:.1f} s)')
+        log(f'[kernel] {name}: {len(rows[name])} calls of {where} match '
+            f'their plain version ({time.perf_counter() - t0:.1f} s)')
     return rows
 
 
@@ -921,7 +925,10 @@ def train_phases(model, dev):
     for name in names:
         require(per_step[name] > 0, f'kernel {name} is not on the train path')
     with torch.no_grad():
-        rows = check_calls(calls, TRAIN_ONLY)
+        rows = check_calls(calls, TRAIN_ONLY, 'the train step')
+        # the forward kernels again, on the train step's own inputs
+        # (train-mode dropout, then the neck's pruning, change the keys)
+        path_rows = check_calls(calls, PREDICT_KERNELS, 'the train step')
     conv_autograd = check_conv_autograd(calls['conv_fn'])
     for what in ('dfeats', 'dW'):
         worst = max((r for r in conv_autograd if r['grad'] == what),
@@ -982,8 +989,9 @@ def train_phases(model, dev):
     summary = dict(step_ms=step_ms, host_ms=host_ms, losses=step_losses,
                    peak_gib=peak, per_step=per_step,
                    frozen_tensors=len(frozen))
-    return dict(rows=rows, counts=counts, per_step=per_step,
-                conv_autograd=conv_autograd, summary=summary)
+    return dict(rows=rows, path_rows=path_rows, counts=counts,
+                per_step=per_step, conv_autograd=conv_autograd,
+                summary=summary)
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

@@ -19,7 +19,7 @@ import torch
 from proxytransformation_tpu.ops.ball_query import _ball_query_idx
 from proxytransformation_torch.ops import ball_query as bq
 from proxytransformation_torch.ops import sparse as sp
-from test_torch_port_cuda import LOOKUP_CASES, _lookup_case
+from test_torch_port_lookup_cases import LOOKUP_CASES, lookup_case
 
 H100_SMS = 132
 # dynamic shared memory a launch gets without opting in through
@@ -202,7 +202,7 @@ def test_center_tile_windows_hold_every_answer(case):
     for bit. The neck's parent keys are not ascending within a tile; its
     coarse rows fit the shared-memory capacity whole, and a wider row
     places the same queries' windows by the fences."""
-    keys, q = _lookup_case(case)
+    keys, q = lookup_case(case)
     want = sp.lookup_center_plain(torch.from_numpy(keys),
                                   torch.from_numpy(q)).numpy()
     np.testing.assert_array_equal(_windowed_center(keys, q), want)

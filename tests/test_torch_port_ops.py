@@ -28,7 +28,7 @@ from proxytransformation_torch.ops import ball_query as tbq
 from proxytransformation_torch.ops import common as tcommon
 from proxytransformation_torch.ops import sparse as tsp
 from proxytransformation_torch.ops.fps import sample_farthest_points as t_fps
-from test_torch_port_cuda import _neck_parents
+from test_torch_port_lookup_cases import neck_parents
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -264,8 +264,8 @@ def test_center_lookup_neck_parents():
     ascending, SENTINEL at masked voxels, against pruned coarse keys.
     The port's `lookup_center` (CPU) equals `_batched_lookup` and the
     Pallas `lookup_stream` in interpret mode bit for bit."""
-    keys, queries = _neck_parents(np.random.RandomState(11), 2, (24, 24, 16),
-                                  1500, 2000, 800)
+    keys, queries = neck_parents(np.random.RandomState(11), 2, (24, 24, 16),
+                                 1500, 2000, 800)
     keys, queries = keys.astype(np.int32), queries.astype(np.int32)
     live = queries[0][queries[0] != tsp.SENTINEL]
     assert (np.diff(live) < 0).any()
