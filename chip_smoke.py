@@ -48,10 +48,22 @@ Phases (any failure exits non-zero before the final line):
   9. probes off the main path: the conv kernel on sorted random maps
      without column structure (TPU kernel `sparse_conv_gather_gemm`),
      and the row-gather probe (bit-exact against `table[idx]`, timed
-     cold and warm against `torch.index_select`: `[row_gather]`).
-Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW) and
-conv class (stem, stage i strided, stage i self, neck): calls, summed
-ms, bound, and rows multiplied per hit.
+     cold and warm against `torch.index_select`: `[row_gather]`);
+ 10. bf16 predict (`compute_dtype='bfloat16', remat_painting=True`, the
+     same seeded weights): one request captured and every bf16 conv call
+     held against the plain bf16 conv (bf16 output within one bf16 ulp
+     plus the float32 tolerance; float32 output within the float32
+     tolerance), then launch counts reset to 0 and three B=2 requests
+     through the bf16 kernels (`sparse_conv_bf16`; the stem's float32
+     input keeps the float32 kernel), times and peak memory;
+ 11. bf16 train step: one loss and backward captured and every bf16
+     forward, dfeats and dW call held against its plain bf16 version
+     (dW within the float32 tolerance), then three AdamW steps from
+     counts of 0 (B=2), and one B=6 step (the flagship's per-chip batch)
+     for its peak memory.
+Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
+their bf16 forms) and conv class (stem, stage i strided, stage i self,
+neck): calls, summed ms, bound, and rows multiplied per hit.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, the one before it the kernels' JSON (`launches`:
@@ -74,6 +86,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 CONV_RTOL = 1e-4
 
 
@@ -121,6 +134,9 @@ def install_capture(calls):
     wrap(sp, 'sparse_conv_cuda', 'sparse_conv')
     wrap(sp, 'sparse_conv_dfeats_cuda', 'sparse_conv_dfeats')
     wrap(sp, 'sparse_conv_dw_cuda', 'sparse_conv_dw')
+    wrap(sp, 'sparse_conv_bf16_cuda', 'sparse_conv_bf16')
+    wrap(sp, 'sparse_conv_dfeats_bf16_cuda', 'sparse_conv_dfeats_bf16')
+    wrap(sp, 'sparse_conv_dw_bf16_cuda', 'sparse_conv_dw_bf16')
 
     def recorded_apply(*args):
         calls.setdefault('conv_fn', []).append(args)
@@ -386,9 +402,9 @@ def rows_multiplied(nbr, out_mask, plan, C_in, C_out):
     return float(bits.amax(2).sum()) * rows
 
 
-def dw_rows_multiplied(nbr, plan, C_in, C_out):
+def dw_rows_multiplied(nbr, plan, C_in, C_out, step=16):
     """Hit rows the dW kernel multiplies: each split's hits, padded to
-    its 16-hit steps on the tile path."""
+    its `step`-hit steps on the tile path (32 in the bf16 kernel)."""
     from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     B, V, K3 = nbr.shape
@@ -398,7 +414,7 @@ def dw_rows_multiplied(nbr, plan, C_in, C_out):
     chunk, S = sp.dw_split_table(counts, target)
     if tm == 0:
         return float(sum(counts))
-    return float(sum(-(-min(chunk, c - s * chunk) // 16) * 16
+    return float(sum(-(-min(chunk, c - s * chunk) // step) * step
                      for c, n in zip(counts, S) for s in range(n)))
 
 
@@ -505,6 +521,106 @@ def check_sparse_conv_dw(calls):
     return rows
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (8 significant bits), float32."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def bf16_close(got, want):
+    """(max abs error, ok): two roundings to bf16 of float32 sums taken in
+    another order are at most one bf16 ulp of the larger apart, plus the
+    float32 tolerance (where a sum cancels to near zero)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = (bf16_ulp(torch.maximum(g.abs(), w.abs()))
+           + CONV_RTOL * (1.0 + float(w.abs().max())))
+    return float(err.max()), bool((err <= tol).all())
+
+
+def check_conv_bf16(calls, role):
+    """The bf16 forward (`role` 'forward') or input-gradient ('dfeats')
+    kernel at each captured call against the plain bf16 conv: its bf16
+    output (what the model path writes) within one bf16 ulp plus the
+    float32 tolerance, its float32 output within the float32 tolerance.
+    Bound: bf16 operations over the tensor-core rate, or the bytes."""
+    from proxytransformation_torch.ops import sparse as sp
+    launch = (sp.sparse_conv_bf16_cuda if role == 'forward' else
+              sp.sparse_conv_dfeats_bf16_cuda)
+    rows = []
+    for i, (x, nbr, w, mask, plan) in enumerate(calls):
+        plan = _plan(nbr, plan)
+        got = launch(x, nbr, w, mask, plan)
+        want = sp.sparse_conv_apply_bf16(x, nbr, w, mask)
+        got32 = launch(x, nbr, w, mask, plan, torch.float32)
+        want32 = sp.sparse_conv_apply_bf16(x.float(), nbr, w, mask)
+        torch.cuda.synchronize()
+        err, ok = bf16_close(got, want)
+        require(got.dtype == torch.bfloat16 and ok,
+                f'bf16 {role} {tuple(x.shape)} -> {tuple(got.shape)}: max '
+                f'err {err} over one bf16 ulp')
+        err32 = float((got32 - want32).abs().max())
+        tol32 = CONV_RTOL * (1.0 + float(want32.abs().max()))
+        require(err32 <= tol32, f'bf16 {role} {tuple(x.shape)}, float32 '
+                f'out: max err {err32} > {tol32}')
+        B, V_in, C_in = x.shape
+        V_out, K3 = nbr.shape[1:]
+        C_out = w.shape[-1]
+        hits = float((nbr >= 0).sum())
+        # a dfeats row is keyed by its forward conv's (V_in, V_out, C_in,
+        # C_out), as in check_sparse_conv_dfeats
+        key = ((V_in, V_out, C_in, C_out) if role == 'forward' else
+               (V_out, V_in, C_out, C_in))
+        rows.append(dict(
+            shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
+                  f'C_out={C_out}', max_abs_err=err,
+            f32_out_max_abs_err=err32, key=key,
+            hits=float(((nbr >= 0) & mask[..., None]).sum()),
+            rows_multiplied=rows_multiplied(nbr, mask, plan, C_in, C_out),
+            ms=time_ms(f'bf16 {role} {i}',
+                       lambda: launch(x, nbr, w, mask, plan)),
+            plain_ms=time_ms(f'bf16 {role} plain {i}',
+                             lambda: sp.sparse_conv_apply_bf16(x, nbr, w,
+                                                               mask)),
+            library_ms=None, bytes=nbytes(x, nbr, w, mask, got),
+            ops=2.0 * hits * C_in * C_out, ops_per_s=BF16_OPS_PER_S))
+    return rows
+
+
+def check_sparse_conv_dw_bf16(calls):
+    """The bf16 dW kernel at each captured call against the plain bf16
+    dW (float32 out, the float32 tolerance), and the same bits twice."""
+    from proxytransformation_torch.ops import sparse as sp
+    rows = []
+    for i, (x, nbr, g, plan) in enumerate(calls):
+        plan = _plan(nbr, plan)
+        got = sp.sparse_conv_dw_bf16_cuda(x, nbr, g, plan)
+        want = sp.sparse_conv_dw_plain_bf16(x, nbr, g)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = CONV_RTOL * (1.0 + float(want.abs().max()))
+        require(err <= tol, f'bf16 dW {tuple(x.shape)} x {tuple(g.shape)}: '
+                f'max err {err} > {tol}')
+        require(torch.equal(sp.sparse_conv_dw_bf16_cuda(x, nbr, g, plan),
+                            got), 'bf16 dW differs between two runs')
+        B, V_in, C_in = x.shape
+        V_out, K3 = nbr.shape[1:]
+        C_out = g.shape[-1]
+        hits = float((nbr >= 0).sum())
+        rows.append(dict(
+            shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
+                  f'C_out={C_out}', max_abs_err=err,
+            key=(V_in, V_out, C_in, C_out), hits=hits,
+            rows_multiplied=dw_rows_multiplied(nbr, plan, C_in, C_out, 32),
+            ms=time_ms(f'bf16 dW {i}',
+                       lambda: sp.sparse_conv_dw_bf16_cuda(x, nbr, g, plan)),
+            plain_ms=time_ms(f'bf16 dW plain {i}',
+                             lambda: sp.sparse_conv_dw_plain_bf16(x, nbr, g)),
+            library_ms=None, bytes=nbytes(x, nbr, g, got),
+            ops=2.0 * hits * C_in * C_out, ops_per_s=BF16_OPS_PER_S))
+    return rows
+
+
 def plan_cost(forward_calls):
     """The conv plans one forward builds (one per map and owner, told
     apart by their tensors): how many, their device launches (profiler)
@@ -561,7 +677,8 @@ def conv_class_table(rows_by_kernel, classes):
             if not rs:
                 continue
             bound_ms, bound_by = bound(sum(r['bytes'] for r in rs),
-                                       sum(r['ops'] for r in rs))
+                                       sum(r['ops'] for r in rs),
+                                       ops_rate(rs))
             hits = sum(r['hits'] for r in rs)
             mult = sum(r['rows_multiplied'] for r in rs)
             table.append(dict(
@@ -672,12 +789,20 @@ def check_row_gather():
     return [row]
 
 
-def bound(byts: float, ops: float):
-    """(ms, what bounds it): the bytes over the memory rate or the float32
-    operations over the peak rate, whichever takes longer."""
+def bound(byts: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """(ms, what bounds it): the bytes over the memory rate or the
+    operations over their peak rate (float32 outside the tensor cores
+    unless `ops_per_s` says otherwise), whichever takes longer."""
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def ops_rate(rows) -> float:
+    """The peak rate of a kernel's operations: its rows' `ops_per_s`
+    (the bf16 kernels' tensor-core rate), else float32's."""
+    return rows[0].get('ops_per_s', FP32_OPS_PER_S) if rows else \
+        FP32_OPS_PER_S
 
 
 def summarize(name, rows, calls, calls_per_train_step):
@@ -686,10 +811,11 @@ def summarize(name, rows, calls, calls_per_train_step):
     calls times the kernels a call launches."""
     from proxytransformation_torch.ops import _cuda
     k = _cuda.KERNELS[name]
+    rate = ops_rate(rows)
     for r in rows:
-        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['ops'])
+        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['ops'], rate)
     bound_ms, bound_by = bound(sum(r['bytes'] for r in rows),
-                               sum(r['ops'] for r in rows))
+                               sum(r['ops'] for r in rows), rate)
     lib = [r['library_ms'] for r in rows]
     return {
         'name': name, 'route': 'cuda', 'source': k.source,
@@ -754,20 +880,33 @@ def run() -> int:
                   'row_gather': check_row_gather()}
     log('[probe] any-map conv and row gather match their plain versions')
 
-    rows = {**predict['rows'], **train['rows'], **probe_rows}
+    # 10-11. the bf16 path
+    model.zero_grad(set_to_none=True)
+    del model
+    torch.cuda.empty_cache()
+    bf16 = bf16_phases(dev)
+
+    rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
         {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
-                              'sparse_conv_dw')}, predict['classes'])
+                              'sparse_conv_dw', *BF16_KERNELS,
+                              *BF16_TRAIN_ONLY)}, predict['classes'])
     for r in table:
         log(f'[conv] {r["kernel"]:18s} {r["conv_class"]:16s} '
             f'{r["calls"]:2d} calls {r["ms"]:8.3f} ms, bound '
             f'{r["bound_ms"]:.3f} ms ({r["bound_by"]}), rows multiplied / '
             f'hits {r["rows_multiplied_per_hit"]:.3f}')
     counts = {**predict['counts'],
-              **{k: train['counts'][k] for k in TRAIN_ONLY}}
+              **{k: train['counts'][k] for k in TRAIN_ONLY},
+              **{k: bf16['counts'].get(k, 0)
+                 for k in (*BF16_KERNELS, *BF16_TRAIN_ONLY)}}
+    per_step = {**train['per_step'],
+                **{k: bf16['per_step'].get(k, 0)
+                   for k in (*BF16_KERNELS, *BF16_TRAIN_ONLY)}}
     kernels = [summarize(name, rows[name], counts[name],
-                         train['per_step'].get(name, 0))
-               for name in (*PREDICT_KERNELS, *TRAIN_ONLY)]
+                         per_step.get(name, 0))
+               for name in (*PREDICT_KERNELS, *TRAIN_ONLY, *BF16_KERNELS,
+                            *BF16_TRAIN_ONLY)]
     # the conv kernel on maps no model builds: off the main path, and the
     # probe's own calls are comparisons
     anymap = summarize('sparse_conv', probe_rows['sparse_conv_anymap'], 0, 0)
@@ -781,6 +920,9 @@ def run() -> int:
     detail = {'device': smi, 'torch': torch.__version__,
               'request_ms': predict['req_ms'], 'peak_gib': predict['peak'],
               'stage_ms': predict['stages'], 'train': train['summary'],
+              'bf16': bf16['summary'],
+              'bf16_request_calls': bf16['request_rows'],
+              'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
               'conv_classes': table, 'conv_plans': predict['plans'],
               'kernels': kernels, 'host_time_not_hidden': NOT_HIDDEN,
@@ -802,11 +944,16 @@ def run() -> int:
 PREDICT_KERNELS = ('ball_query', 'lookup_pmz', 'lookup_center',
                    'sparse_conv')
 TRAIN_ONLY = ('sparse_conv_dfeats', 'sparse_conv_dw')
+BF16_KERNELS = ('sparse_conv_bf16', )
+BF16_TRAIN_ONLY = ('sparse_conv_dfeats_bf16', 'sparse_conv_dw_bf16')
 CHECKS = {'ball_query': check_ball_query, 'lookup_pmz': check_lookup_pmz,
           'lookup_center': check_lookup_center,
           'sparse_conv': check_sparse_conv,
           'sparse_conv_dfeats': check_sparse_conv_dfeats,
-          'sparse_conv_dw': check_sparse_conv_dw}
+          'sparse_conv_dw': check_sparse_conv_dw,
+          'sparse_conv_bf16': lambda c: check_conv_bf16(c, 'forward'),
+          'sparse_conv_dfeats_bf16': lambda c: check_conv_bf16(c, 'dfeats'),
+          'sparse_conv_dw_bf16': check_sparse_conv_dw_bf16}
 
 
 def check_calls(calls, names, where='a request'):
@@ -824,13 +971,8 @@ def predict_phases(model, dev):
     small input."""
     from proxytransformation_torch.data.synthetic import flagship_batch
     from proxytransformation_torch.models.detector import batch_to_device
-    from proxytransformation_torch.ops import _cuda
     batch = batch_to_device(flagship_batch(seed=0), dev)
-    calls = {}
-    restore = install_capture(calls)
-    model(batch)
-    torch.cuda.synchronize()
-    restore()
+    calls = capture_kernel_calls(lambda: model(batch))
     per_request = {k: len(calls.get(k, ())) for k in PREDICT_KERNELS}
     log(f'[capture] kernel calls per request: {per_request}')
     for name in PREDICT_KERNELS:
@@ -851,10 +993,37 @@ def predict_phases(model, dev):
     del calls
 
     # 5. the main path: three requests, counts from 0
+    n_req = 3
+    req_ms, counts, peak = run_requests(model, dev, n_req, 'request')
+    log(f'[main path] launches in {n_req} requests: {counts}; peak memory '
+        f'{peak:.2f} GiB')
+    for name, n in per_request.items():
+        require(counts[name] == n * n_req,
+                f'{name}: {counts[name]} launches, expected {n} x {n_req}')
+    for name in TRAIN_ONLY:
+        require(counts[name] == 0, f'{name} launched in predict')
+
+    stages = stage_breakdown(
+        model, batch_to_device(flagship_batch(seed=n_req - 1), dev))
+    log('[stages] device ms of one request: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in stages.items()))
+
+    # 6. small input: the card against the port's CPU path
+    small_input_check()
+    return dict(rows=rows, counts=counts, req_ms=req_ms, peak=peak,
+                stages=stages, classes=classes, plans=plans, floor=floor)
+
+
+def run_requests(model, dev, n_req, label):
+    """`n_req` B=2 requests (batch seeds 0, 1, ...) from launch counts of
+    0: finite boxes and scores of the right shape, a valid query; (CUDA
+    event ms of each, the launch counts, the peak memory in GiB)."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.ops import _cuda
     _cuda.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     req_ms = []
-    n_req = 3
     for r in range(n_req):
         batch = batch_to_device(flagship_batch(seed=r), dev)
         torch.cuda.synchronize()
@@ -873,52 +1042,22 @@ def predict_phases(model, dev):
         for k in ('bboxes_3d', 'scores_3d'):
             require(bool(torch.isfinite(out[k]).all()), f'non-finite {k}')
         require(bool(out['query_mask'].any()), 'no valid query')
-        log(f'[request {r}] {req_ms[-1]:.1f} ms on the card '
+        log(f'[{label} {r}] {req_ms[-1]:.1f} ms on the card '
             f'({host_ms:.1f} ms host), {int(out["query_mask"].sum())} '
             f'valid queries, top score {float(out["scores_3d"].max()):.5f}')
-    counts = _cuda.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f'[main path] launches in {n_req} requests: {counts}; peak memory '
-        f'{peak:.2f} GiB')
-    for name, n in per_request.items():
-        require(counts[name] == n * n_req,
-                f'{name}: {counts[name]} launches, expected {n} x {n_req}')
-    for name in TRAIN_ONLY:
-        require(counts[name] == 0, f'{name} launched in predict')
-
-    stages = stage_breakdown(model, batch)
-    log('[stages] device ms of one request: ' + ', '.join(
-        f'{k} {v:.1f}' for k, v in stages.items()))
-
-    # 6. small input: the card against the port's CPU path
-    small_input_check()
-    return dict(rows=rows, counts=counts, req_ms=req_ms, peak=peak,
-                stages=stages, classes=classes, plans=plans, floor=floor)
+    return (req_ms, _cuda.launch_counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
 
 
 def train_phases(model, dev):
     """Phases 7-8: capture one train step's kernel calls and hold them
     against their plain versions, then three AdamW steps."""
-    from proxytransformation_torch.data.synthetic import flagship_batch
     from proxytransformation_torch.engine.train import (
         build_lr_schedule, build_optimizer, make_train_step, param_label)
-    from proxytransformation_torch.models.detector import batch_to_device
-    from proxytransformation_torch.ops import _cuda
-
-    def train_batch(seed):
-        return batch_to_device(flagship_batch(seed=seed, with_targets=True),
-                               dev)
 
     # 7. capture one loss and backward
-    calls = {}
-    restore = install_capture(calls)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    losses = model.loss(train_batch(0), gen)
-    sum(losses[k] for k in sorted(losses)).backward()
-    torch.cuda.synchronize()
-    restore()
+    calls = capture_kernel_calls(lambda: loss_and_backward(model, dev))
     model.zero_grad(set_to_none=True)
-    del losses
     names = (*PREDICT_KERNELS, *TRAIN_ONLY)
     per_step = {k: len(calls.get(k, ())) for k in names}
     log(f'[train capture] kernel calls per train step: {per_step}')
@@ -948,32 +1087,9 @@ def train_phases(model, dev):
               if param_label(n) == 'frozen'}
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if param_label(n) != 'frozen'}
-    _cuda.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    n_steps, step_ms, host_ms, step_losses = 3, [], [], []
-    for s in range(n_steps):
-        batch = train_batch(s)
-        gen = torch.Generator(device=dev).manual_seed(s)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        metrics = step(batch, gen)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        step_ms.append(start.elapsed_time(end))
-        m = {k: float(v) for k, v in metrics.items()}
-        for k, v in m.items():
-            require(np.isfinite(v), f'train step {s}: non-finite {k}')
-        step_losses.append(m)
-        log(f'[train step {s}] {step_ms[-1]:.1f} ms on the card '
-            f'({host_ms[-1]:.1f} ms host), total_loss '
-            f'{m["total_loss"]:.6f}, grad_norm {m["grad_norm"]:.6f}, '
-            f'loss_cls {m["loss_cls"]:.6f}, loss_bbox {m["loss_bbox"]:.6f}')
-    counts = _cuda.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_steps = 3
+    step_ms, host_ms, step_losses, counts, peak = run_steps(
+        step, dev, n_steps, 'train step')
     log(f'[train main path] launches in {n_steps} steps: {counts}; peak '
         f'memory {peak:.2f} GiB')
     for name, n in per_step.items():
@@ -992,6 +1108,149 @@ def train_phases(model, dev):
     return dict(rows=rows, path_rows=path_rows, counts=counts,
                 per_step=per_step, conv_autograd=conv_autograd,
                 summary=summary)
+
+
+def capture_kernel_calls(fn):
+    """{kernel: captured calls} of everything `fn()` launches."""
+    calls = {}
+    restore = install_capture(calls)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return calls
+
+
+def loss_and_backward(model, dev):
+    """One train-mode loss (batch and dropout seed 0) and its backward."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.models.detector import batch_to_device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = model.loss(batch_to_device(
+        flagship_batch(seed=0, with_targets=True), dev), gen)
+    sum(losses[k] for k in sorted(losses)).backward()
+
+
+def bf16_phases(dev):
+    """Phases 10-11: the bf16 (`--amp`) path of the flagship grounder, on
+    the same seeded weights as the float32 phases."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.engine.train import (
+        build_lr_schedule, build_optimizer, make_train_step)
+    from proxytransformation_torch.models.detector import (
+        SparseFeatureFusion3DGrounderPreshape, batch_to_device)
+    model = SparseFeatureFusion3DGrounderPreshape(
+        device=dev, compute_dtype='bfloat16',
+        remat_painting=True).random_init_(0)
+
+    # 10. one bf16 request captured and checked, then three from 0
+    batch = batch_to_device(flagship_batch(seed=0), dev)
+    with torch.no_grad():
+        calls = capture_kernel_calls(lambda: model(batch))
+        per_request = {k: len(v) for k, v in calls.items()
+                       if k != 'conv_fn'}
+        log(f'[bf16 capture] kernel calls per bf16 request: {per_request}')
+        # every kernel call of the request: the neck prunes by bf16
+        # scores, so the keys and lookup shapes differ from float32's
+        names = (*PREDICT_KERNELS, *BF16_KERNELS)
+        for name in names:
+            require(per_request.get(name, 0) > 0,
+                    f'kernel {name} is not on the bf16 predict path')
+        request_rows = check_calls(calls, names, 'a bf16 request')
+        rows = {k: request_rows.pop(k) for k in BF16_KERNELS}
+        del calls
+        n_req = 3
+        req_ms, counts, peak = run_requests(model, dev, n_req,
+                                            'bf16 request')
+    log(f'[bf16 main path] launches in {n_req} requests: {counts}; peak '
+        f'memory {peak:.2f} GiB')
+    for name, n in counts.items():
+        require(n == per_request.get(name, 0) * n_req,
+                f'{name}: {n} launches in bf16 predict, expected '
+                f'{per_request.get(name, 0)} x {n_req}')
+
+    # 11. one bf16 loss and backward captured and checked; three AdamW
+    # steps from 0; one B=6 step for its peak memory
+    calls = capture_kernel_calls(lambda: loss_and_backward(model, dev))
+    model.zero_grad(set_to_none=True)
+    per_step = {k: len(v) for k, v in calls.items() if k != 'conv_fn'}
+    log(f'[bf16 train capture] kernel calls per bf16 train step: '
+        f'{per_step}')
+    # every kernel call of the step, the float32 stem's three included
+    names = (*PREDICT_KERNELS, *TRAIN_ONLY, *BF16_KERNELS, *BF16_TRAIN_ONLY)
+    for name in names:
+        require(per_step.get(name, 0) > 0,
+                f'kernel {name} is not on the bf16 train path')
+    with torch.no_grad():
+        path_rows = check_calls(calls, names, 'the bf16 train step')
+    rows.update({k: path_rows.pop(k) for k in BF16_TRAIN_ONLY})
+    del calls
+    step = make_train_step(model, build_optimizer(model),
+                           build_lr_schedule(steps_per_epoch=1))
+    n_steps = 3
+    step_ms, host_ms, losses, train_counts, train_peak = run_steps(
+        step, dev, n_steps, 'bf16 train step')
+    log(f'[bf16 train main path] launches in {n_steps} steps: '
+        f'{train_counts}; peak memory {train_peak:.2f} GiB')
+    for name, n in train_counts.items():
+        require(n == per_step.get(name, 0) * n_steps,
+                f'{name}: {n} launches in bf16 train, expected '
+                f'{per_step.get(name, 0)} x {n_steps}')
+    b6_ms, _, b6_losses, _, b6_peak = run_steps(step, dev, 1,
+                                                'bf16 train step B=6', B=6)
+    log(f'[bf16 B=6] one train step at the flagship\'s per-chip batch: '
+        f'{b6_ms[0]:.1f} ms, peak memory {b6_peak:.2f} GiB of '
+        f'{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}')
+    summary = dict(request_ms=req_ms, request_peak_gib=peak,
+                   step_ms=step_ms, step_host_ms=host_ms, losses=losses,
+                   step_peak_gib=train_peak, per_request=per_request,
+                   per_step=per_step, b6_step_ms=b6_ms[0],
+                   b6_peak_gib=b6_peak, b6_losses=b6_losses[0])
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(rows=rows, request_rows=request_rows, path_rows=path_rows,
+                summary=summary,
+                counts={**counts, **{k: train_counts.get(k, 0)
+                                     for k in BF16_TRAIN_ONLY}},
+                per_step=per_step)
+
+
+def run_steps(step, dev, n_steps, label, B=2):
+    """`n_steps` train steps (batches and dropout seeds 0, 1, ...) from
+    launch counts of 0, with finite losses and grad norm; (CUDA event ms
+    and host ms of each, their metrics, the launch counts, the peak
+    memory in GiB)."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.ops import _cuda
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, host_ms, step_losses = [], [], []
+    for s in range(n_steps):
+        batch = batch_to_device(
+            flagship_batch(B=B, seed=s, with_targets=True), dev)
+        gen = torch.Generator(device=dev).manual_seed(s)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        m = {k: float(v) for k, v in metrics.items()}
+        for k, v in m.items():
+            require(np.isfinite(v), f'{label} {s}: non-finite {k}')
+        step_losses.append(m)
+        log(f'[{label} {s}] {step_ms[-1]:.1f} ms on the card '
+            f'({host_ms[-1]:.1f} ms host), total_loss '
+            f'{m["total_loss"]:.6f}, grad_norm {m["grad_norm"]:.6f}, '
+            f'loss_cls {m["loss_cls"]:.6f}, loss_bbox {m["loss_bbox"]:.6f}')
+    return (step_ms, host_ms, step_losses, _cuda.launch_counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

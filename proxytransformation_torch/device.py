@@ -26,14 +26,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 @contextlib.contextmanager
 def full_float32() -> Iterator[None]:
     """Full float32 matmuls and convolutions inside the block (cuDNN
-    allows TF32 by default, which keeps about three decimal digits); the
-    caller's TF32 settings come back on exit."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    allows TF32 by default, which keeps about three decimal digits), and
+    float32 sums in bfloat16 matmuls (cuBLAS may otherwise reduce split
+    products in bfloat16); the caller's settings come back on exit."""
+    matmul = torch.backends.cuda.matmul
+    saved = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved

@@ -1,8 +1,10 @@
 """End-to-end ego-centric 3D visual grounder (the flagship).
 
 Counterpart of proxytransformation_tpu/models/detector.py::
-SparseFeatureFusion3DGrounderPreshape, float32: `forward` is predict
-(eval mode, no gradient), `loss` the train-mode losses (mode='loss'):
+SparseFeatureFusion3DGrounderPreshape, in float32 or, with
+`compute_dtype='bfloat16'`, in the reference's bfloat16 mode: `forward`
+is predict (eval mode, no gradient), `loss` the train-mode losses
+(mode='loss'):
 
   imgs (B,V,H,W,3) ──ResNet50──► 4 image levels ──┐
   input_ids (B,L) ──CLIP text──► text feats ──────┤
@@ -28,6 +30,7 @@ from typing import Any, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import full_float32, resolve_device
 from ..ops.sparse import topk_stable, voxelize_points
@@ -42,12 +45,27 @@ from .sparse_resnet import MinkResNet
 from .text_encoder import CLIPTextEncoder
 
 
+_COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
 class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     """The flagship grounder; defaults are the flagship config
     (configs/grounding/proxy-tiblock33-gs12-wbias-ddr0.6-clip.py).
 
     `device=None` builds it on the card and raises when there is none;
     pass `device='cpu'` to run the plain PyTorch path on the CPU.
+
+    `compute_dtype='bfloat16'` is the reference's `--amp` mode
+    (reference models/detector.py:95-146): the 2D ResNet, the preshape's
+    dense layers and attention, MinkResNet after its stem conv and the
+    decoder compute in bfloat16, the neck and the painting keep the
+    dtype they are given, and geometry, norm statistics, scores and
+    losses stay float32; parameters stay float32. Its sparse convs run
+    the bf16 form of the conv kernels on the card. `remat_painting`
+    recomputes the 2D→3D painting in the backward
+    (`torch.utils.checkpoint`, as `jax.checkpoint` at reference
+    detector.py:202-204); None follows `remat`, which the port does not
+    have yet, so None means False.
     """
 
     def __init__(self, num_queries: int = 256, voxel_size: float = 0.01,
@@ -64,15 +82,23 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                  neck_out_channels: int = 256, pts_prune_threshold: int = 1000,
                  decoder_layers: int = 6, embed_dims: int = 256,
                  num_heads: int = 8, ffn_channels: int = 2048,
+                 compute_dtype: str = 'float32',
+                 remat_painting: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
+        if compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f'compute_dtype must be one of '
+                             f'{sorted(_COMPUTE_DTYPES)}, got {compute_dtype!r}')
+        cdt = _COMPUTE_DTYPES[compute_dtype]
         dev = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.remat_painting = bool(remat_painting)
         self.num_queries = num_queries
         self.voxel_size = voxel_size
         self.n_points = n_points
         self.voxel_extent = tuple(voxel_extent)
         with torch.device(dev):
-            self.backbone = ResNet(img_depth, img_base_channels)
+            self.backbone = ResNet(img_depth, img_base_channels, cdt)
             self.text_encoder = CLIPTextEncoder(width=text_width,
                                                 layers=text_layers,
                                                 heads=text_heads)
@@ -82,16 +108,16 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                 grid_size=grid_size, text_blocks=text_blocks,
                 img_blocks=img_blocks, dynamic_drop_radio=dynamic_drop_radio,
                 num_sub=num_sub, input_dim=img_base_channels * 32,
-                img_spacial_dim=img_spacial_dim)
+                img_spacial_dim=img_spacial_dim, dtype=cdt)
             self.backbone_3d = MinkResNet(backbone3d_depth, 3,
-                                          sparse_capacities)
+                                          sparse_capacities, cdt)
             img_chans = [img_base_channels * 4 * 2 ** i for i in range(4)]
             mink_chans = [64, 128, 256, 512]
             self.neck_3d = MinkNeck(
                 1, tuple(m + i for m, i in zip(mink_chans, img_chans)),
                 neck_out_channels, pts_prune_threshold)
             self.decoder = SparseFeatureFusionTransformerDecoder(
-                decoder_layers, embed_dims, num_heads, ffn_channels)
+                decoder_layers, embed_dims, num_heads, ffn_channels, cdt)
             self.bbox_head = GroundingHead(embed_dims, 9, max_text_len)
         self.eval()
 
@@ -128,10 +154,12 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                 world_xyz, batch.get('pcd_rotation'),
                 batch.get('pcd_scale_factor'), batch.get('pcd_trans'),
                 batch.get('pcd_flip_x'), batch.get('pcd_flip_y'))
-            return batch_point_sample(img_feats[lvl_idx], inv,
-                                      batch['proj_mats'], (H, W),
-                                      valid_mask=vmask,
-                                      views_mask=batch['views_mask'])
+            args = (img_feats[lvl_idx], inv, batch['proj_mats'], (H, W),
+                    vmask, batch['views_mask'])
+            if self.remat_painting:
+                return checkpoint(batch_point_sample, *args,
+                                  use_reentrant=False)
+            return batch_point_sample(*args)
 
         return self.neck_3d(levels, self_maps=self_maps,
                             self_plans=self_plans, paint_fn=paint_fn,
@@ -172,8 +200,8 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Predict: {'bboxes_3d' (B,Q,9), 'scores_3d' (B,Q),
-        'query_mask' (B,Q)}, in full float32 whatever the caller's TF32
-        settings."""
+        'query_mask' (B,Q)}, float32, computed with the precision of
+        `device.full_float32` whatever the caller's settings."""
         with full_float32():
             text_mask = batch['text_mask']
             text_feats = self.encode_text(batch['input_ids'], text_mask)
@@ -194,9 +222,10 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
         place; dropout and DropPath draw from `generator`. The frozen
         text tower runs without a graph (its output's `stop_gradient`,
         reference detector.py:156); the 2D ResNet's BatchNorm stays in
-        eval mode (reference models/resnet.py:8-9). TF32 is off inside;
-        wrap the backward in `device.full_float32()` too (as
-        `engine.train.make_train_step` does)."""
+        eval mode (reference models/resnet.py:8-9). TF32 and bfloat16
+        reduced-precision sums are off inside; wrap the backward in
+        `device.full_float32()` too (as `engine.train.make_train_step`
+        does)."""
         with full_float32():
             text_mask = batch['text_mask']
             with torch.no_grad():

@@ -41,7 +41,9 @@ class ContrastiveEmbed(nn.Module):
 
     def forward(self, visual_feat, text_feat, text_token_mask,
                 visual_feat_mask=None):
-        res = visual_feat @ text_feat.transpose(-1, -2)
+        # bfloat16 query features are promoted, as the reference's einsum
+        # promotes them
+        res = visual_feat.float() @ text_feat.transpose(-1, -2)
         res = res / torch.sqrt(torch.tensor(float(visual_feat.shape[-1]),
                                             device=res.device))
         res = res + self.bias

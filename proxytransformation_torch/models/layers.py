@@ -1,18 +1,43 @@
-"""Small parameter holders that keep the upstream checkpoint layouts."""
+"""Small parameter holders that keep the upstream checkpoint layouts,
+and the compute-dtype rules of flax's `nn.Dense(dtype=...)`."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax `nn.Dense(dtype=dtype)` over the last axis with float32
+    parameters: in float32 the input is promoted and one `F.linear` runs;
+    in bfloat16 the input, weight and bias are cast to it, the product
+    is rounded to it and the bias added after (one more rounding), and
+    the output stays bfloat16."""
+    if dtype == torch.float32:
+        return F.linear(x.float(), weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`jnp.einsum(..., preferred_element_type=float32)` of two operands
+    of any float type: exact products, float32 sums and output."""
+    return a.float() @ b.float()
+
+
 class Conv1x1(nn.Module):
     """A 1x1 Conv1d/Conv2d of the reference (weight (out, in, 1[, 1]))
-    applied as a linear map over the last axis of channels-last input."""
+    applied as a linear map over the last axis of channels-last input,
+    computed in `dtype` (see `dense`)."""
 
     def __init__(self, in_channels: int, out_channels: int, bias: bool = True,
-                 spatial_dims: int = 2):
+                 spatial_dims: int = 2, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.zeros(out_channels, in_channels, *([1] * spatial_dims)))
         if bias:
@@ -22,14 +47,28 @@ class Conv1x1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.reshape(self.weight.shape[0], self.weight.shape[1])
-        return F.linear(x, w, self.bias)
+        return dense(x, w, self.bias, self.dtype)
 
 
-def linear(in_features: int, out_features: int, bias: bool = True
-           ) -> nn.Linear:
-    """nn.Linear with zero parameters; weights come from a checkpoint or
+class Linear(nn.Linear):
+    """nn.Linear computed in `compute_dtype` (see `dense`); its
+    parameters stay float32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+def linear(in_features: int, out_features: int, bias: bool = True,
+           dtype: torch.dtype = torch.float32) -> Linear:
+    """`Linear` with zero parameters; weights come from a checkpoint or
     from `random_init_`."""
-    m = nn.Linear(in_features, out_features, bias=bias)
+    m = Linear(in_features, out_features, bias=bias, compute_dtype=dtype)
     nn.init.zeros_(m.weight)
     if bias:
         nn.init.zeros_(m.bias)

@@ -18,6 +18,12 @@ per-sample DropPath of rate linspace(0, 0.2, blocks)[i]. The draws come
 from the `generator` handed to `forward`. FPS keeps its deterministic
 start, as the reference's train step passes no 'fps' rng
 (engine/train.py:121).
+
+`dtype` bfloat16 (reference models/preshape.py:73-268) runs the point
+MLPs' first layers, the image pooling and the proxy blocks' dense layers
+in bfloat16; attention logits and softmax are float32 (the softmax cast
+back), and each block's output is float32. Geometry (ball queries,
+offsets, FPS, transforms) and every normalization stay float32.
 """
 from __future__ import annotations
 
@@ -31,11 +37,29 @@ from torch import nn
 from ..ops.ball_query import ball_query
 from ..ops.common import recip32
 from ..ops.fps import sample_farthest_points
-from .layers import Conv1x1, linear
+from .layers import Conv1x1, linear, matmul_f32
 from .norms import BatchNormParams, layer_norm
 
 # the reference's dropout, attention-dropout and drop-path rates
 _DROP = 0.2
+# jax.nn.gelu's sqrt(0.5), rounded to bfloat16 as it rounds it
+_SQRT_HALF_BF16 = 0.70703125
+
+
+def weak_scalar(c: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX applies it to an array of `dtype`: weak
+    typing rounds it to a bfloat16 array's type first (flax's dropout
+    divides by bf16(0.8), attention scales by bf16(hd ** -0.5))."""
+    return c if dtype == torch.float32 else float(torch.tensor(c, dtype=dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=False): in float32 `F.gelu`; in bfloat16
+    0.5 x erfc(-x sqrt(0.5)) with every operation rounded to bfloat16,
+    as the reference computes it there."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return 0.5 * x * torch.erfc(-x * _SQRT_HALF_BF16)
 
 
 class Dropout(nn.Module):
@@ -57,7 +81,8 @@ class Dropout(nn.Module):
         if not train or self.rate == 0.0:
             return x
         keep = self.draw(self.mask_shape(x), x.device, generator)
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+        scaled = x / weak_scalar(1.0 - self.rate, x.dtype)
+        return torch.where(keep, scaled, torch.zeros_like(x))
 
     def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return tuple(x.shape)
@@ -81,14 +106,16 @@ def _point_features(center: torch.Tensor, cluster: torch.Tensor
 
 
 class _PointMLP(nn.Module):
-    """`mlp.0` Conv2d 1x1 (6 → C) + `mlp.1` BatchNorm2d, then ReLU."""
+    """`mlp.0` Conv2d 1x1 (6 → C, in `dtype`) + `mlp.1` BatchNorm2d (in
+    float32), then ReLU."""
 
-    def __init__(self, out: int):
+    def __init__(self, out: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = nn.ModuleDict({'0': Conv1x1(6, out), '1': BatchNormParams(out)})
+        self.mlp = nn.ModuleDict({'0': Conv1x1(6, out, dtype=dtype),
+                                  '1': BatchNormParams(out)})
 
     def forward(self, center, cluster, train: bool = False):
-        x = self.mlp['0'](_point_features(center, cluster))
+        x = self.mlp['0'](_point_features(center, cluster)).float()
         return torch.relu(self.mlp['1'].flax(x, train))
 
 
@@ -96,8 +123,9 @@ class OffsetNetwork(_PointMLP):
     """Per-cluster center offsets (mean over K, padded slots included),
     before the tanh·margin."""
 
-    def __init__(self, hidden: int = 256):
-        super().__init__(hidden)
+    def __init__(self, hidden: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(hidden, dtype)
         self.channel_mapper = Conv1x1(hidden, 3, bias=False, spatial_dims=1)
 
     def forward(self, center, cluster, train: bool = False):
@@ -115,15 +143,17 @@ class SimplifiedPointNet(_PointMLP):
 class AttentionPool2d(nn.Module):
     """CLIP-style attention pooling over an (n, h, w, c) feature map."""
 
-    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int):
+    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.positional_embedding = nn.Parameter(
             torch.zeros(spacial_dim ** 2 + 1, embed_dim))
-        self.q_proj = linear(embed_dim, embed_dim)
-        self.k_proj = linear(embed_dim, embed_dim)
-        self.v_proj = linear(embed_dim, embed_dim)
-        self.c_proj = linear(embed_dim, embed_dim)
+        self.q_proj = linear(embed_dim, embed_dim, dtype=dtype)
+        self.k_proj = linear(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = linear(embed_dim, embed_dim, dtype=dtype)
+        self.c_proj = linear(embed_dim, embed_dim, dtype=dtype)
 
     def forward(self, x):
         n, h, w, c = x.shape
@@ -135,9 +165,10 @@ class AttentionPool2d(nn.Module):
         q = self.q_proj(x[:, :1]).reshape(n, 1, nh, hd).transpose(1, 2)
         k = self.k_proj(x).reshape(n, -1, nh, hd).transpose(1, 2)
         v = self.v_proj(x).reshape(n, -1, nh, hd).transpose(1, 2)
-        attn = torch.softmax(q @ k.transpose(-1, -2) / hd ** 0.5, dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(n, c)
-        return self.c_proj(out)
+        attn = torch.softmax(matmul_f32(q, k.transpose(-1, -2)) / hd ** 0.5,
+                             dim=-1).to(self.dtype)
+        out = matmul_f32(attn, v).transpose(1, 2).reshape(n, c)
+        return self.c_proj(out).float()
 
 
 class ProxyAttention(nn.Module):
@@ -147,17 +178,19 @@ class ProxyAttention(nn.Module):
     and the output, each with the reference's rate."""
 
     def __init__(self, dim: int, num_heads: int, num_cluster: int,
-                 dynamic_drop_radio: float, qkv_bias: bool = False):
+                 dynamic_drop_radio: float, qkv_bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         n = int(num_cluster * (1 - dynamic_drop_radio))
         s = int(round(dim ** 0.5))
         if s * s != dim:
             raise ValueError('ProxyAttention embed_dim must be a perfect '
                              f'square (the pc/pr biases are s x s); got {dim}')
-        self.qkv = linear(dim, 3 * dim, bias=qkv_bias)
-        self.proxy_proj = linear(dim, dim)
-        self.proj = linear(dim, dim)
+        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype)
+        self.proxy_proj = linear(dim, dim, dtype=dtype)
+        self.proj = linear(dim, dim, dtype=dtype)
         self.pb_bias = nn.Parameter(torch.zeros(1, n, 4, 4))
         self.pc_bias = nn.Parameter(torch.zeros(1, n, s, 1))
         self.pr_bias = nn.Parameter(torch.zeros(1, n, 1, s))
@@ -189,30 +222,36 @@ class ProxyAttention(nn.Module):
             return t.reshape(b, -1, nh, hd).transpose(1, 2)
 
         q, k, v, p = heads(q), heads(k), heads(v), heads(p)
-        scale = hd ** -0.5
-        pa = torch.softmax((p * scale) @ k.transpose(-1, -2), dim=-1)
-        pv = self.drop_pa(pa, train, generator) @ v
-        qa = (q * scale) @ p.transpose(-1, -2)
+        scale = weak_scalar(hd ** -0.5, p.dtype)
+        pa = torch.softmax(matmul_f32(p * scale, k.transpose(-1, -2)),
+                           dim=-1).to(self.dtype)
+        pv = matmul_f32(self.drop_pa(pa, train, generator), v)
+        qa = matmul_f32(q * scale, p.transpose(-1, -2))
         if mask is not None:
             qa = torch.where(mask[:, None, None, :], qa,
                              torch.full_like(qa, -1e9))
-        qa = self.drop_qa(torch.softmax(qa, dim=-1), train, generator)
-        out = (qa @ pv).transpose(1, 2).reshape(b, n, c)
-        return self.drop_proj(self.proj(out), train, generator)
+        qa = self.drop_qa(torch.softmax(qa, dim=-1).to(self.dtype), train,
+                          generator)
+        out = matmul_f32(qa, pv.to(self.dtype)).transpose(1, 2).reshape(
+            b, n, c)
+        return self.drop_proj(self.proj(out).float(), train, generator)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    """fc1 → gelu → dropout → fc2 → dropout in `dtype`; float32 out."""
+
+    def __init__(self, dim: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = linear(dim, hidden)
-        self.fc2 = linear(hidden, dim)
+        self.fc1 = linear(dim, hidden, dtype=dtype)
+        self.fc2 = linear(hidden, dim, dtype=dtype)
         self.drop1 = Dropout(_DROP)
         self.drop2 = Dropout(_DROP)
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        x = self.drop1(F.gelu(self.fc1(x)), train, generator)
-        return self.drop2(self.fc2(x), train, generator)
+        x = self.drop1(gelu(self.fc1(x)), train, generator)
+        return self.drop2(self.fc2(x), train, generator).float()
 
 
 class ProxyBlock(nn.Module):
@@ -221,13 +260,14 @@ class ProxyBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, num_cluster: int,
                  dynamic_drop_radio: float, mlp_radio: float = 4.0,
-                 qkv_bias: bool = False, drop_path: float = 0.0):
+                 qkv_bias: bool = False, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = layer_norm(dim)
         self.attn = ProxyAttention(dim, num_heads, num_cluster,
-                                   dynamic_drop_radio, qkv_bias)
+                                   dynamic_drop_radio, qkv_bias, dtype)
         self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_radio))
+        self.mlp = Mlp(dim, int(dim * mlp_radio), dtype)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
@@ -260,7 +300,8 @@ class ProxyTransformationNormReverse(nn.Module):
                  mlp_radio: float = 4.0, qkv_bias: bool = False,
                  num_sub: int = 30, input_dim: int = 512,
                  img_spacial_dim: int = 15, radius: float = 3.0,
-                 margin: float = 4.0, empty_drop: float = 0.3):
+                 margin: float = 4.0, empty_drop: float = 0.3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.grid_size = grid_size
@@ -273,13 +314,13 @@ class ProxyTransformationNormReverse(nn.Module):
 
         def block(path_rate):
             return ProxyBlock(embed_dim, num_heads, nc, dynamic_drop_radio,
-                              mlp_radio, qkv_bias, float(path_rate))
+                              mlp_radio, qkv_bias, float(path_rate), dtype)
 
-        self.get_offsets = OffsetNetwork(embed_dim)
-        self.simple_encoder = SimplifiedPointNet(embed_dim)
-        self.channel_mapper = Conv1x1(input_dim, embed_dim)
+        self.get_offsets = OffsetNetwork(embed_dim, dtype)
+        self.simple_encoder = SimplifiedPointNet(embed_dim, dtype)
+        self.channel_mapper = Conv1x1(input_dim, embed_dim, dtype=dtype)
         self.attn_pool2d = AttentionPool2d(img_spacial_dim, embed_dim,
-                                           num_heads)
+                                           num_heads, dtype)
         self.norm_img = layer_norm(embed_dim)
         self.textformer = nn.ModuleList(
             block(r) for r in np.linspace(0, _DROP, text_blocks))

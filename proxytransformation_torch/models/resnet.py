@@ -5,6 +5,9 @@ base 16 in the flagship (stage widths 64/128/256/512), `style='pytorch'`
 (stride on the 3x3 conv). The public boundary is NHWC like the JAX
 package; inside, the convolutions run NCHW through
 `torch.nn.functional.conv2d` (the JAX package leaves them to XLA too).
+In `dtype` bfloat16 the input, the convolutions and the activations are
+bfloat16 (reference models/resnet.py:100-125); the folded BatchNorm
+computes in float32 and returns the input's dtype.
 """
 from __future__ import annotations
 
@@ -17,8 +20,16 @@ from torch import nn
 from .norms import BatchNormParams
 
 
+class _Conv2d(nn.Conv2d):
+    """Conv2d in its input's dtype (flax `nn.Conv(dtype=...)` casts the
+    float32 kernel to the compute dtype)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+    conv = _Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
     nn.init.zeros_(conv.weight)
     return conv
 
@@ -58,12 +69,14 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """mmdet-style bottleneck ResNet; NHWC in, the 4 stage outputs NHWC
-    out."""
+    out, in `dtype` (float32 or bfloat16)."""
 
     arch_settings = {50: (3, 4, 6, 3)}
 
-    def __init__(self, depth: int = 50, base_channels: int = 16):
+    def __init__(self, depth: int = 50, base_channels: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = _conv(3, base_channels, 7, 2)
         self.bn1 = BatchNormParams(base_channels)
         inpl = base_channels
@@ -77,7 +90,7 @@ class ResNet(nn.Module):
             self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = x.permute(0, 3, 1, 2).contiguous()
+        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous()
         x = torch.relu(_bn(self.conv1(x), self.bn1))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []

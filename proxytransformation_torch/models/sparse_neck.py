@@ -9,6 +9,10 @@ per level through `paint_fn` and runs after compaction.
 Keys follow the reference's Sequentials: `up_block_i.{0,1,3,4}` =
 [GenerativeTranspose, BN, ELU, Conv3, BN, ELU], `out_block_i.{0,1}` =
 [Conv3, BN, ELU], and `conv_cls` a 1x1 conv with bias.
+
+The neck has no compute dtype of its own: its convs, norms and painting
+keep the dtype of the features they receive (bfloat16 behind a bfloat16
+backbone), and its scores are float32.
 """
 from __future__ import annotations
 
@@ -72,7 +76,8 @@ class _ConvCls(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_classes))
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        # float32 Dense: bfloat16 features are promoted
+        return x.float() @ self.kernel + self.bias
 
 
 class MinkNeck(nn.Module):

@@ -8,6 +8,12 @@ not ported). Parameters carry MinkowskiEngine's key names
     conv1 k3 s2 (→2 cm) → InstanceNorm → ReLU → maxpool k2 s2 (→4 cm)
     → 4 stages of BasicBlocks, each starting with stride 2,
       channels 64/128/256/512.
+
+With `dtype` bfloat16 the stem conv still reads the float32 xyz features
+(the float32 kernel); its output is cast to bfloat16 and every later
+conv, norm output and activation is bfloat16 (reference
+models/sparse_resnet.py:254-259), so the stages run the bf16 form of the
+sparse-conv kernels.
 """
 from __future__ import annotations
 
@@ -90,9 +96,11 @@ class MinkResNet(nn.Module):
 
     def __init__(self, depth: int = 34, in_channels: int = 3,
                  capacities: Sequence[int] = (100_000, 80_000, 50_000,
-                                              20_000, 6_000, 2_000)):
+                                              20_000, 6_000, 2_000),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.capacities = tuple(capacities)
+        self.dtype = dtype
         self.stage_blocks = self.arch_settings[depth]
         self.conv1 = SparseConv(in_channels, 64, 27)
         self.norm1 = MaskedInstanceNorm(64)
@@ -109,7 +117,7 @@ class MinkResNet(nn.Module):
         lvl = downsample_coords(level0, caps[0])
         nbr = build_neighbor_map(level0, lvl, kernel_size=3, stride=2)
         x = self.conv1(level0.feats, nbr, lvl.mask, conv_plan(nbr))
-        x = torch.relu(self.norm1(x, lvl.mask))
+        x = torch.relu(self.norm1(x.to(self.dtype), lvl.mask))
         plvl = downsample_coords(lvl, caps[1])
         pnbr = build_neighbor_map(lvl, plvl, kernel_size=2, stride=2)
         x = sparse_max_pool(x, pnbr, plvl.mask)

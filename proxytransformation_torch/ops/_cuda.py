@@ -31,7 +31,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR.parent / 'build' / 'torch_kernels'
 SOURCES = ('ball_query', 'lookup_pmz', 'sparse_conv', 'sparse_conv_dw',
-           'row_gather')
+           'sparse_conv_bf16', 'row_gather')
 # ball query compares against r² at the boundary: no FMA contraction, so
 # d² rounds exactly like the reference's separate multiplies and adds
 _EXTRA_FLAGS = {'ball_query': ['-fmad=false']}

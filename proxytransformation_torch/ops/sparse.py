@@ -12,9 +12,10 @@ lists) that the sparse-conv kernels read.
 Kernels (`csrc/`), each with its plain PyTorch version here: the
 q-1/q/q+1 key lookup (`lookup_pmz.cu`), its center-only form, the
 gather-GEMM sparse convolution (`sparse_conv.cu`, also the input
-gradient) and its weight gradient (`sparse_conv_dw.cu`). A CUDA tensor
-launches the kernel, a CPU tensor takes the plain version (which does
-not read the plan).
+gradient) and its weight gradient (`sparse_conv_dw.cu`), and the bf16
+form of both convs (`sparse_conv_bf16.cu`, on the tensor cores), which
+bfloat16 features take. A CUDA tensor launches the kernel, a CPU tensor
+takes the plain version (which does not read the plan).
 
 Every sort is stable, like every `jnp.argsort` of the reference.
 """
@@ -25,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
 from .common import recip32
@@ -60,6 +62,23 @@ SPARSE_CONV_DW = _cuda.CudaKernel(
     'sparse_conv_dw', 'sparse_conv_dw', 'ptt_sparse_conv_dw',
     [*[_cuda.ptr] * 5, *[_cuda.i32] * 10, *[_cuda.ptr] * 3],
     source='proxytransformation_torch/csrc/sparse_conv_dw.cu',
+    replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:399')
+# the bf16 forms: bf16 operands on the tensor cores, float32 sums
+_CONV_BF16_ARGS = [*[_cuda.ptr] * 6, *[_cuda.i32] * 10, *[_cuda.ptr] * 3]
+SPARSE_CONV_BF16 = _cuda.CudaKernel(
+    'sparse_conv_bf16', 'sparse_conv_bf16', 'ptt_sparse_conv_bf16',
+    _CONV_BF16_ARGS,
+    source='proxytransformation_torch/csrc/sparse_conv_bf16.cu',
+    replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:744')
+SPARSE_CONV_DFEATS_BF16 = _cuda.CudaKernel(
+    'sparse_conv_dfeats_bf16', 'sparse_conv_bf16', 'ptt_sparse_conv_bf16',
+    _CONV_BF16_ARGS,
+    source='proxytransformation_torch/csrc/sparse_conv_bf16.cu',
+    replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:744')
+SPARSE_CONV_DW_BF16 = _cuda.CudaKernel(
+    'sparse_conv_dw_bf16', 'sparse_conv_bf16', 'ptt_sparse_conv_dw_bf16',
+    [*[_cuda.ptr] * 5, *[_cuda.i32] * 10, *[_cuda.ptr] * 3],
+    source='proxytransformation_torch/csrc/sparse_conv_bf16.cu',
     replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:399')
 
 
@@ -448,6 +467,23 @@ def sparse_conv_apply(feats: torch.Tensor, nbr: torch.Tensor,
     return out.to(feats.dtype)
 
 
+def _bf16_values(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def sparse_conv_apply_bf16(feats: torch.Tensor, nbr: torch.Tensor,
+                           weights: torch.Tensor,
+                           out_mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the bf16 conv kernel (the TPU kernel's
+    casts, reference ops/sparse_conv_pallas.py:782-783): the float32
+    plain conv of bf16-rounded features and weights, output in the
+    features' dtype."""
+    out = sparse_conv_apply(_bf16_values(feats), nbr, _bf16_values(weights),
+                            out_mask)
+    return out.to(feats.dtype)
+
+
 class ConvPlan(NamedTuple):
     """What the sparse-conv kernels read of a neighbor map beyond the map
     itself, built once per map (`conv_plan`) and shared by every conv,
@@ -501,6 +537,16 @@ def conv_plan(nbr: torch.Tensor) -> ConvPlan:
     return ConvPlan(row_mask, order, hits[:K3 * R].view(K3, R), counts)
 
 
+def _tile_launch(B: int, V_out: int, C_out: int, n_sm: int
+                 ) -> Tuple[int, int]:
+    """(output channels a block, splits) of a 128-row tile path."""
+    cols = 64 if C_out <= 64 else 128
+    blocks = B * -(-V_out // 128) * -(-C_out // cols)
+    target = 10 * n_sm
+    splits = 1 if blocks >= target else min(16, -(-target // blocks))
+    return cols, splits
+
+
 def conv_launch_shape(B: int, V_out: int, K3: int, C_in: int, C_out: int,
                       n_sm: int) -> Tuple[str, int, int]:
     """(path, output channels a block, splits) of `csrc/sparse_conv.cu`
@@ -514,11 +560,7 @@ def conv_launch_shape(B: int, V_out: int, K3: int, C_in: int, C_out: int,
         return 'narrow_in', 0, 1
     if C_out <= 4 and K3 * C_in * 16 <= 48 * 1024:
         return 'narrow_out', 0, 1
-    cols = 64 if C_out <= 64 else 128
-    blocks = B * -(-V_out // 128) * -(-C_out // cols)
-    target = 10 * n_sm
-    splits = 1 if blocks >= target else min(16, -(-target // blocks))
-    return 'tile', cols, splits
+    return ('tile', *_tile_launch(B, V_out, C_out, n_sm))
 
 
 _PATHS = {'tile': 0, 'narrow_in': 1, 'narrow_out': 2}
@@ -571,6 +613,90 @@ def sparse_conv_dfeats_cuda(g: torch.Tensor, nbr: torch.Tensor,
     `_SparseConvFn`)."""
     return _launch_conv(SPARSE_CONV_DFEATS, 1, g, nbr, weights, out_mask,
                         plan)
+
+
+BF16_STEP_C = 16  # channels of one MMA step of csrc/sparse_conv_bf16.cu
+
+
+def _round_step(c: int) -> int:
+    return -(-c // BF16_STEP_C) * BF16_STEP_C
+
+
+def _bf16_padded(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x cast to bfloat16 (once, before a launch), its last axis
+    zero-padded to c, contiguous."""
+    x = x.to(torch.bfloat16)
+    if x.shape[-1] != c:
+        x = F.pad(x, (0, c - x.shape[-1]))
+    return x.contiguous()
+
+
+def _launch_conv_bf16(kernel: _cuda.CudaKernel, role: int,
+                      feats: torch.Tensor, nbr: torch.Tensor,
+                      weights: torch.Tensor, out_mask: torch.Tensor,
+                      plan: Optional[ConvPlan],
+                      out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    B, V_in, C_in = feats.shape
+    V_out, K3 = nbr.shape[1:]
+    C_out = weights.shape[-1]
+    for name, t in (('feats', feats), ('weights', weights)):
+        if not t.is_cuda or t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f'{name}: expected a float32 or bfloat16 CUDA '
+                             f'tensor, got {t.dtype} on {t.device}')
+    out_dtype = feats.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'out_dtype: expected float32 or bfloat16, '
+                         f'got {out_dtype}')
+    if tuple(weights.shape) != (K3, C_in, C_out):
+        raise ValueError(f'weights: expected shape {(K3, C_in, C_out)}, '
+                         f'got {tuple(weights.shape)}')
+    _cuda.check_cuda('nbr', nbr, torch.int32, (B, V_out, K3))
+    _cuda.check_cuda('out_mask', out_mask, torch.bool, (B, V_out))
+    if plan is None:
+        plan = conv_plan(nbr)
+    _cuda.check_cuda('row_mask', plan.row_mask, torch.int32, (B, V_out))
+    _cuda.check_cuda('order', plan.order, torch.int32, (B, V_out))
+    Ci, Co = _round_step(C_in), _round_step(C_out)
+    f = _bf16_padded(feats, Ci)
+    w = _bf16_padded(weights, Co)
+    if Ci != C_in:
+        w = F.pad(w, (0, 0, 0, Ci - C_in)).contiguous()
+    cols, splits = _tile_launch(B, V_out, Co, _cuda.sm_count(feats.device))
+    out = torch.empty((B, V_out, Co), dtype=out_dtype, device=feats.device)
+    ws = (torch.empty((splits, B, V_out, Co), dtype=torch.float32,
+                      device=feats.device) if splits > 1 else out)
+    kernel(f.data_ptr(), nbr.data_ptr(), w.data_ptr(), out_mask.data_ptr(),
+           plan.row_mask.data_ptr(), plan.order.data_ptr(), B, V_in, V_out,
+           K3, Ci, Co, role, int(out_dtype == torch.float32), cols, splits,
+           ws.data_ptr(), out.data_ptr(), _cuda.current_stream(feats))
+    return out if Co == C_out else out[..., :C_out].contiguous()
+
+
+def sparse_conv_bf16_cuda(feats: torch.Tensor, nbr: torch.Tensor,
+                          weights: torch.Tensor, out_mask: torch.Tensor,
+                          plan: Optional[ConvPlan] = None,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Launch the bf16 form of the conv (`csrc/sparse_conv_bf16.cu`,
+    bf16 tensor-core MMAs, float32 sums) over the map's plan, built here
+    when none is given. float32 features or weights are rounded to
+    bfloat16 here, once. Widths that are not a multiple of 16 are
+    zero-padded here (the kernel takes 16-channel steps), and the output
+    sliced back. The output is `out_dtype` (default: the features')."""
+    return _launch_conv_bf16(SPARSE_CONV_BF16, 0, feats, nbr, weights,
+                             out_mask, plan, out_dtype)
+
+
+def sparse_conv_dfeats_bf16_cuda(g: torch.Tensor, nbr: torch.Tensor,
+                                 weights: torch.Tensor,
+                                 out_mask: torch.Tensor,
+                                 plan: Optional[ConvPlan] = None,
+                                 out_dtype: Optional[torch.dtype] = None
+                                 ) -> torch.Tensor:
+    """The bf16 conv for the input gradient, under its own kernel
+    symbols (as `sparse_conv_dfeats_cuda`)."""
+    return _launch_conv_bf16(SPARSE_CONV_DFEATS_BF16, 1, g, nbr, weights,
+                             out_mask, plan, out_dtype)
 
 
 def sparse_conv_dw_plain(feats: torch.Tensor, nbr: torch.Tensor,
@@ -627,6 +753,14 @@ def dw_launch_shape(rows: int, K3: int, C_in: int, C_out: int,
     return tm, tn, pairs_target, grid_pairs
 
 
+def sparse_conv_dw_plain_bf16(feats: torch.Tensor, nbr: torch.Tensor,
+                              g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the bf16 dW kernel (the TPU kernel's
+    casts, reference ops/sparse_conv_pallas.py:422, :436): the float32
+    plain dW of bf16-rounded features and gradient; float32 out."""
+    return sparse_conv_dw_plain(_bf16_values(feats), nbr, _bf16_values(g))
+
+
 def sparse_conv_dw_cuda(feats: torch.Tensor, nbr: torch.Tensor,
                         g: torch.Tensor,
                         plan: Optional[ConvPlan] = None) -> torch.Tensor:
@@ -656,23 +790,75 @@ def sparse_conv_dw_cuda(feats: torch.Tensor, nbr: torch.Tensor,
     return dw
 
 
+def sparse_conv_dw_bf16_cuda(feats: torch.Tensor, nbr: torch.Tensor,
+                             g: torch.Tensor,
+                             plan: Optional[ConvPlan] = None
+                             ) -> torch.Tensor:
+    """Launch the bf16 dW kernel (`csrc/sparse_conv_bf16.cu`) over the
+    map's per-offset hit lists (built here when no plan is given);
+    returns (K3, C_in, C_out) float32. float32 features or gradients are
+    rounded to bfloat16 here, once; widths that are not a multiple of 16
+    are zero-padded here and the result sliced back."""
+    B, V_in, C_in = feats.shape
+    V_out, K3 = nbr.shape[1:]
+    C_out = g.shape[-1]
+    for name, t in (('feats', feats), ('g', g)):
+        if not t.is_cuda or t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f'{name}: expected a float32 or bfloat16 CUDA '
+                             f'tensor, got {t.dtype} on {t.device}')
+    if tuple(g.shape[:2]) != (B, V_out):
+        raise ValueError(f'g: expected shape {(B, V_out, C_out)}, '
+                         f'got {tuple(g.shape)}')
+    _cuda.check_cuda('nbr', nbr, torch.int32, (B, V_out, K3))
+    if plan is None:
+        plan = conv_plan(nbr)
+    _cuda.check_cuda('hits', plan.hits, torch.int32, (K3, B * V_out))
+    _cuda.check_cuda('hit_counts', plan.hit_counts, torch.int32, (K3, ))
+    Ci, Co = _round_step(C_in), _round_step(C_out)
+    f, gb = _bf16_padded(feats, Ci), _bf16_padded(g, Co)
+    tm, tn, pairs_target, grid_pairs = dw_launch_shape(
+        B * V_out, K3, Ci, Co, _cuda.sm_count(feats.device))
+    dw = torch.empty((K3, Ci, Co), dtype=torch.float32, device=feats.device)
+    ws = torch.empty((grid_pairs, Ci, Co), dtype=torch.float32,
+                     device=feats.device)
+    SPARSE_CONV_DW_BF16(f.data_ptr(), nbr.data_ptr(), gb.data_ptr(),
+                        plan.hits.data_ptr(), plan.hit_counts.data_ptr(), B,
+                        V_in, V_out, K3, Ci, Co, tm, tn, pairs_target,
+                        grid_pairs, ws.data_ptr(), dw.data_ptr(),
+                        _cuda.current_stream(feats))
+    if (Ci, Co) != (C_in, C_out):
+        dw = dw[:, :C_in, :C_out].contiguous()
+    return dw
+
+
 def sparse_conv_dw(feats: torch.Tensor, nbr: torch.Tensor, g: torch.Tensor,
                    plan: Optional[ConvPlan] = None) -> torch.Tensor:
-    """Weight gradient: kernel on CUDA, plain on CPU."""
+    """Weight gradient: kernel on CUDA, plain on CPU; bfloat16 features
+    take the bf16 form."""
+    bf16 = feats.dtype == torch.bfloat16
     if feats.is_cuda:
+        if bf16:
+            return sparse_conv_dw_bf16_cuda(feats, nbr.contiguous(), g, plan)
         return sparse_conv_dw_cuda(feats.float().contiguous(),
                                    nbr.contiguous(), g.contiguous(), plan)
+    if bf16:
+        return sparse_conv_dw_plain_bf16(feats, nbr, g)
     return sparse_conv_dw_plain(feats, nbr, g)
 
 
 def sparse_conv_dfeats(g: torch.Tensor, nbr: torch.Tensor,
                        weights: torch.Tensor, out_mask: torch.Tensor,
                        plan: Optional[ConvPlan] = None) -> torch.Tensor:
-    """The backward's conv of `g`: kernel on CUDA, plain on CPU."""
+    """The backward's conv of `g`: kernel on CUDA, plain on CPU; a
+    bfloat16 `g` takes the bf16 form."""
+    bf16 = g.dtype == torch.bfloat16
     if g.is_cuda:
-        return sparse_conv_dfeats_cuda(g.contiguous(), nbr.contiguous(),
-                                       weights.contiguous(),
-                                       out_mask.contiguous(), plan)
+        launch = (sparse_conv_dfeats_bf16_cuda if bf16 else
+                  sparse_conv_dfeats_cuda)
+        return launch(g.contiguous(), nbr.contiguous(), weights.contiguous(),
+                      out_mask.contiguous(), plan)
+    if bf16:
+        return sparse_conv_apply_bf16(g, nbr, weights, out_mask)
     return sparse_conv_apply(g, nbr, weights, out_mask)
 
 
@@ -700,24 +886,32 @@ class _SparseConvFn(torch.autograd.Function):
     map (and the same plan) with mirrored-transposed weights for a self
     map (kernel_offsets is symmetric under index reversal), or over the
     reversed map (whose plan the kernel's wrapper builds) with transposed
-    weights and an all-true mask for a strided one."""
+    weights and an all-true mask for a strided one.
+
+    bfloat16 features take the bf16 forms (reference
+    `_sparse_conv_pallas_bwd` casts g, features and weights to bf16):
+    the output and dfeats are bfloat16, dW float32."""
 
     @staticmethod
     def forward(ctx, feats, nbr, weights, out_mask, self_map, plan):
         ctx.save_for_backward(feats, nbr, weights, out_mask)
         ctx.self_map = self_map
         ctx.plan = plan
+        bf16 = feats.dtype == torch.bfloat16
         if feats.is_cuda:
-            return sparse_conv_cuda(feats.contiguous(), nbr.contiguous(),
-                                    weights.contiguous(),
-                                    out_mask.contiguous(), plan)
+            launch = sparse_conv_bf16_cuda if bf16 else sparse_conv_cuda
+            return launch(feats.contiguous(), nbr.contiguous(),
+                          weights.contiguous(), out_mask.contiguous(), plan)
+        if bf16:
+            return sparse_conv_apply_bf16(feats, nbr, weights, out_mask)
         return sparse_conv_apply(feats, nbr, weights, out_mask)
 
     @staticmethod
     def backward(ctx, g):
         feats, nbr, weights, out_mask = ctx.saved_tensors
         plan = ctx.plan
-        g = torch.where(out_mask[..., None], g, torch.zeros_like(g)).float()
+        g = torch.where(out_mask[..., None], g,
+                        torch.zeros_like(g)).to(feats.dtype)
         dfeats = dW = None
         if ctx.needs_input_grad[2]:
             dW = sparse_conv_dw(feats, nbr, g, plan).to(weights.dtype)
@@ -786,7 +980,9 @@ def generative_transpose_apply(coarse_feats: torch.Tensor,
                                offset_id: torch.Tensor,
                                weights: torch.Tensor,
                                out_mask: torch.Tensor) -> torch.Tensor:
-    """out[v] = coarse[parent(v)] @ W[offset(v)], weights (8, C_in, C_out)."""
+    """out[v] = coarse[parent(v)] @ W[offset(v)], weights (8, C_in, C_out);
+    summed in float32 (bfloat16 features promoted), output in the
+    features' dtype."""
     B, V = parent_idx.shape
     C_in = coarse_feats.shape[-1]
     hit = parent_idx >= 0
@@ -797,7 +993,7 @@ def generative_transpose_apply(coarse_feats: torch.Tensor,
     # one contraction over (offset, channel), zero outside the voxel's
     # offset — the einsum 'bvc,bvk,kcd->bvd' of the reference
     x = (onehot[..., :, None] * g[..., None, :]).reshape(B, V, 8 * C_in)
-    out = torch.matmul(x, weights.reshape(8 * C_in, -1))
+    out = torch.matmul(x.float(), weights.reshape(8 * C_in, -1).float())
     out = torch.where(out_mask[..., None], out, torch.zeros_like(out))
     return out.to(coarse_feats.dtype)
 

@@ -1,6 +1,7 @@
 """Profile flagship predict requests on the card with torch.profiler.
 
     python -m proxytransformation_torch.tools.profile_forward [--top 25]
+        [--compute-dtype bfloat16]
 
 Builds the flagship grounder at full width with random weights (seed 0),
 warms up, then traces one request (B=2, 100k surface-scene points, 20
@@ -9,15 +10,18 @@ the device's busy and idle share of the request's wall time (the union
 of kernel intervals over the host-clock span of the request, which ends
 in a synchronize), and writes both to chiprun_out/profile_forward.json.
 The sparse conv's kernels are also summed by role (forward, input
-gradient, weight gradient: `csrc/sparse_conv.cu` and
-`csrc/sparse_conv_dw.cu` give each role its own kernel symbols), and the
-ball query's (head and tail passes) and the lookups' kernels by family.
+gradient, weight gradient, each in float32 and in bf16: `csrc/sparse_conv.cu`,
+`csrc/sparse_conv_dw.cu` and `csrc/sparse_conv_bf16.cu` give each its own
+kernel symbols), and the ball query's (head and tail passes) and the
+lookups' kernels by family. `--compute-dtype bfloat16` profiles the bf16
+model (`remat_painting=True`) and writes profile_forward_bfloat16.json.
 Fails when the profiler recorded no device activity.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -32,13 +36,16 @@ from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
 from ..ops import _cuda
 
 
-# substrings of the kernel symbols of each sparse-conv role
-CONV_ROLES = (('forward', 'sparse_conv_fwd_'),
-              ('dfeats', 'sparse_conv_dfeats_'),
-              ('dW', 'sparse_conv_dw_'))
+# patterns of the kernel symbols of each sparse-conv role
+CONV_ROLES = (('forward', r'sparse_conv_fwd_(?!bf16)'),
+              ('dfeats', r'sparse_conv_dfeats_(?!bf16)'),
+              ('dW', r'sparse_conv_dw_(?!bf16)'),
+              ('forward bf16', r'sparse_conv_fwd_bf16_'),
+              ('dfeats bf16', r'sparse_conv_dfeats_bf16_'),
+              ('dW bf16', r'sparse_conv_dw_bf16_'))
 
 
-# substrings of the kernel symbols of the ball query (its head and tail
+# patterns of the kernel symbols of the ball query (its head and tail
 # passes) and of the two lookups
 KERNEL_FAMILIES = (('ball_query', 'ball_query_'),
                    ('lookup_pmz', 'lookup_pmz_'),
@@ -46,11 +53,11 @@ KERNEL_FAMILIES = (('ball_query', 'ball_query_'),
 
 
 def sum_by_tag(rows, tags):
-    """{label: (device ms, launches)} of the kernels whose symbol holds
-    each (label, tag)'s tag, from the (ms, count, name) rows of a
+    """{label: (device ms, launches)} of the kernels whose symbol matches
+    each (label, pattern)'s pattern, from the (ms, count, name) rows of a
     profile."""
-    return {label: (sum(ms for ms, _, name in rows if tag in name),
-                    sum(n for _, n, name in rows if tag in name))
+    return {label: (sum(ms for ms, _, name in rows if re.search(tag, name)),
+                    sum(n for _, n, name in rows if re.search(tag, name)))
             for label, tag in tags}
 
 
@@ -71,13 +78,28 @@ def _union_us(intervals):
     return total
 
 
+def model_kwargs(compute_dtype: str) -> dict:
+    """The flagship's bf16 mode is `--amp`: bfloat16 with the painting
+    rematerialized."""
+    if compute_dtype == 'float32':
+        return {}
+    return dict(compute_dtype=compute_dtype, remat_painting=True)
+
+
+def json_suffix(compute_dtype: str) -> str:
+    return '' if compute_dtype == 'float32' else f'_{compute_dtype}'
+
+
 @torch.no_grad()
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('--top', type=int, default=25)
+    ap.add_argument('--compute-dtype', default='float32',
+                    choices=('float32', 'bfloat16'))
     args = ap.parse_args()
     _cuda.build()
-    model = SparseFeatureFusion3DGrounderPreshape().random_init_(0)
+    model = SparseFeatureFusion3DGrounderPreshape(
+        **model_kwargs(args.compute_dtype)).random_init_(0)
     batch = batch_to_device(flagship_batch(seed=0), 'cuda')
     for _ in range(2):
         model(batch)
@@ -112,8 +134,10 @@ def main() -> None:
     print_sums('point and key kernels', families)
     out = Path(__file__).resolve().parents[2] / 'chiprun_out'
     out.mkdir(exist_ok=True)
-    (out / 'profile_forward.json').write_text(json.dumps({
+    path = out / f'profile_forward{json_suffix(args.compute_dtype)}.json'
+    path.write_text(json.dumps({
         'device': torch.cuda.get_device_name(0), 'wall_ms': wall_ms,
+        'compute_dtype': args.compute_dtype,
         'busy_ms': busy_ms, 'idle_share': 1 - busy_ms / wall_ms,
         'launches': len(kernels), 'sparse_conv_roles': roles,
         'kernel_families': families,

@@ -1,6 +1,7 @@
 """Profile one flagship train step on the card with torch.profiler.
 
     python -m proxytransformation_torch.tools.profile_train [--top 30]
+        [--compute-dtype bfloat16]
 
 The train-step counterpart of `profile_forward`: builds the flagship
 grounder at full width with random weights (seed 0) and its AdamW
@@ -15,7 +16,8 @@ synchronize), the launch count and the peak memory, and writes them to
 chiprun_out/profile_train.json. Then one more step without the profiler
 (seed 2), split by CUDA events into the loss forward, the backward and
 the optimizer update, each with its host time. Fails when the profiler
-recorded no device activity.
+recorded no device activity. `--compute-dtype bfloat16` profiles the
+bf16 model (`remat_painting=True`) and writes profile_train_bfloat16.json.
 """
 from __future__ import annotations
 
@@ -37,15 +39,19 @@ from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
 from ..ops import _cuda
 from .profile_forward import (CONV_ROLES, KERNEL_FAMILIES, _union_us,
-                              print_sums, sum_by_tag)
+                              json_suffix, model_kwargs, print_sums,
+                              sum_by_tag)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('--top', type=int, default=30)
+    ap.add_argument('--compute-dtype', default='float32',
+                    choices=('float32', 'bfloat16'))
     args = ap.parse_args()
     _cuda.build()
-    model = SparseFeatureFusion3DGrounderPreshape().random_init_(0)
+    model = SparseFeatureFusion3DGrounderPreshape(
+        **model_kwargs(args.compute_dtype)).random_init_(0)
     opt = build_optimizer(model)
     schedule = build_lr_schedule(steps_per_epoch=1)
     step = make_train_step(model, opt, schedule)
@@ -100,8 +106,10 @@ def main() -> None:
         f'{k} {d:.1f} / {h:.1f}' for k, (d, h) in phases.items()))
     out = Path(__file__).resolve().parents[2] / 'chiprun_out'
     out.mkdir(exist_ok=True)
-    (out / 'profile_train.json').write_text(json.dumps({
+    path = out / f'profile_train{json_suffix(args.compute_dtype)}.json'
+    path.write_text(json.dumps({
         'device': torch.cuda.get_device_name(0), 'wall_ms': wall_ms,
+        'compute_dtype': args.compute_dtype,
         'busy_ms': busy_ms, 'idle_share': 1 - busy_ms / wall_ms,
         'launches': len(kernels), 'peak_gib': peak, 'phases_ms': phases,
         'sparse_conv_roles': roles, 'kernel_families': families,

@@ -9,7 +9,10 @@ has no JAX; there, skip the JAX-pinning conftest:
 Ball query, the lookups (and the lookup's tile
 windows) and the row gather must be bit-exact; the sparse
 conv, its weight gradient and its input gradient within
-|k - p| <= 1e-4 * (1 + max|p|) (float32 sums in another order).
+|k - p| <= 1e-4 * (1 + max|p|) (float32 sums in another order); the
+bf16 form of the conv against its plain bf16 version within the same
+tolerance where it writes float32, within one bf16 ulp (plus that
+tolerance) where it writes bf16.
 """
 import numpy as np
 import pytest
@@ -515,3 +518,145 @@ def test_tiny_train_step_card_vs_cpu(gen):
         if bool(((s_gpu[k] - v).abs() > tol).any()):
             bad.append((k, float((s_gpu[k] - v).abs().max())))
     assert not bad, bad[:5]
+
+
+# --------------------------------------------------------------------------
+# the bf16 form of the sparse-conv kernels (bf16 tensor cores)
+# --------------------------------------------------------------------------
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (8 significant bits), float32."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _close_bf16(got, want):
+    """Two roundings to bf16 of float32 sums taken in another order: at
+    most one bf16 ulp of the larger apart, plus the float32 tolerance
+    (which matters where a sum cancels to near zero)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    tol = (_bf16_ulp(torch.maximum(g.abs(), w.abs()))
+           + 1e-4 * (1.0 + float(w.abs().max())))
+    bad = (g - w).abs() > tol
+    assert not bool(bad.any()), (float((g - w).abs().max()),
+                                 int(bad.sum()))
+
+
+BF16_CONV_CASES = [
+    # V_in, V_out, K3, C_in, C_out, hit: model widths, a width the wrapper
+    # pads (3, 33, 200, 36 -> 72), 128- and 64-wide column blocks
+    (3000, 2000, 27, 64, 64, 0.3), (3000, 3000, 27, 64, 96, 0.3),
+    (1000, 800, 8, 200, 33, 0.5), (500, 130, 27, 1024, 256, 0.2),
+    (1500, 1000, 27, 36, 72, 0.35), (2000, 1500, 27, 3, 64, 0.3),
+    (400, 300, 27, 16, 16, 0.0), (6000, 6000, 27, 256, 128, 0.4)]
+
+
+def _bf16_conv_inputs(gen, V_in, V_out, K3, C_in, C_out, hit, B=2):
+    feats = torch.randn(B, V_in, C_in, device='cuda',
+                        generator=gen).bfloat16()
+    nbr = _random_map(gen, B, V_in, V_out, K3, hit)
+    w = torch.randn(K3, C_in, C_out, device='cuda', generator=gen) * 0.1
+    out_mask = torch.rand(B, V_out, device='cuda', generator=gen) > 0.2
+    return feats, nbr, w, out_mask
+
+
+@pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit', BF16_CONV_CASES)
+def test_sparse_conv_bf16_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
+    """Forward and input-gradient bf16 kernels against the plain bf16
+    conv: float32 out within the float32 tolerance, bf16 out within one
+    bf16 ulp; zero at masked outputs; the same bits twice."""
+    feats, nbr, w, out_mask = _bf16_conv_inputs(gen, V_in, V_out, K3, C_in,
+                                                C_out, hit)
+    want32 = sp.sparse_conv_apply_bf16(feats.float(), nbr, w, out_mask)
+    want16 = sp.sparse_conv_apply_bf16(feats, nbr, w, out_mask)
+    for launch in (sp.sparse_conv_bf16_cuda, sp.sparse_conv_dfeats_bf16_cuda):
+        got32 = launch(feats, nbr, w, out_mask, out_dtype=torch.float32)
+        assert got32.dtype == torch.float32
+        _close(got32, want32)
+        got16 = launch(feats, nbr, w, out_mask)
+        _close_bf16(got16, want16)
+        assert torch.all(got16[~out_mask] == 0)
+        assert torch.equal(launch(feats, nbr, w, out_mask), got16)
+
+
+@pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit', BF16_CONV_CASES)
+def test_sparse_conv_dw_bf16_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
+    """The bf16 dW kernel against the plain bf16 dW (float32 out), and
+    the same bits on a rerun (no float atomics)."""
+    feats, nbr, _, _ = _bf16_conv_inputs(gen, V_in, V_out, K3, C_in, C_out,
+                                         hit)
+    g = torch.randn(2, V_out, C_out, device='cuda', generator=gen).bfloat16()
+    got = sp.sparse_conv_dw_bf16_cuda(feats, nbr, g)
+    assert got.dtype == torch.float32
+    _close(got, sp.sparse_conv_dw_plain_bf16(feats, nbr, g))
+    assert torch.equal(sp.sparse_conv_dw_bf16_cuda(feats, nbr, g), got)
+
+
+def test_bf16_kernels_round_float32_inputs(gen):
+    """float32 operands are rounded to bf16 by the wrapper: the same
+    result as bf16 operands."""
+    feats, nbr, w, out_mask = _bf16_conv_inputs(gen, 1200, 900, 27, 48, 80,
+                                                0.3)
+    f32 = feats.float() + 1e-3 * torch.randn(feats.shape, device='cuda',
+                                             generator=gen)
+    assert torch.equal(
+        sp.sparse_conv_bf16_cuda(f32, nbr, w, out_mask),
+        sp.sparse_conv_bf16_cuda(f32.bfloat16(), nbr, w.bfloat16(), out_mask,
+                                 out_dtype=torch.float32))
+    g = torch.randn(2, 900, 80, device='cuda', generator=gen)
+    assert torch.equal(sp.sparse_conv_dw_bf16_cuda(f32, nbr, g),
+                       sp.sparse_conv_dw_bf16_cuda(f32.bfloat16(), nbr,
+                                                   g.bfloat16()))
+
+
+def test_bf16_offset_split_path(gen):
+    """A stage-4-like level in bf16: offsets split across blocks, the
+    float32 partials added in order and rounded once; the same bits
+    twice."""
+    B, V, C_in, C_out = 2, 1000, 512, 256
+    assert sp._tile_launch(B, V, C_out,
+                           _cuda.sm_count(torch.device('cuda')))[1] > 1
+    feats, nbr, w, mask = _bf16_conv_inputs(gen, V, V, 27, C_in, C_out, 0.4)
+    got = sp.sparse_conv_bf16_cuda(feats, nbr, w, mask)
+    _close_bf16(got, sp.sparse_conv_apply_bf16(feats, nbr, w, mask))
+    assert torch.equal(sp.sparse_conv_bf16_cuda(feats, nbr, w, mask), got)
+
+
+@pytest.mark.parametrize('self_map', [True, False])
+def test_sparse_conv_bf16_backward_on_card(gen, self_map):
+    """The conv autograd.Function in bf16 (bf16 forward, mirrored or
+    reversed bf16 dfeats, bf16 dW) against autograd of the plain bf16
+    conv on a real map: dfeats within one bf16 ulp (both round a float32
+    sum once), dW within one bf16 ulp of the plain one, which autograd
+    rounds to bf16 at the weights' cast."""
+    f0, nbr, mask = _cuda_level_and_map(gen, self_map, 32)
+    f0 = f0.bfloat16()
+    w0 = torch.randn(27, 32, 48, device='cuda', generator=gen) * 0.1
+    cot = torch.randn(2, nbr.shape[1], 48, device='cuda',
+                      generator=gen).bfloat16()
+    grads = []
+    for conv in (lambda f, w: sp.sparse_conv(f, nbr, w, mask, self_map),
+                 lambda f, w: sp.sparse_conv_apply_bf16(f, nbr, w, mask)):
+        f = f0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        out = conv(f, w)
+        assert out.dtype == torch.bfloat16
+        (out.float() * cot.float()).sum().backward()
+        grads.append((f.grad, w.grad))
+    (gf, gw), (wf, ww) = grads
+    assert gf.dtype == torch.bfloat16 and gw.dtype == torch.float32
+    _close_bf16(gf, wf)
+    err = (gw - ww).abs()
+    assert bool((err <= _bf16_ulp(ww) + 1e-4 * (1 + float(ww.abs().max())))
+                .all()), float(err.max())
+
+
+def test_bf16_wrappers_refuse_other_types(gen):
+    feats, nbr, w, mask = _bf16_conv_inputs(gen, 300, 200, 27, 16, 16, 0.3)
+    with pytest.raises(ValueError, match='feats'):
+        sp.sparse_conv_bf16_cuda(feats.half(), nbr, w, mask)
+    with pytest.raises(ValueError, match='out_dtype'):
+        sp.sparse_conv_bf16_cuda(feats, nbr, w, mask, out_dtype=torch.half)
+    with pytest.raises(ValueError, match='g'):
+        sp.sparse_conv_dw_bf16_cuda(feats, nbr, torch.zeros(
+            2, 200, 16, dtype=torch.half, device='cuda'))

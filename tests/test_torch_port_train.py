@@ -127,7 +127,9 @@ def _adam_moments(opt_state, params):
     return merge('mu'), merge('nu')
 
 
-def run_jax(sd, batch, steps, monkeypatch):
+def run_jax(sd, batch, steps, monkeypatch, cfg=TINY, compiler_options=None):
+    """`steps` JAX train steps of the grounder `cfg` from state dict `sd`,
+    compiled once (with XLA's `compiler_options`, when given)."""
     masks, seen = {}, {}
 
     def interceptor(next_fun, args, kwargs, ctx):
@@ -144,14 +146,16 @@ def run_jax(sd, batch, steps, monkeypatch):
         seen, 'assign')(jhead_mod.hungarian_assign))
     monkeypatch.setattr(jdet_mod, 'voxelize_points', _capture(
         seen, 'keys')(jdet_mod.voxelize_points))
-    model = JGrounder(**TINY)
+    model = JGrounder(**cfg)
     variables = convert_detector(sd)
     tx = _recording(jtrain.build_optimizer(variables['params']))
     state = jtrain.create_train_state(model, variables, tx)
-    step = jax.jit(jtrain.make_train_step(model, tx))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     out = []
     with fnn.intercept_methods(interceptor):
+        step = jax.jit(jtrain.make_train_step(model, tx)).lower(
+            state, jb, jax.random.PRNGKey(0)).compile(
+                compiler_options=compiler_options)
         for _ in range(steps):
             state, metrics = step(state, jb, jax.random.PRNGKey(0))
             grads = jax.tree_util.tree_map(np.asarray, state.opt_state[1])
@@ -172,10 +176,11 @@ def run_jax(sd, batch, steps, monkeypatch):
     return out, masks, seen
 
 
-def run_port(sd, batch, masks, steps, adam=None):
-    """`steps` port train steps from state dict `sd`; `adam` = a JAX
-    step's record continues from its Adam moments after one step."""
-    model = TGrounder(**TINY, device='cpu')
+def run_port(sd, batch, masks, steps, adam=None, cfg=TINY):
+    """`steps` port train steps of the grounder `cfg` from state dict
+    `sd`; `adam` = a JAX step's record continues from its Adam moments
+    after one step."""
+    model = TGrounder(**cfg, device='cpu')
     model.load_state_dict({k: torch.from_numpy(np.array(v))
                            for k, v in sd.items()})
     for name, mod in model.named_modules():
