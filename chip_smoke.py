@@ -7,6 +7,9 @@ Phases (any failure exits non-zero before the final line):
   1. device: the card's name and power limit, torch version, TF32 off;
   2. build: every CUDA kernel from `proxytransformation_torch/csrc`
      with nvcc for sm_90a, one nvcc per source, all started together;
+     one `[ptxas]` line per bf16 forward / input-gradient kernel
+     (registers, spills, its block's dynamic shared memory) and any
+     performance note ptxas gives on them;
   3. capture: one flagship predict request at full width (seeded random
      weights) records the inputs of every kernel call on the main path;
   4. kernels: each captured call runs through the kernel and its plain
@@ -53,8 +56,11 @@ Phases (any failure exits non-zero before the final line):
      same seeded weights): one request captured and every bf16 conv call
      held against the plain bf16 conv (bf16 output within one bf16 ulp
      plus the float32 tolerance; float32 output within the float32
-     tolerance), then launch counts reset to 0 and three B=2 requests
-     through the bf16 kernels (`sparse_conv_bf16`; the stem's float32
+     tolerance; one call of each shape launched twice for the same bits;
+     beside each call a dense yardstick: `torch.matmul` of as many bf16
+     rows as the kernel multiplies by a C_in x C_out bf16 matrix, no
+     computation of the conv), then launch counts reset to 0 and three
+     B=2 requests through the bf16 kernels (`sparse_conv_bf16`; the stem's float32
      input keeps the float32 kernel), times and peak memory;
  11. bf16 train step: one loss and backward captured and every bf16
      forward, dfeats and dW call held against its plain bf16 version
@@ -63,7 +69,10 @@ Phases (any failure exits non-zero before the final line):
      for its peak memory.
 Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
-neck): calls, summed ms, bound, and rows multiplied per hit.
+neck): calls, summed ms, bound, rows multiplied per hit (the bf16
+forward and dfeats count each warpgroup's 64 rows), the TFLOP/s on the
+rows multiplied and, for the bf16 forward and dfeats, the dense
+yardstick's summed ms.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, the one before it the kernels' JSON (`launches`:
@@ -379,23 +388,57 @@ def check_lookup_center(calls):
     return rows
 
 
+def ptxas_lines(log_text):
+    """One `[ptxas]` line per forward / input-gradient bf16 kernel from
+    nvcc's `-Xptxas -v` output: registers, spills and the block's dynamic
+    shared memory (`bf16_stage_shape`), and ptxas's performance notes."""
+    import re
+    from proxytransformation_torch.ops import sparse as sp
+    # a mangled kernel<BN, KC> name: its symbol, BN, KC
+    kernel = r'(sparse_conv_(?:fwd|dfeats)_bf16_tile)ILi(\d+)ELi(\d+)E'
+    lines, name, spill = [], None, ''
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '.*?" + kernel, line)
+        if m:
+            name = (m.group(1), int(m.group(2)), int(m.group(3)))
+        elif 'Compiling entry function' in line:
+            name = None
+        elif name and 'spill' in line:
+            spill = line.strip()
+        elif name and 'Used' in line and 'registers' in line:
+            kern, bn, kc = name
+            smem = sp.bf16_stage_shape(kc, bn)[1]
+            used = line.split(':', 1)[1].strip()
+            lines.append(f'[ptxas] {kern}<BN={bn}, KC={kc}>: {used}; '
+                         f'{spill}; {smem} bytes dynamic shared memory')
+            name = None
+        m = re.search(r'\((C\d+)\) Potential Performance Loss: (.*?) in the '
+                      r"function '.*?" + kernel, line)
+        if m:
+            lines.append(f'[ptxas] {m.group(3)}<BN={m.group(4)}, '
+                         f'KC={m.group(5)}>: {m.group(1)} {m.group(2)}')
+    return lines
+
+
 def _plan(nbr, plan):
     from proxytransformation_torch.ops import sparse as sp
     return sp.conv_plan(nbr) if plan is None else plan
 
 
-def rows_multiplied(nbr, out_mask, plan, C_in, C_out):
-    """Rows the forward kernel multiplies for this call: on the tile path
-    each tile's row count times the offsets in the OR of its kept rows'
-    masks; on the narrow paths only the hit rows."""
+def rows_multiplied(nbr, out_mask, plan, C_in, C_out, rows=None):
+    """Rows a forward kernel multiplies for this call: each group of
+    `rows` sorted rows (the float32 tile path's 128-row tile by default,
+    a bf16 warpgroup's 64) times the offsets in the OR of its kept rows'
+    masks; on the float32 narrow paths only the hit rows."""
     from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     B, V, K3 = nbr.shape
-    path, _, _ = sp.conv_launch_shape(B, V, K3, C_in, C_out,
-                                      _cuda.sm_count(nbr.device))
-    rows = sp.CONV_TILE_ROWS
-    if path != 'tile':
-        return float(((nbr >= 0) & out_mask[..., None]).sum())
+    if rows is None:
+        path, _, _ = sp.conv_launch_shape(B, V, K3, C_in, C_out,
+                                          _cuda.sm_count(nbr.device))
+        if path != 'tile':
+            return float(((nbr >= 0) & out_mask[..., None]).sum())
+        rows = sp.CONV_TILE_ROWS
     m = torch.where(out_mask, plan.row_mask, 0).gather(1, plan.order.long())
     m = torch.nn.functional.pad(m, (0, (-V) % rows)).reshape(B, -1, rows)
     bits = (m[..., None] >> torch.arange(K3, device=m.device)) & 1
@@ -438,10 +481,11 @@ def check_sparse_conv(calls):
         shape = (f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
                  f'C_out={C_out} launch='
                  f'{sp.conv_launch_shape(B, V_out, K3, C_in, C_out, _cuda.sm_count(feats.device))}')
+        rm = rows_multiplied(nbr, mask, plan, C_in, C_out)
         rows.append(dict(
             shape=shape, max_abs_err=err, key=(V_in, V_out, C_in, C_out),
             hits=float(((nbr >= 0) & mask[..., None]).sum()),
-            rows_multiplied=rows_multiplied(nbr, mask, plan, C_in, C_out),
+            rows_multiplied=rm, mult_ops=2.0 * rm * C_in * C_out,
             ms=time_ms(f'sparse_conv {i}',
                        lambda: sp.sparse_conv_cuda(feats, nbr, w, mask, plan)),
             plain_ms=time_ms(f'sparse_conv plain {i}',
@@ -470,13 +514,14 @@ def check_sparse_conv_dfeats(calls):
         V_in, K3 = nbr.shape[1:]
         hits = float((nbr >= 0).sum())
         C_in = w.shape[-1]
+        rm = rows_multiplied(nbr, mask, plan, C_out, C_in)
         rows.append(dict(
             shape=f'B={B} V_g={V_g} V_in={V_in} K3={K3} C_out={C_out} '
                   f'C_in={C_in}', max_abs_err=err,
             # the forward conv's shapes: its V_in, V_out, C_in, C_out
             key=(V_in, V_g, C_in, C_out),
             hits=float(((nbr >= 0) & mask[..., None]).sum()),
-            rows_multiplied=rows_multiplied(nbr, mask, plan, C_out, C_in),
+            rows_multiplied=rm, mult_ops=2.0 * rm * C_in * C_out,
             ms=time_ms(f'sparse_conv_dfeats {i}',
                        lambda: sp.sparse_conv_dfeats_cuda(g, nbr, w, mask,
                                                           plan)),
@@ -506,12 +551,13 @@ def check_sparse_conv_dw(calls):
         V_out, K3 = nbr.shape[1:]
         C_out = g.shape[-1]
         hits = float((nbr >= 0).sum())
+        rm = dw_rows_multiplied(nbr, plan, C_in, C_out)
         rows.append(dict(
             shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
                   f'C_out={C_out} launch='
                   f'{sp.dw_launch_shape(B * V_out, K3, C_in, C_out, _cuda.sm_count(feats.device))}',
             max_abs_err=err, key=(V_in, V_out, C_in, C_out), hits=hits,
-            rows_multiplied=dw_rows_multiplied(nbr, plan, C_in, C_out),
+            rows_multiplied=rm, mult_ops=2.0 * rm * C_in * C_out,
             ms=time_ms(f'sparse_conv_dw {i}',
                        lambda: sp.sparse_conv_dw_cuda(feats, nbr, g, plan)),
             plain_ms=time_ms(f'sparse_conv_dw plain {i}',
@@ -544,10 +590,11 @@ def check_conv_bf16(calls, role):
     output (what the model path writes) within one bf16 ulp plus the
     float32 tolerance, its float32 output within the float32 tolerance.
     Bound: bf16 operations over the tensor-core rate, or the bytes."""
+    from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     launch = (sp.sparse_conv_bf16_cuda if role == 'forward' else
               sp.sparse_conv_dfeats_bf16_cuda)
-    rows = []
+    rows, twice = [], set()
     for i, (x, nbr, w, mask, plan) in enumerate(calls):
         plan = _plan(nbr, plan)
         got = launch(x, nbr, w, mask, plan)
@@ -571,12 +618,26 @@ def check_conv_bf16(calls, role):
         # C_out), as in check_sparse_conv_dfeats
         key = ((V_in, V_out, C_in, C_out) if role == 'forward' else
                (V_out, V_in, C_out, C_in))
+        if key not in twice:  # one call of each shape: the same bits twice
+            twice.add(key)
+            require(torch.equal(launch(x, nbr, w, mask, plan), got) and
+                    torch.equal(launch(x, nbr, w, mask, plan, torch.float32),
+                                got32),
+                    f'bf16 {role} {tuple(x.shape)} differs between two runs')
+        # the rows the tensor cores multiply: each warpgroup's 64 rows
+        # times the offsets it does not skip
+        rm = rows_multiplied(nbr, mask, plan, C_in, C_out,
+                             sp.BF16_TILE_ROWS // 2)
+        cut = sp.bf16_tile_launch(B, V_out, sp._round_step(C_in),
+                                  sp._round_step(C_out),
+                                  _cuda.sm_count(x.device))
         rows.append(dict(
             shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
-                  f'C_out={C_out}', max_abs_err=err,
+                  f'C_out={C_out} launch={tuple(cut)}', max_abs_err=err,
+            dense_ms=dense_yardstick_ms(int(rm), C_in, C_out),
             f32_out_max_abs_err=err32, key=key,
             hits=float(((nbr >= 0) & mask[..., None]).sum()),
-            rows_multiplied=rows_multiplied(nbr, mask, plan, C_in, C_out),
+            rows_multiplied=rm, mult_ops=2.0 * rm * C_in * C_out,
             ms=time_ms(f'bf16 {role} {i}',
                        lambda: launch(x, nbr, w, mask, plan)),
             plain_ms=time_ms(f'bf16 {role} plain {i}',
@@ -585,6 +646,16 @@ def check_conv_bf16(calls, role):
             library_ms=None, bytes=nbytes(x, nbr, w, mask, got),
             ops=2.0 * hits * C_in * C_out, ops_per_s=BF16_OPS_PER_S))
     return rows
+
+
+def dense_yardstick_ms(rows, C_in, C_out):
+    """`time_ms` of torch.matmul of a (rows x C_in) by a (C_in x C_out)
+    bf16 matrix: a dense product of the rows a conv call multiplies. A
+    yardstick for the bf16 conv kernels, not a computation of the conv."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    a = torch.randn(rows, C_in, device='cuda', generator=gen).bfloat16()
+    b = torch.randn(C_in, C_out, device='cuda', generator=gen).bfloat16()
+    return time_ms('dense yardstick', lambda: torch.matmul(a, b))
 
 
 def check_sparse_conv_dw_bf16(calls):
@@ -607,11 +678,12 @@ def check_sparse_conv_dw_bf16(calls):
         V_out, K3 = nbr.shape[1:]
         C_out = g.shape[-1]
         hits = float((nbr >= 0).sum())
+        rm = dw_rows_multiplied(nbr, plan, C_in, C_out, 32)
         rows.append(dict(
             shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
                   f'C_out={C_out}', max_abs_err=err,
             key=(V_in, V_out, C_in, C_out), hits=hits,
-            rows_multiplied=dw_rows_multiplied(nbr, plan, C_in, C_out, 32),
+            rows_multiplied=rm, mult_ops=2.0 * rm * C_in * C_out,
             ms=time_ms(f'bf16 dW {i}',
                        lambda: sp.sparse_conv_dw_bf16_cuda(x, nbr, g, plan)),
             plain_ms=time_ms(f'bf16 dW plain {i}',
@@ -681,11 +753,16 @@ def conv_class_table(rows_by_kernel, classes):
                                        ops_rate(rs))
             hits = sum(r['hits'] for r in rs)
             mult = sum(r['rows_multiplied'] for r in rs)
+            ms = sum(r['ms'] for r in rs)
+            dense = [r['dense_ms'] for r in rs if 'dense_ms' in r]
             table.append(dict(
-                kernel=name, conv_class=label, calls=len(rs),
-                ms=sum(r['ms'] for r in rs), bound_ms=bound_ms,
-                bound_by=bound_by, rows_multiplied=mult, hits=hits,
-                rows_multiplied_per_hit=mult / hits if hits else None))
+                kernel=name, conv_class=label, calls=len(rs), ms=ms,
+                bound_ms=bound_ms, bound_by=bound_by, rows_multiplied=mult,
+                hits=hits,
+                rows_multiplied_per_hit=mult / hits if hits else None,
+                tflops_on_rows_multiplied=sum(r['mult_ops'] for r in rs)
+                / ms / 1e9,
+                dense_yardstick_ms=sum(dense) if dense else None))
     return table
 
 
@@ -862,6 +939,8 @@ def run() -> int:
         for line in text.splitlines():
             if 'registers' in line or 'spill' in line or line.endswith('.cu'):
                 log(f'[build]   {line.strip()}')
+    for line in ptxas_lines(_cuda.build_log('sparse_conv_bf16')):
+        log(line)
 
     # 3. capture one flagship request
     t0 = time.perf_counter()
@@ -892,10 +971,15 @@ def run() -> int:
                               'sparse_conv_dw', *BF16_KERNELS,
                               *BF16_TRAIN_ONLY)}, predict['classes'])
     for r in table:
-        log(f'[conv] {r["kernel"]:18s} {r["conv_class"]:16s} '
+        dense = r['dense_yardstick_ms']
+        log(f'[conv] {r["kernel"]:23s} {r["conv_class"]:16s} '
             f'{r["calls"]:2d} calls {r["ms"]:8.3f} ms, bound '
             f'{r["bound_ms"]:.3f} ms ({r["bound_by"]}), rows multiplied / '
-            f'hits {r["rows_multiplied_per_hit"]:.3f}')
+            f'hits {r["rows_multiplied_per_hit"]:.3f}, '
+            f'{r["tflops_on_rows_multiplied"]:.1f} TFLOP/s on them'
+            + ('' if dense is None else
+               f'; dense yardstick (torch.matmul of those rows, bf16) '
+               f'{dense:.3f} ms'))
     counts = {**predict['counts'],
               **{k: train['counts'][k] for k in TRAIN_ONLY},
               **{k: bf16['counts'].get(k, 0)

@@ -60,7 +60,6 @@ constexpr int kTileN = 64;      // output channels per narrow-path block
 constexpr int kStepC = 16;      // input channels per pipeline step
 constexpr int kStrideA = kRows + 4;  // padded k-major row of the A tile
 constexpr int kStages = 4;      // cp.async ring depth
-constexpr int kMaxK3 = 32;      // offsets a row mask holds
 // rows a warp walks in the narrow paths; the narrow-output path gathers a
 // whole C_in-wide row per hit, and more warps of fewer rows keep more of
 // those gathers in flight
@@ -85,12 +84,7 @@ struct TileSmem {
   float staged[kStages][kRows * kStepC];    // gathered rows as copied, row-major
   float a[2][kStepC * kStrideA];            // the same, channel-major
   float w[kStages][kStepC * 16 * TN];       // W[k][c0:c0+16, n0:n0+16*TN]
-  int idx[kMaxK3][kRows];                   // map entries of the active offsets
-  int rows[kRows];                          // original row of each tile row
-  int keep[kRows];
-  int act[kMaxK3];                          // the active offsets, ascending
-  unsigned grp_or[kRows / 16];              // OR of each warp's 16 rows' masks
-  unsigned mask_or;
+  TileRows<kRows, 16> t;                    // rows, map entries; OR of each warp's 16 rows' masks
 };
 
 // the tile row of sub-tile row i (8 a thread, contiguous) of thread-row
@@ -108,39 +102,14 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& p) {
   const int t0 = blockIdx.x * kRows, n0 = blockIdx.y * BN;
   const long long rb = static_cast<long long>(b) * p.V_out;
 
-  // 1. the tile's rows in mask order and the OR of their masks
-  if (tid == 0) s.mask_or = 0u;
-  __syncthreads();
-  unsigned m = 0u;
-  if (tid < kRows) {
-    const int pos = t0 + tid;
-    int v = -1, keep = 0;
-    if (pos < p.V_out) {
-      v = p.order[rb + pos];
-      keep = p.out_mask[rb + v] != 0;
-      if (keep) m = static_cast<unsigned>(p.row_mask[rb + v]);
-    }
-    s.rows[tid] = v;
-    s.keep[tid] = keep;
-  }
-  // each warp's 16 rows (sorted neighbours, so similar masks) and the tile
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) m |= __shfl_xor_sync(0xffffffffu, m, off);
-  if (tid < kRows && (tid & 15) == 0) s.grp_or[tid / 16] = m;
-  m = __reduce_or_sync(0xffffffffu, m);
-  if ((tid & 31) == 0 && m) atomicOr(&s.mask_or, m);
-  __syncthreads();
-  const unsigned mask_or = s.mask_or;
-  const int n_act = __popc(mask_or);
-  if (tid == 0) {
-    unsigned mm = mask_or;
-    for (int j = 0; mm; ++j, mm &= mm - 1) s.act[j] = __ffs(mm) - 1;
-  }
-  __syncthreads();
-  // 2. the map entries of the active offsets, -1 for dropped rows
+  // 1-2. the tile's rows in mask order, the OR of each warp's 16 rows'
+  // masks (sorted neighbours, so similar masks) and of the tile's, and the
+  // map entries of the active offsets
+  const int n_act = load_tile_rows<kRows, 16, kThreads>(p.order, p.out_mask, p.row_mask, rb, t0,
+                                                        p.V_out, s.t);
   for (int e = tid; e < n_act * kRows; e += kThreads) {
     const int j = e / kRows, t = e % kRows;
-    s.idx[j][t] = s.keep[t] ? p.nbr[(rb + s.rows[t]) * p.K3 + s.act[j]] : -1;
+    s.t.idx[j][t] = s.t.keep[t] ? p.nbr[(rb + s.t.rows[t]) * p.K3 + s.t.act[j]] : -1;
   }
   __syncthreads();
 
@@ -156,7 +125,7 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& p) {
   auto load = [&](int step, int stage) {
     const int j = step / n_c;
     const int c0 = (step - j * n_c) * kStepC;
-    const int* idx = s.idx[j];
+    const int* idx = s.t.idx[j];
     float* a = s.staged[stage];
     if (p.vec_a) {
 #pragma unroll
@@ -178,7 +147,7 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& p) {
         cp_async4(a + e, ok ? fb + static_cast<long long>(id) * p.C_in + c0 + c : fb, ok);
       }
     }
-    const float* wk = p.w + static_cast<long long>(s.act[j]) * p.C_in * p.C_out;
+    const float* wk = p.w + static_cast<long long>(s.t.act[j]) * p.C_in * p.C_out;
     float* w = s.w[stage];
     if (p.vec_w) {
 #pragma unroll
@@ -241,7 +210,7 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& p) {
     cp_async_commit();
     if (st + 1 < n_steps) transpose((st + 1) % kStages, (st + 1) & 1);
     // a warp none of whose 16 rows hits this step's offset skips it
-    if (!((s.grp_or[tid / 32] >> s.act[(s_begin + st) / n_c]) & 1u)) continue;
+    if (!((s.t.grp_or[tid / 32] >> s.t.act[(s_begin + st) / n_c]) & 1u)) continue;
     const float* a = s.a[st & 1];
     const float* w = s.w[st % kStages];
 #pragma unroll
@@ -272,9 +241,9 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& p) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int t = tile_row(i, ty);
-    const int v = s.rows[t];
+    const int v = s.t.rows[t];
     if (v < 0) continue;
-    const bool keep = s.keep[t] != 0;
+    const bool keep = s.t.keep[t] != 0;
     float* o = ob + static_cast<long long>(v) * p.C_out;
 #pragma unroll
     for (int q = 0; q < TN / 4; ++q) {
@@ -380,17 +349,6 @@ __device__ __forceinline__ void conv_narrow_out(const ConvArgs& p) {
     }
     if (lane < p.C_out) p.out[r * p.C_out + lane] = lane4(acc, lane);
   }
-}
-
-// out[e] = sum over s in order of ws[s][e]: a fixed order, the same bits
-// every run (masked rows are zero in every split already).
-__device__ __forceinline__ void sum_splits(const float* __restrict__ ws, long long n,
-                                           int S, float* __restrict__ out) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= n) return;
-  float acc = 0.f;
-  for (int i = 0; i < S; ++i) acc += ws[i * n + e];
-  out[e] = acc;
 }
 
 // the forward and the input gradient: one body, two symbols each

@@ -1,69 +1,81 @@
 // The bf16 form of the sparse-conv kernels, on Hopper's bf16 tensor cores:
 //   forward and input gradient  out[b, v] = sum_k bf16(x[b, nbr[b, v, k]]) @ bf16(W[k])
 //   weight gradient             dW[k] = sum_{b, v} bf16(x[b, nbr[b, v, k]])^T bf16(g[b, v])
-// over hits (nbr >= 0), each product exact in float32, the sums in float32
-// (mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32). The forward writes float32
-// or bf16 (rounded to nearest even once, from the float32 sum), zero at
-// masked outputs; dW writes float32. The operands arrive as bf16: the
-// wrapper (ops/sparse.py) rounds float32 inputs once, before the launch,
-// and zero-pads C_in and C_out to multiples of 16.
+// over hits (nbr >= 0), each product exact in float32, the sums in float32.
+// The forward writes float32 or bf16 (rounded to nearest even once, from
+// the float32 sum), zero at masked outputs; dW writes float32. The
+// operands arrive as bf16: the wrapper (ops/sparse.py) rounds float32
+// inputs once, before the launch, and zero-pads C_in and C_out to
+// multiples of 16.
 //
 // Replaces the bf16 arithmetic of the TPU kernels in proxytransformation_tpu/
 // ops/sparse_conv_pallas.py: ::sparse_conv_gather_gemm_colwin (:744; the casts
 // at :782-783), whose function ::sparse_conv_gather_gemm (:177; :210-211)
 // also computes, and ::sparse_conv_dw_gather_gemm (:399; :422, :436); their
-// VMEM rings hold bf16 (:256, :477, :845, :882). The float32 kernels of
-// sparse_conv.cu and sparse_conv_dw.cu stay as they are; this file keeps its
-// own copy of their tile set-up and split table so that they do not change.
+// VMEM rings hold bf16 (:256, :477, :845, :882). The plan-reading set-up,
+// the dW split table and the split sums are common.cuh's, shared with the
+// float32 kernels of sparse_conv.cu and sparse_conv_dw.cu.
 //
 // Bound on the H100: 2 * hits * C_in * C_out bf16 operations over the dense
 // bf16 tensor-core rate (989 TFLOP/s), or the bytes of x, nbr, W (g) and the
 // output over 3.35 TB/s, whichever is larger.
 //
-// Design (sparse_conv.cu's plan, tiles and ring; the inner product on the
-// tensor cores):
-//  * Forward / input gradient: a block owns 128 mask-sorted rows x 128 (64)
-//    output channels and walks only the offsets in the OR of its rows' hit
-//    masks. The (offset, 16-channel) steps stream through a 4-stage cp.async
-//    ring as bf16: a step is 128 gathered rows x 16 channels (one 16-byte
-//    copy per thread, zero-filled at a miss) and the W[k] slice 16 x 128.
-//    A step is exactly one k16 slice of the MMA: each warp owns 16 sorted
-//    rows (one m16 tile), loads its A fragment with one ldmatrix.x4 and the
-//    B fragments with ldmatrix.x4.trans, and keeps 16 x 128 float32 sums in
-//    registers; a warp none of whose rows hits the step's offset skips it.
-//    Rows are padded in shared memory (48-byte A rows, +16 bytes on W rows)
-//    so that the ldmatrix phases are free of bank conflicts. Small levels
-//    split the steps across blocks into a float32 workspace that a second
-//    kernel adds in split order and converts.
-//  * dW: a block owns (offset k, a split of k's compacted hit list, a 128
-//    (64) x 128 (64) tile of dW[k]); the hits are the MMA's k. 32 hits a
-//    step through a 3-stage ring: the gathered x rows and the g rows at the
-//    hits, as bf16; A fragments by ldmatrix.x4.trans of the hit-major x
-//    tile. Each warp owns a 32 x WN tile. Splits are added in a fixed order
-//    by a second kernel: the same bits every run.
+// Design.
+//  * Forward / input gradient (wgmma.mma_async, sm_90a): a block owns 128
+//    mask-sorted rows (the map's plan) x BN output channels, BN = 64, 128 or
+//    256 (ops/sparse.py::bf16_tile_launch), so the gathered rows feed up to
+//    256 output channels at once. Its two warpgroups own 64 rows each and
+//    keep 64 x BN float32 sums in registers (BN / 2 a thread). The block
+//    walks only the offsets in the OR of its rows' hit masks; a stage is one
+//    (offset, KC-channel) step, KC = 64 (32 or 16 where C_in is not a
+//    multiple of 64): KC / 16 wgmma k-slices a warpgroup for one wait and
+//    one barrier. A ring of 4-8 stages (up to 192 KB, one block an SM)
+//    holds each step's gathered rows, 16-byte cp.async copies by all 256
+//    threads (zero-filled at a miss; TMA copies boxes, not index-gathered
+//    rows), and its W slice W[k][c0:c0+KC, n0:n0+BN], loaded once for both
+//    warpgroups by TMA (one thread, BN / 64 boxes of KC x 64 from a 2D
+//    tensor map of W, completion on an mbarrier). Both land in the
+//    swizzled layouts the wgmma descriptors name (`swizzle`): A K-major
+//    (rows of KC channels, 128/64/32-byte swizzle), B the W slice as W is
+//    stored, N-major in 64-column atoms (128-byte swizzle, transposed B).
+//    A warpgroup none of whose 64 rows hits a stage's offset skips it. One
+//    group of wgmma stays in flight across the barrier (N >= 128); a stage
+//    is refilled two steps after its use. The map entries of a tile are
+//    staged with every load in flight at once. Blocks launch from the end
+//    of the sorted order, so the tiles of masked rows come last. Small
+//    levels split the steps across blocks into a float32 workspace that a
+//    second kernel adds in split order.
+//  * dW (mma.sync.m16n8k16): a block owns (offset k, a split of k's
+//    compacted hit list, a 128 (64) x 128 (64) tile of dW[k]); the hits are
+//    the MMA's k. 32 hits a step through a 3-stage ring: the gathered x
+//    rows and the g rows at the hits, as bf16; A fragments by
+//    ldmatrix.x4.trans of the hit-major x tile. Each warp owns a 32 x WN
+//    tile. Splits are added in a fixed order by a second kernel: the same
+//    bits every run.
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
-namespace {
-
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kMaxK3 = 32;
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+               : "r"(smem_addr(smem)));
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), float32 accumulators
@@ -87,191 +99,395 @@ __device__ __forceinline__ void store2<bf16>(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
-
 // ---------------------------------------------------------------- forward
-constexpr int kRows = 128;             // mask-sorted rows per block
-constexpr int kStepC = 16;             // input channels per step = MMA k
-constexpr int kStrideA = kStepC + 8;   // bf16 per staged row (48 bytes)
-constexpr int kStages = 4;             // cp.async ring depth
+constexpr int kRows = 128;             // mask-sorted rows a block
+constexpr int kWgRows = 64;            // rows a warpgroup (the wgmma M)
+constexpr int kRingBytes = 192 * 1024; // the stages' ring
+constexpr int kMaxStages = 8;
+
+// The block's mbarriers: stage s's W slice has landed (one arrival with
+// the slice's bytes expected, completed by its TMA copies).
+struct Barriers {
+  uint64_t w[kMaxStages];
+};
+
+// A stage of a block with BN output channels and KC input channels a
+// stage: the gathered rows (kA bytes), then the W slice (kW bytes); both
+// multiples of 1024, so every stage starts on a swizzle atom.
+template <int BN, int KC>
+struct Ring {
+  static constexpr int kA = kRows * KC * 2;
+  static constexpr int kW = KC * BN * 2;
+  static constexpr int kStage = kA + kW;
+  static constexpr int kStages = kRingBytes / kStage < kMaxStages ? kRingBytes / kStage
+                                                                  : kMaxStages;
+  // the ring, the barriers, the tile's rows, and 1 KB to align the ring
+  // to 1024 bytes
+  static constexpr int kSmem = kStages * kStage +
+                               static_cast<int>(sizeof(TileRows<kRows, kWgRows>)) +
+                               static_cast<int>(sizeof(Barriers)) + 1024;
+  static_assert(kStages >= 4 && kStages <= kMaxStages, "ring depth");
+};
+
+// Byte offset of byte `a` of a tile of RowBytes-byte rows (128, 64 or 32)
+// in the swizzled layout of wgmma (CUTLASS's Swizzle<log2(RowBytes / 16),
+// 4, 3>): the 16-byte chunk index, bits [4, 4 + B), XOR bits [7, 7 + B).
+// The tile starts on a 1024-byte boundary. ops/sparse.py::bf16_swizzle is
+// its mirror, tested to be a bijection within a stage.
+template <int RowBytes>
+__device__ __forceinline__ unsigned swizzle(unsigned a) {
+  constexpr unsigned kMask = RowBytes / 16 - 1;
+  return a ^ (((a >> 7) & kMask) << 4);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout (1: 128-byte swizzle, 2: 64, 3: 32)
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo, unsigned sbo,
+                                               unsigned layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void cp_async16_to(unsigned smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// an arrival on `bar` that also expects `bytes` of copies to land
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// TMA: the box at (x, y) of the 2D tensor map `map` into shared memory
+// at `smem`, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_2d(unsigned smem, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// data that reached this thread through the generic proxy (the copies),
+// ordered before its async-proxy reads (wgmma's operand loads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators as the wgmma instructions left them: no other read or
+// write of them moves across this point
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, float32) += A (64 x 16, K-major) * B (16 x N, N-major): one
+// warpgroup, both operands from shared memory through their descriptors
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 64) wgmma_m64n64(d, a, b);
+  else if constexpr (BN == 128) wgmma_m64n128(d, a, b);
+  else wgmma_m64n256(d, a, b);
+}
 
 struct ConvArgs {
+  CUtensorMap w_map;        // W as a (K3 * C_in, C_out) matrix: (KC, 64) boxes, 128-byte swizzle
   const bf16* feats;        // (B, V_in, C_in)
   const int* nbr;           // (B, V_out, K3)
-  const bf16* w;            // (K3, C_in, C_out)
   const uint8_t* out_mask;  // (B, V_out)
   const int* row_mask;      // (B, V_out)
   const int* order;         // (B, V_out)
   int B, V_in, V_out, K3, C_in, C_out, splits;
+  bool out_f32;             // float32 out (always for the split workspace), else bf16
   void* out;  // (B, V_out, C_out), or the float (splits, B, V_out, C_out) workspace
 };
 
-template <int BN>
-struct TileSmem {
-  bf16 a[kStages][kRows * kStrideA];       // gathered rows, row-major
-  bf16 w[kStages][kStepC * (BN + 8)];      // W[k][c0:c0+16, n0:n0+BN]
-  int idx[kMaxK3][kRows];                  // map entries of the active offsets
-  int rows[kRows];                         // original row of each tile row
-  int keep[kRows];
-  int act[kMaxK3];                         // the active offsets, ascending
-  unsigned grp_or[kRows / 16];             // OR of each warp's 16 rows' masks
-  unsigned mask_or;
-};
-
-template <int BN, typename OutT>
+template <int BN, int KC>
 __device__ __forceinline__ void conv_tile(const ConvArgs& p) {
-  constexpr int kStrideW = BN + 8;
+  using R = Ring<BN, KC>;
+  constexpr int S = R::kStages;
+  constexpr int kRowA = KC * 2;                  // bytes of a gathered row in a stage
+  constexpr unsigned kLayoutA = KC == 64 ? 1 : KC == 32 ? 2 : 3;
+  // wgmma groups left running across the next barrier: one where a
+  // step's MMAs outlast the barrier and the copies' issue (N >= 128)
+  constexpr int kInFlight = BN >= 128 ? 1 : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TileSmem<BN>& s = *reinterpret_cast<TileSmem<BN>*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
-  const int t0 = blockIdx.x * kRows, n0 = blockIdx.y * BN;
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const unsigned ring = smem_addr(smem);  // 1024-byte aligned
+  Barriers& bar = *reinterpret_cast<Barriers*>(smem + S * R::kStage);
+  TileRows<kRows, kWgRows>& t =
+      *reinterpret_cast<TileRows<kRows, kWgRows>*>(smem + S * R::kStage + sizeof(Barriers));
+  const int tid = threadIdx.x, wg = tid / 128;
+  // blockIdx.x: the split, then the sample, then the column block;
+  // blockIdx.y: the tile from the end of the sorted order, where the rows
+  // with the most hits are, so the blocks launched first hold work and
+  // the tiles of masked rows (mask 0, sorted first) fill in behind them
+  const int split = blockIdx.x % p.splits, b = blockIdx.x / p.splits % p.B;
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * kRows, n0 = blockIdx.x / (p.splits * p.B) * BN;
   const long long rb = static_cast<long long>(b) * p.V_out;
 
-  // 1. the tile's rows in mask order and the OR of their masks
-  if (tid == 0) s.mask_or = 0u;
-  __syncthreads();
-  unsigned m = 0u;
-  if (tid < kRows) {
-    const int pos = t0 + tid;
-    int v = -1, keep = 0;
-    if (pos < p.V_out) {
-      v = p.order[rb + pos];
-      keep = p.out_mask[rb + v] != 0;
-      if (keep) m = static_cast<unsigned>(p.row_mask[rb + v]);
-    }
-    s.rows[tid] = v;
-    s.keep[tid] = keep;
-  }
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) m |= __shfl_xor_sync(0xffffffffu, m, off);
-  if (tid < kRows && (tid & 15) == 0) s.grp_or[tid / 16] = m;
-  m = __reduce_or_sync(0xffffffffu, m);
-  if (lane == 0 && m) atomicOr(&s.mask_or, m);
-  __syncthreads();
-  const unsigned mask_or = s.mask_or;
-  const int n_act = __popc(mask_or);
+  // 1-2. the W barriers; the tile's rows in mask order, the OR of each
+  // warpgroup's 64 rows' masks and of the tile's, and the map entries of
+  // the active offsets
   if (tid == 0) {
-    unsigned mm = mask_or;
-    for (int j = 0; mm; ++j, mm &= mm - 1) s.act[j] = __ffs(mm) - 1;
+    for (int i = 0; i < S; ++i) mbar_init(&bar.w[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  // 2. the map entries of the active offsets, -1 for dropped rows
-  for (int e = tid; e < n_act * kRows; e += kThreads) {
-    const int j = e / kRows, t = e % kRows;
-    s.idx[j][t] = s.keep[t] ? p.nbr[(rb + s.rows[t]) * p.K3 + s.act[j]] : -1;
+  const int n_act = load_tile_rows<kRows, kWgRows, kThreads>(p.order, p.out_mask, p.row_mask,
+                                                             rb, t0, p.V_out, t);
+  // the map entries of the active offsets, -1 for dropped rows: every
+  // thread's loads issued before any is stored, so the block waits for
+  // one round trip, not one a pass
+  {
+    constexpr int kPer = kMaxK3 * kRows / kThreads;
+    int id[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + i * kThreads, j = e / kRows, r = e % kRows;
+      id[i] = j < n_act && t.keep[r] ? p.nbr[(rb + t.rows[r]) * p.K3 + t.act[j]] : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = tid + i * kThreads;
+      if (e / kRows < n_act) t.idx[e / kRows][e % kRows] = id[i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
-  // 3. this block's range of (offset, channel-step) steps
-  const int n_c = p.C_in / kStepC;
+  // 3. this block's range of (offset, KC-channel) steps
+  const int n_c = p.C_in / KC;
   const long long total = static_cast<long long>(n_act) * n_c;
   const int s_begin = static_cast<int>(total * split / p.splits);
   const int n_steps = static_cast<int>(total * (split + 1) / p.splits) - s_begin;
   const bf16* fb = p.feats + static_cast<long long>(b) * p.V_in * p.C_in;
 
+  // a step into `stage`: its 128 gathered rows by every thread (KC / 8
+  // 16-byte copies a row, consecutive threads along a row), and its W
+  // slice W[k][c0:c0+KC, n0:n0+BN] by one thread, as BN / 64 TMA boxes of
+  // KC rows x 64 columns (the 64-column atoms of the B layout)
   auto load = [&](int step, int stage) {
     const int j = step / n_c;
-    const int c0 = (step - j * n_c) * kStepC;
-    {  // a row's 16 channels are two 16-byte copies: one a thread
-      const int t = tid >> 1, h = (tid & 1) * 8;
-      const int id = s.idx[j][t];
+    const int c0 = (step - j * n_c) * KC;
+    const unsigned sa = ring + stage * R::kStage;
+    constexpr int kChunksA = KC / 8;
+#pragma unroll
+    for (int i = 0; i < kRows * kChunksA / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / kChunksA, c = e % kChunksA;
+      const int id = t.idx[j][r];
       const bool ok = id >= 0;
-      cp_async16(s.a[stage] + t * kStrideA + h,
-                 ok ? fb + static_cast<long long>(id) * p.C_in + c0 + h : fb, ok);
+      cp_async16_to(sa + swizzle<kRowA>(r * kRowA + c * 16),
+                    ok ? fb + static_cast<long long>(id) * p.C_in + c0 + c * 8 : fb, ok);
     }
-    const bf16* wk = p.w + static_cast<long long>(s.act[j]) * p.C_in * p.C_out;
-    for (int e = tid; e < kStepC * BN / 8; e += kThreads) {
-      const int c = e / (BN / 8), q = e % (BN / 8) * 8;
-      const bool ok = n0 + q < p.C_out;
-      cp_async16(s.w[stage] + c * kStrideW + q,
-                 ok ? wk + static_cast<long long>(c0 + c) * p.C_out + n0 + q : wk, ok);
+    if (tid == 0) {
+      mbar_arrive_expect(&bar.w[stage], R::kW);
+#pragma unroll
+      for (int a = 0; a < BN / 64; ++a)
+        tma_load_2d(sa + R::kA + a * KC * 128, &p.w_map, n0 + a * 64, t.act[j] * p.C_in + c0,
+                    &bar.w[stage]);
     }
   };
 
-  float acc[BN / 8][4];
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
-  // 4. the pipeline: iteration st waits for step st, issues step st+3 into
-  // the stage step st-1 used (every warp is past it: the barrier), then
-  // multiplies step st
+  // 4. the pipeline. Iteration st: step st's rows have landed (every
+  // thread's copies, then the barrier), step st + S - 2 is loaded into
+  // the stage that step st - 2 used (every warpgroup waited for its MMAs
+  // of step st - 2 before the barrier), and a warpgroup that does not
+  // skip step st waits for its W slice and multiplies it, while step
+  // st - 1's MMAs may still run.
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
+  for (int st = 0; st < S - 2; ++st) {
     if (st < n_steps) load(s_begin + st, st);
     cp_async_commit();
   }
-  const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8, b_col = (lane >> 4) * 8;
+  const unsigned wg_or = t.grp_or[wg];
+  // A: this warpgroup's 64 rows, 8-row groups kRowA * 8 bytes apart; B:
+  // 8-row (k) groups 1024 bytes apart, 64-column atoms KC * 128 apart
+  const unsigned a_wg = wg * kWgRows * kRowA;
   for (int st = 0; st < n_steps; ++st) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<S - 3>();
+    fence_proxy_async();
     __syncthreads();
-    const int ahead = st + kStages - 1;
-    if (ahead < n_steps) load(s_begin + ahead, ahead % kStages);
+    const int ahead = st + S - 2;
+    if (ahead < n_steps) load(s_begin + ahead, ahead % S);
     cp_async_commit();
-    if (!((s.grp_or[warp] >> s.act[(s_begin + st) / n_c]) & 1u)) continue;
-    const bf16* a = s.a[st % kStages];
-    const bf16* w = s.w[st % kStages];
-    unsigned af[4];
-    ldmatrix_x4(af, a + a_row * kStrideA + a_col);
+    if ((wg_or >> t.act[(s_begin + st) / n_c]) & 1u) {
+      const int stage = st % S;
+      const unsigned sa = ring + stage * R::kStage;
+      mbar_wait(&bar.w[stage], (st / S) & 1);
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < BN / 16; ++nb) {
-      unsigned bfr[4];
-      ldmatrix_x4_trans(bfr, w + b_row * kStrideW + nb * 16 + b_col);
-      mma_bf16(acc[2 * nb], af, bfr[0], bfr[1]);
-      mma_bf16(acc[2 * nb + 1], af, bfr[2], bfr[3]);
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_tile<BN>(acc,
+                       wgmma_desc(sa + a_wg + kk * 32, 16, 8 * kRowA, kLayoutA),
+                       wgmma_desc(sa + R::kA + kk * 2048, KC * 128, 1024, 1));
+      wgmma_commit();
+      wgmma_wait<kInFlight>();
+    } else {
+      wgmma_wait<0>();
     }
+    fence_acc(acc);
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
   cp_async_wait<0>();
 
-  // 5. write back to the original rows; zero at masked outputs. Lane
-  // (g, t) holds rows g and g + 8 of its warp's 16, columns 2t, 2t + 1
-  // of each 8-column block.
-  OutT* ob = static_cast<OutT*>(p.out) +
-             (static_cast<long long>(split) * p.B + b) * p.V_out * p.C_out;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  // 5. write back to the original rows; zero at masked outputs. Thread
+  // (warp w of the warpgroup, lane g * 4 + q) holds rows 16w + g and
+  // 16w + g + 8 of its warpgroup's 64, columns 8j + 2q, 8j + 2q + 1 of
+  // each 8-column block j.
+  const int w4 = (tid & 127) >> 5, g = (tid & 31) >> 2, q2 = (tid & 3) * 2;
+  const long long o0 = (static_cast<long long>(split) * p.B + b) * p.V_out * p.C_out;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = warp * 16 + g + half * 8;
-    const int v = s.rows[r];
+    const int r = wg * kWgRows + w4 * 16 + g + half * 8;
+    const int v = t.rows[r];
     if (v < 0) continue;
-    const bool keep = s.keep[r] != 0;
-    OutT* o = ob + static_cast<long long>(v) * p.C_out;
+    const bool keep = t.keep[r] != 0;
+    const long long o = o0 + static_cast<long long>(v) * p.C_out;
 #pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb) {
-      const int n = n0 + nb * 8 + t2;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + j * 8 + q2;
       if (n >= p.C_out) continue;
-      store2(o + n, keep ? acc[nb][2 * half] : 0.f, keep ? acc[nb][2 * half + 1] : 0.f);
+      const float x = keep ? acc[4 * j + 2 * half] : 0.f;
+      const float y = keep ? acc[4 * j + 2 * half + 1] : 0.f;
+      if (p.out_f32)
+        store2(static_cast<float*>(p.out) + o + n, x, y);
+      else
+        store2(static_cast<bf16*>(p.out) + o + n, x, y);
     }
   }
-}
-
-// out[e] = sum over s in order of ws[s][e], converted once
-template <typename OutT>
-__device__ __forceinline__ void sum_splits(const float* __restrict__ ws, long long n, int S,
-                                           OutT* __restrict__ out) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= n) return;
-  float acc = 0.f;
-  for (int i = 0; i < S; ++i) acc += ws[i * n + e];
-  out[e] = from_float<OutT>(acc);
 }
 
 // the forward and the input gradient: one body, two symbols each
-template <int BN, typename OutT>
-__global__ void __launch_bounds__(kThreads, 2) sparse_conv_fwd_bf16_tile(ConvArgs p) {
-  conv_tile<BN, OutT>(p);
+template <int BN, int KC>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_conv_fwd_bf16_tile(const __grid_constant__ ConvArgs p) {
+  conv_tile<BN, KC>(p);
 }
-template <int BN, typename OutT>
-__global__ void __launch_bounds__(kThreads, 2) sparse_conv_dfeats_bf16_tile(ConvArgs p) {
-  conv_tile<BN, OutT>(p);
+template <int BN, int KC>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_conv_dfeats_bf16_tile(const __grid_constant__ ConvArgs p) {
+  conv_tile<BN, KC>(p);
 }
 template <typename OutT>
 __global__ void sparse_conv_fwd_bf16_sum(const float* ws, long long n, int S, OutT* out) {
@@ -284,14 +500,16 @@ __global__ void sparse_conv_dfeats_bf16_sum(const float* ws, long long n, int S,
 
 using ConvKernel = void (*)(ConvArgs);
 
-template <int BN, typename OutT>
-ConvKernel tile_kernel_of(int role) {
-  return role == 0 ? &sparse_conv_fwd_bf16_tile<BN, OutT> : &sparse_conv_dfeats_bf16_tile<BN, OutT>;
-}
-
-template <int BN>
-ConvKernel tile_kernel(int role, bool out_f32) {
-  return out_f32 ? tile_kernel_of<BN, float>(role) : tile_kernel_of<BN, bf16>(role);
+template <int BN, int KC>
+cudaError_t launch_tile(int role, const ConvArgs& p, dim3 grid, cudaStream_t st) {
+  const ConvKernel kernel =
+      role == 0 ? &sparse_conv_fwd_bf16_tile<BN, KC> : &sparse_conv_dfeats_bf16_tile<BN, KC>;
+  constexpr int smem = Ring<BN, KC>::kSmem;
+  const cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return cudaSuccess;
 }
 
 template <typename OutT>
@@ -304,8 +522,6 @@ void launch_sum(int role, const float* ws, long long n, int S, void* out, cudaSt
 // ---------------------------------------------------------------- dW
 constexpr int kStepH = 32;       // hits per step: two MMA k16 slices
 constexpr int kDwStages = 3;     // cp.async ring depth
-constexpr int kMinChunk = 256;   // hits a split takes at least ...
-constexpr int kMaxChunk = 4096;  // ... and at most
 
 struct DwArgs {
   const bf16* feats;    // (B, V_in, C_in)
@@ -317,57 +533,6 @@ struct DwArgs {
   long long R;
   float* ws;            // (pairs, C_in, C_out) partial sums
 };
-
-struct SplitTable {
-  int chunk, total;
-  int S[kMaxK3], base[kMaxK3];
-};
-
-// Splits of every offset's hit list (sparse_conv_dw.cu::split_table): a
-// function of the counts alone, so every block and the sum pass agree.
-__device__ void split_table(const int* counts, int K3, int pairs_target, SplitTable& t) {
-  long long H = 0;
-  for (int k = 0; k < K3; ++k) H += counts[k];
-  long long chunk = (H + pairs_target - 1) / pairs_target;
-  chunk = chunk < kMinChunk ? kMinChunk : chunk > kMaxChunk ? kMaxChunk : chunk;
-  int base = 0;
-  for (int k = 0; k < K3; ++k) {
-    const int S = static_cast<int>((counts[k] + chunk - 1) / chunk);
-    t.S[k] = S;
-    t.base[k] = base;
-    base += S;
-  }
-  t.chunk = static_cast<int>(chunk);
-  t.total = base;
-}
-
-struct Split {
-  int k, nh;
-  long long h0;
-};
-
-// This block's offset and hit range, its hit rows and input rows in
-// shared memory; nh = 0 when the block is past the last split.
-__device__ __forceinline__ Split load_split(const DwArgs& p, SplitTable& t, int* r_s,
-                                            int* id_s) {
-  if (threadIdx.x == 0) split_table(p.counts, p.K3, p.pairs_target, t);
-  __syncthreads();
-  const int pair = blockIdx.x;
-  Split sp{0, 0, 0};
-  if (pair >= t.total) return sp;
-  while (pair >= t.base[sp.k] + t.S[sp.k]) ++sp.k;
-  sp.h0 = static_cast<long long>(pair - t.base[sp.k]) * t.chunk;
-  const long long left = p.counts[sp.k] - sp.h0;
-  sp.nh = static_cast<int>(left < t.chunk ? left : t.chunk);
-  const int* hl = p.hits + sp.k * p.R + sp.h0;
-  for (int e = threadIdx.x; e < sp.nh; e += kThreads) {
-    const int r = hl[e];
-    r_s[e] = r;
-    id_s[e] = p.nbr[static_cast<long long>(r) * p.K3 + sp.k];
-  }
-  __syncthreads();
-  return sp;
-}
 
 template <int BM, int BN>
 struct DwSmem {
@@ -385,7 +550,7 @@ __device__ __forceinline__ void dw_tile(const DwArgs& p) {
   constexpr int WN = BN / WARPS_N;  // 64, 32 or 16
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DwSmem<BM, BN>& s = *reinterpret_cast<DwSmem<BM, BN>*>(smem_raw);
-  const Split sp = load_split(p, s.t, s.r, s.id);
+  const Split sp = load_split<kThreads>(p, s.t, s.r, s.id);
   if (sp.nh == 0) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % WARPS_M, wn = warp / WARPS_M;
@@ -489,16 +654,7 @@ __global__ void __launch_bounds__(kThreads, 2) sparse_conv_dw_bf16_tile(DwArgs p
 __global__ void sparse_conv_dw_bf16_sum(const float* __restrict__ ws,
                                         const int* __restrict__ counts, int K3,
                                         int pairs_target, long long CC, float* __restrict__ dw) {
-  __shared__ SplitTable t;
-  if (threadIdx.x == 0) split_table(counts, K3, pairs_target, t);
-  __syncthreads();
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= K3 * CC) return;
-  const int k = static_cast<int>(e / CC);
-  const long long off = e % CC;
-  float acc = 0.f;
-  for (int i = 0; i < t.S[k]; ++i) acc += ws[(t.base[k] + i) * CC + off];
-  dw[e] = acc;
+  sum_dw_splits(ws, counts, K3, pairs_target, CC, dw);
 }
 
 template <int BM, int BN>
@@ -513,54 +669,87 @@ cudaError_t launch_dw(const DwArgs& p, int grid_pairs, cudaStream_t st) {
   return cudaSuccess;
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
+// libcuda); null where it is missing
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                  cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
 }  // namespace
 
 // feats (B, V_in, C_in) bf16, nbr (B, V_out, K3) int32, weights (K3, C_in,
 // C_out) bf16, out_mask (B, V_out) bool, row_mask and order (B, V_out) int32
-// from the map's plan; C_in and C_out multiples of 16, feats and weights
-// 16-byte aligned; all contiguous on the device. role 0 = forward, 1 =
-// input gradient (only the kernel symbols differ). out (B, V_out, C_out) is
-// float32 where out_f32 != 0, else bf16. cols 128 or 64 output channels a
-// block; splits >= 1, and for splits > 1 `workspace` holds splits * B *
-// V_out * C_out floats.
+// from the map's plan; C_in a multiple of kc, C_out of 16, feats and
+// weights 16-byte aligned; all contiguous on the device. role 0 = forward,
+// 1 = input gradient (only the kernel symbols differ). out (B, V_out,
+// C_out) is float32 where out_f32 != 0, else bf16. kc input channels a
+// stage (64, or 32 or 16 with bn = 64), bn output channels a block (64,
+// 128 or 256); splits >= 1, and for splits > 1 `workspace` holds splits *
+// B * V_out * C_out floats (ops/sparse.py::bf16_tile_launch).
 extern "C" int ptt_sparse_conv_bf16(const void* feats, const void* nbr, const void* weights,
                                     const void* out_mask, const void* row_mask,
                                     const void* order, int B, int V_in, int V_out, int K3,
-                                    int C_in, int C_out, int role, int out_f32, int cols,
+                                    int C_in, int C_out, int role, int out_f32, int kc, int bn,
                                     int splits, void* workspace, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K3 < 1 || K3 > kMaxK3 || splits < 1 || (role != 0 && role != 1) ||
-      (cols != 64 && cols != 128) || C_in <= 0 || C_in % kStepC || C_out % kStepC ||
-      !aligned16(feats) || !aligned16(weights))
+  const bool shape_ok = kc == 64 ? (bn == 64 || bn == 128 || bn == 256)
+                                 : (kc == 32 || kc == 16) && bn == 64;
+  if (K3 < 1 || K3 > kMaxK3 || splits < 1 || (role != 0 && role != 1) || !shape_ok ||
+      C_in <= 0 || C_in % kc || C_out % 16 || !aligned16(feats) || !aligned16(weights))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || V_out <= 0 || C_out <= 0) return static_cast<int>(cudaGetLastError());
   ConvArgs p;
   p.feats = static_cast<const bf16*>(feats);
   p.nbr = static_cast<const int*>(nbr);
-  p.w = static_cast<const bf16*>(weights);
   p.out_mask = static_cast<const uint8_t*>(out_mask);
   p.row_mask = static_cast<const int*>(row_mask);
   p.order = static_cast<const int*>(order);
   p.B = B; p.V_in = V_in; p.V_out = V_out; p.K3 = K3; p.C_in = C_in; p.C_out = C_out;
   p.splits = splits;
+  // W as a (K3 * C_in, C_out) bf16 matrix, read in (kc rows, 64 columns)
+  // boxes in the 128-byte swizzle; columns past C_out read as zeros
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C_out),
+                              static_cast<cuuint64_t>(K3) * static_cast<cuuint64_t>(C_in)};
+  const cuuint64_t row_bytes[1] = {static_cast<cuuint64_t>(C_out) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(kc)};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&p.w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(weights), dims,
+             row_bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
   // split partials are float32 whatever the output type
-  const bool tile_f32 = out_f32 != 0 || splits > 1;
+  p.out_f32 = out_f32 != 0 || splits > 1;
   p.out = splits > 1 ? workspace : out;
-  ConvKernel kernel;
-  size_t smem;
-  if (cols == 128) {
-    kernel = tile_kernel<128>(role, tile_f32);
-    smem = sizeof(TileSmem<128>);
-  } else {
-    kernel = tile_kernel<64>(role, tile_f32);
-    smem = sizeof(TileSmem<64>);
-  }
-  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+  const dim3 grid(splits * B * ((C_out + bn - 1) / bn), (V_out + kRows - 1) / kRows);
+  cudaError_t e;
+  if (kc == 64)
+    e = bn == 256 ? launch_tile<256, 64>(role, p, grid, st)
+        : bn == 128 ? launch_tile<128, 64>(role, p, grid, st)
+                    : launch_tile<64, 64>(role, p, grid, st);
+  else
+    e = kc == 32 ? launch_tile<64, 32>(role, p, grid, st) : launch_tile<64, 16>(role, p, grid, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((V_out + kRows - 1) / kRows, (C_out + cols - 1) / cols, B * splits);
-  kernel<<<grid, kThreads, smem, st>>>(p);
   if (splits > 1) {
     const long long n = static_cast<long long>(B) * V_out * C_out;
     const float* ws = static_cast<const float*>(workspace);
@@ -570,6 +759,17 @@ extern "C" int ptt_sparse_conv_bf16(const void* feats, const void* nbr, const vo
       launch_sum<bf16>(role, ws, n, splits, out, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of the forward / input-gradient block of a (kc,
+// bn) launch shape, -1 for a shape the kernel does not take
+// (ops/sparse.py::bf16_tile_launch computes the same).
+extern "C" int ptt_sparse_conv_bf16_smem(int kc, int bn) {
+  if (kc == 64)
+    return bn == 256 ? Ring<256, 64>::kSmem : bn == 128 ? Ring<128, 64>::kSmem
+                                            : bn == 64 ? Ring<64, 64>::kSmem : -1;
+  if (bn != 64) return -1;
+  return kc == 32 ? Ring<64, 32>::kSmem : kc == 16 ? Ring<64, 16>::kSmem : -1;
 }
 
 // feats (B, V_in, C_in) bf16, nbr (B, V_out, K3) int32, g (B, V_out, C_out)

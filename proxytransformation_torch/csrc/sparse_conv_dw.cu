@@ -40,9 +40,6 @@ constexpr int kThreads = 256;
 constexpr int kTileN = 64;       // output (g) channels per narrow-path block
 constexpr int kStepH = 16;       // hits per pipeline step
 constexpr int kStages = 3;       // cp.async ring depth
-constexpr int kMaxK3 = 32;
-constexpr int kMinChunk = 256;   // hits a split takes at least ...
-constexpr int kMaxChunk = 4096;  // ... and at most
 
 struct DwArgs {
   const float* feats;   // (B, V_in, C_in)
@@ -55,57 +52,6 @@ struct DwArgs {
   bool vec_a, vec_g, vec_o;
   float* ws;            // (pairs, C_in, C_out) partial sums
 };
-
-struct SplitTable {
-  int chunk, total;
-  int S[kMaxK3], base[kMaxK3];
-};
-
-// Splits of every offset's hit list; a function of the counts alone, so
-// every block (and the sum pass) derives the same table.
-__device__ void split_table(const int* counts, int K3, int pairs_target, SplitTable& t) {
-  long long H = 0;
-  for (int k = 0; k < K3; ++k) H += counts[k];
-  long long chunk = (H + pairs_target - 1) / pairs_target;
-  chunk = chunk < kMinChunk ? kMinChunk : chunk > kMaxChunk ? kMaxChunk : chunk;
-  int base = 0;
-  for (int k = 0; k < K3; ++k) {
-    const int S = static_cast<int>((counts[k] + chunk - 1) / chunk);
-    t.S[k] = S;
-    t.base[k] = base;
-    base += S;
-  }
-  t.chunk = static_cast<int>(chunk);
-  t.total = base;
-}
-
-struct Split {
-  int k, nh;
-  long long h0;
-};
-
-// This block's offset and hit range, its hit rows and input rows in
-// shared memory; nh = 0 when the block is past the last split.
-__device__ __forceinline__ Split load_split(const DwArgs& p, SplitTable& t, int* r_s,
-                                            int* id_s) {
-  if (threadIdx.x == 0) split_table(p.counts, p.K3, p.pairs_target, t);
-  __syncthreads();
-  const int pair = blockIdx.x;
-  Split sp{0, 0, 0};
-  if (pair >= t.total) return sp;
-  while (pair >= t.base[sp.k] + t.S[sp.k]) ++sp.k;
-  sp.h0 = static_cast<long long>(pair - t.base[sp.k]) * t.chunk;
-  const long long left = p.counts[sp.k] - sp.h0;
-  sp.nh = static_cast<int>(left < t.chunk ? left : t.chunk);
-  const int* hl = p.hits + sp.k * p.R + sp.h0;
-  for (int e = threadIdx.x; e < sp.nh; e += kThreads) {
-    const int r = hl[e];
-    r_s[e] = r;
-    id_s[e] = p.nbr[static_cast<long long>(r) * p.K3 + sp.k];
-  }
-  __syncthreads();
-  return sp;
-}
 
 // A block's tile of dW[k]: 16 * TM input x 16 * TN output channels.
 template <int TM, int TN>
@@ -123,7 +69,7 @@ __device__ __forceinline__ void dw_tile(const DwArgs& p) {
   constexpr int BN = 16 * TN;  // output channels per block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DwSmem<TM, TN>& s = *reinterpret_cast<DwSmem<TM, TN>*>(smem_raw);
-  const Split sp = load_split(p, s.t, s.r, s.id);
+  const Split sp = load_split<kThreads>(p, s.t, s.r, s.id);
   if (sp.nh == 0) return;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -260,7 +206,7 @@ __device__ __forceinline__ void dw_narrow(const DwArgs& p) {
   __shared__ int r_s[kMaxChunk];
   __shared__ int id_s[kMaxChunk];
   __shared__ float red[4][4][kTileN];
-  const Split sp = load_split(p, t, r_s, id_s);
+  const Split sp = load_split<kThreads>(p, t, r_s, id_s);
   if (sp.nh == 0) return;
   const int q = threadIdx.x / kTileN, nn = threadIdx.x % kTileN;
   const int n = blockIdx.y * kTileN + nn;
@@ -303,16 +249,7 @@ __global__ void __launch_bounds__(kThreads) sparse_conv_dw_narrow(DwArgs p) {
 __global__ void sparse_conv_dw_sum(const float* __restrict__ ws,
                                    const int* __restrict__ counts, int K3,
                                    int pairs_target, long long CC, float* __restrict__ dw) {
-  __shared__ SplitTable t;
-  if (threadIdx.x == 0) split_table(counts, K3, pairs_target, t);
-  __syncthreads();
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= K3 * CC) return;
-  const int k = static_cast<int>(e / CC);
-  const long long off = e % CC;
-  float acc = 0.f;
-  for (int i = 0; i < t.S[k]; ++i) acc += ws[(t.base[k] + i) * CC + off];
-  dw[e] = acc;
+  sum_dw_splits(ws, counts, K3, pairs_target, CC, dw);
 }
 
 }  // namespace

@@ -93,10 +93,17 @@ def build(names: Iterable[str] = SOURCES) -> List[str]:
                 errors.append(f'{name}.cu: nvcc exit {proc.returncode}\n{out}')
             else:
                 os.replace(tmp, _lib_path(name))
+                _lib_path(name).with_suffix('.log').write_text(out)
                 logs.append(f'{name}.cu\n{out}')
         if errors:
             raise RuntimeError('kernel build failed:\n' + '\n'.join(errors))
         return logs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (`-Xptxas -v`) from the build of library `name`'s
+    current source and flags."""
+    return _lib_path(name).with_suffix('.log').read_text()
 
 
 def _library(name: str) -> ctypes.CDLL:

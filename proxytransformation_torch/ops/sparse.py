@@ -64,7 +64,7 @@ SPARSE_CONV_DW = _cuda.CudaKernel(
     source='proxytransformation_torch/csrc/sparse_conv_dw.cu',
     replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:399')
 # the bf16 forms: bf16 operands on the tensor cores, float32 sums
-_CONV_BF16_ARGS = [*[_cuda.ptr] * 6, *[_cuda.i32] * 10, *[_cuda.ptr] * 3]
+_CONV_BF16_ARGS = [*[_cuda.ptr] * 6, *[_cuda.i32] * 11, *[_cuda.ptr] * 3]
 SPARSE_CONV_BF16 = _cuda.CudaKernel(
     'sparse_conv_bf16', 'sparse_conv_bf16', 'ptt_sparse_conv_bf16',
     _CONV_BF16_ARGS,
@@ -615,11 +615,70 @@ def sparse_conv_dfeats_cuda(g: torch.Tensor, nbr: torch.Tensor,
                         plan)
 
 
-BF16_STEP_C = 16  # channels of one MMA step of csrc/sparse_conv_bf16.cu
+BF16_STEP_C = 16  # the widths the bf16 kernels take are multiples of this
+BF16_TILE_ROWS = 128         # rows of a forward / dfeats block: two warpgroups
+BF16_RING_BYTES = 192 * 1024  # its ring of stages in shared memory
+BF16_MAX_STAGES = 8
+SMEM_PER_BLOCK = 232_448     # an H100 block's most dynamic shared memory
+# a block's shared memory beside its ring: the W slices' mbarriers (8),
+# csrc/common.cuh::TileRows<128, 64> (map entries of up to 32 offsets,
+# rows, keep flags, active offsets, two warpgroup ORs and the tile's OR),
+# and 1 KB for aligning the ring to 1024 bytes
+BF16_BLOCK_FIXED_BYTES = 8 * 8 + 4 * (32 * 128 + 128 + 128 + 32 + 2 + 1) + 1024
 
 
 def _round_step(c: int) -> int:
     return -(-c // BF16_STEP_C) * BF16_STEP_C
+
+
+class Bf16Launch(NamedTuple):
+    """How `ptt_sparse_conv_bf16` cuts a forward or input-gradient call
+    (`csrc/sparse_conv_bf16.cu`): `kc` input channels a stage (64, else
+    32 or 16), `bn` output channels a block (the wgmma N: 64, 128 or 256;
+    64 where kc < 64), `stages` the ring's depth, `smem` the block's
+    dynamic shared memory in bytes, `col_blocks` blocks across C_out,
+    `splits` of each tile's steps (added by a second kernel where > 1)."""
+    kc: int
+    bn: int
+    stages: int
+    smem: int
+    col_blocks: int
+    splits: int
+
+
+def bf16_stage_shape(kc: int, bn: int) -> Tuple[int, int]:
+    """(stages, smem bytes) of a (kc, bn) block, as `Ring` computes them:
+    as many stages of gathered rows (128 x kc) and W slice (kc x bn), in
+    bf16, as fit `BF16_RING_BYTES`, at most `BF16_MAX_STAGES`, and
+    `BF16_BLOCK_FIXED_BYTES`."""
+    stage = 2 * kc * (BF16_TILE_ROWS + bn)
+    stages = min(BF16_MAX_STAGES, BF16_RING_BYTES // stage)
+    return stages, stages * stage + BF16_BLOCK_FIXED_BYTES
+
+
+def bf16_tile_launch(B: int, V_out: int, C_in: int, C_out: int,
+                     n_sm: int) -> Bf16Launch:
+    """The `Bf16Launch` of a call's shapes (C_in and C_out multiples of
+    16). A block's gathered rows feed up to 256 output channels; tiles
+    that fill less than a wave of one block an SM split their steps into
+    about two waves, at most 8 ways (the partials' traffic grows with the
+    splits): floor(2 * n_sm / blocks). `tools/conv_bf16_sweep.py` timed
+    1-16 splits on the flagship's calls: the best within a few per cent."""
+    kc = 64 if C_in % 64 == 0 else 32 if C_in % 32 == 0 else 16
+    bn = 64 if kc < 64 or C_out <= 64 else 128 if C_out <= 128 else 256
+    col_blocks = -(-C_out // bn)
+    blocks = B * -(-V_out // BF16_TILE_ROWS) * col_blocks
+    splits = 1 if blocks >= n_sm else min(8, 2 * n_sm // blocks)
+    return Bf16Launch(kc, bn, *bf16_stage_shape(kc, bn), col_blocks, splits)
+
+
+def bf16_swizzle(offset, row_bytes: int):
+    """Byte offset of byte `offset` (an int or an integer array) of a tile
+    of `row_bytes`-byte rows (128, 64 or 32) in wgmma's swizzled layout,
+    the mirror of `csrc/sparse_conv_bf16.cu::swizzle`: the 16-byte chunk
+    index, bits [4, 4 + b), XOR bits [7, 7 + b), b = log2(row_bytes / 16)."""
+    mask = row_bytes // 16 - 1
+    return offset ^ (((offset >> 7) & mask) << 4)
 
 
 def _bf16_padded(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -635,7 +694,10 @@ def _launch_conv_bf16(kernel: _cuda.CudaKernel, role: int,
                       feats: torch.Tensor, nbr: torch.Tensor,
                       weights: torch.Tensor, out_mask: torch.Tensor,
                       plan: Optional[ConvPlan],
-                      out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype],
+                      launch: Optional[Bf16Launch] = None) -> torch.Tensor:
+    """The bf16 kernel's launch; `launch` (default `bf16_tile_launch`'s)
+    chooses the cut, for `tools/conv_bf16_sweep.py`."""
     B, V_in, C_in = feats.shape
     V_out, K3 = nbr.shape[1:]
     C_out = weights.shape[-1]
@@ -661,14 +723,18 @@ def _launch_conv_bf16(kernel: _cuda.CudaKernel, role: int,
     w = _bf16_padded(weights, Co)
     if Ci != C_in:
         w = F.pad(w, (0, 0, 0, Ci - C_in)).contiguous()
-    cols, splits = _tile_launch(B, V_out, Co, _cuda.sm_count(feats.device))
+    if launch is None:
+        launch = bf16_tile_launch(B, V_out, Ci, Co,
+                                  _cuda.sm_count(feats.device))
+    splits = launch.splits
     out = torch.empty((B, V_out, Co), dtype=out_dtype, device=feats.device)
     ws = (torch.empty((splits, B, V_out, Co), dtype=torch.float32,
                       device=feats.device) if splits > 1 else out)
     kernel(f.data_ptr(), nbr.data_ptr(), w.data_ptr(), out_mask.data_ptr(),
            plan.row_mask.data_ptr(), plan.order.data_ptr(), B, V_in, V_out,
-           K3, Ci, Co, role, int(out_dtype == torch.float32), cols, splits,
-           ws.data_ptr(), out.data_ptr(), _cuda.current_stream(feats))
+           K3, Ci, Co, role, int(out_dtype == torch.float32), launch.kc,
+           launch.bn, splits, ws.data_ptr(), out.data_ptr(),
+           _cuda.current_stream(feats))
     return out if Co == C_out else out[..., :C_out].contiguous()
 
 
@@ -678,11 +744,12 @@ def sparse_conv_bf16_cuda(feats: torch.Tensor, nbr: torch.Tensor,
                           out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
     """Launch the bf16 form of the conv (`csrc/sparse_conv_bf16.cu`,
-    bf16 tensor-core MMAs, float32 sums) over the map's plan, built here
-    when none is given. float32 features or weights are rounded to
-    bfloat16 here, once. Widths that are not a multiple of 16 are
-    zero-padded here (the kernel takes 16-channel steps), and the output
-    sliced back. The output is `out_dtype` (default: the features')."""
+    `wgmma` bf16 on warpgroups, float32 sums) over the map's plan, built
+    here when none is given, cut by `bf16_tile_launch`. float32 features
+    or weights are rounded to bfloat16 here, once. Widths that are not a
+    multiple of 16 are zero-padded here (the kernel takes multiples of
+    16), and the output sliced back. The output is `out_dtype` (default:
+    the features')."""
     return _launch_conv_bf16(SPARSE_CONV_BF16, 0, feats, nbr, weights,
                              out_mask, plan, out_dtype)
 

@@ -560,7 +560,19 @@ def _bf16_conv_inputs(gen, V_in, V_out, K3, C_in, C_out, hit, B=2):
     return feats, nbr, w, out_mask
 
 
-@pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit', BF16_CONV_CASES)
+# the forward / dfeats body's launch shapes (`sp.bf16_tile_launch`): every
+# wgmma N (64, 128, 256) and stage width (kc 64; 32 from C_in 96; 16 from
+# 48), C_out 512 in two column blocks, V_out off the 128-row tile, an
+# all-miss map at full width, K3 = 8 at kc 64, splits > 1
+BF16_WGMMA_CASES = [
+    (2500, 2000, 27, 128, 128, 0.3), (1500, 1300, 27, 256, 256, 0.35),
+    (1200, 1000, 27, 512, 512, 0.3), (900, 700, 27, 48, 48, 0.3),
+    (1000, 800, 27, 96, 160, 0.3), (900, 777, 8, 256, 64, 0.5),
+    (400, 300, 27, 256, 512, 0.0), (3000, 1234, 27, 64, 256, 0.25)]
+
+
+@pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit',
+                         BF16_CONV_CASES + BF16_WGMMA_CASES)
 def test_sparse_conv_bf16_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
     """Forward and input-gradient bf16 kernels against the plain bf16
     conv: float32 out within the float32 tolerance, bf16 out within one
@@ -609,17 +621,87 @@ def test_bf16_kernels_round_float32_inputs(gen):
                                                    g.bfloat16()))
 
 
-def test_bf16_offset_split_path(gen):
-    """A stage-4-like level in bf16: offsets split across blocks, the
-    float32 partials added in order and rounded once; the same bits
-    twice."""
-    B, V, C_in, C_out = 2, 1000, 512, 256
-    assert sp._tile_launch(B, V, C_out,
-                           _cuda.sm_count(torch.device('cuda')))[1] > 1
-    feats, nbr, w, mask = _bf16_conv_inputs(gen, V, V, 27, C_in, C_out, 0.4)
+@pytest.mark.parametrize('B,V,C_in,C_out', [
+    (2, 1000, 512, 256), (2, 700, 256, 512), (1, 300, 128, 64),
+    (2, 500, 96, 48), (1, 130, 1024, 256)])
+def test_bf16_offset_split_path(gen, B, V, C_in, C_out):
+    """Small levels in bf16: offsets split across blocks, the float32
+    partials added in order and rounded once (bf16 out) or not (float32
+    out); the same bits twice."""
+    launch = sp.bf16_tile_launch(B, V, sp._round_step(C_in),
+                                 sp._round_step(C_out),
+                                 _cuda.sm_count(torch.device('cuda')))
+    assert launch.splits > 1
+    feats, nbr, w, mask = _bf16_conv_inputs(gen, V, V, 27, C_in, C_out, 0.4,
+                                            B=B)
     got = sp.sparse_conv_bf16_cuda(feats, nbr, w, mask)
     _close_bf16(got, sp.sparse_conv_apply_bf16(feats, nbr, w, mask))
     assert torch.equal(sp.sparse_conv_bf16_cuda(feats, nbr, w, mask), got)
+    got32 = sp.sparse_conv_dfeats_bf16_cuda(feats, nbr, w, mask,
+                                            out_dtype=torch.float32)
+    _close(got32, sp.sparse_conv_apply_bf16(feats.float(), nbr, w, mask))
+
+
+@pytest.mark.parametrize('C_in,C_out', [(64, 64), (256, 256), (48, 64)])
+def test_bf16_dense_product(gen, C_in, C_out):
+    """K3 = 1 over the identity map: the kernel is a dense product of the
+    features and W[0], against torch.matmul of the bf16 values in
+    float32 (one wgmma N and stage width each)."""
+    B, V = 2, 1000
+    feats = torch.randn(B, V, C_in, device='cuda', generator=gen).bfloat16()
+    w = (torch.randn(1, C_in, C_out, device='cuda', generator=gen) * 0.1
+         ).bfloat16()
+    nbr = torch.arange(V, dtype=torch.int32, device='cuda').expand(
+        B, V)[..., None].contiguous()
+    mask = torch.ones(B, V, dtype=torch.bool, device='cuda')
+    got = sp.sparse_conv_bf16_cuda(feats, nbr, w, mask,
+                                   out_dtype=torch.float32)
+    _close(got, feats.float() @ w[0].float())
+
+
+def test_bf16_warpgroup_skips_an_offset(gen):
+    """A tile whose first warpgroup's 64 rows hit offset 0 only and whose
+    second's hit offsets 0 and 1 (rows sort by hit mask): the first
+    skips offset 1's stages, and both match the plain conv."""
+    B, V, C = 1, 128, 128
+    feats = torch.randn(B, 300, C, device='cuda', generator=gen).bfloat16()
+    nbr = torch.randint(0, 300, (B, V, 2), device='cuda', generator=gen,
+                        dtype=torch.int32)
+    nbr[0, ::2, 1] = -1  # even rows: mask 0b01, odd rows: 0b11
+    w = torch.randn(2, C, C, device='cuda', generator=gen) * 0.1
+    mask = torch.ones(B, V, dtype=torch.bool, device='cuda')
+    plan = sp.conv_plan(nbr)
+    masks = plan.row_mask.gather(1, plan.order.long())[0]
+    assert bool((masks[:64] == 1).all() and (masks[64:] == 3).all())
+    got = sp.sparse_conv_bf16_cuda(feats, nbr, w, mask, plan, torch.float32)
+    _close(got, sp.sparse_conv_apply_bf16(feats.float(), nbr, w, mask))
+
+
+@pytest.mark.parametrize('out_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('V', [20000, 900])
+def test_bf16_conv_same_bits_twice(gen, V, out_dtype):
+    """Two launches of the forward and of dfeats give the same bits, with
+    splits (V = 900) and without (V = 20000): no atomics, the split
+    partials added in a fixed order."""
+    feats, nbr, w, mask = _bf16_conv_inputs(gen, V, V, 27, 128, 256, 0.3)
+    for launch in (sp.sparse_conv_bf16_cuda, sp.sparse_conv_dfeats_bf16_cuda):
+        a = launch(feats, nbr, w, mask, out_dtype=out_dtype)
+        b = launch(feats, nbr, w, mask, out_dtype=out_dtype)
+        assert torch.equal(a, b)
+
+
+def test_bf16_launch_smem_matches_kernel(gen):
+    """The shared memory `sp.bf16_stage_shape` computes for each launch
+    shape is what the kernel library allocates, within an H100 block's
+    227 KB; shapes the kernel does not take are refused."""
+    lib = _cuda._library('sparse_conv_bf16')
+    fn = lib.ptt_sparse_conv_bf16_smem
+    fn.argtypes = [_cuda.i32, _cuda.i32]
+    fn.restype = _cuda.i32
+    for kc, bn in ((64, 64), (64, 128), (64, 256), (32, 64), (16, 64)):
+        smem = sp.bf16_stage_shape(kc, bn)[1]
+        assert fn(kc, bn) == smem <= sp.SMEM_PER_BLOCK
+    assert fn(32, 128) == fn(16, 256) == fn(8, 64) == -1
 
 
 @pytest.mark.parametrize('self_map', [True, False])
