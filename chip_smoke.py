@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the final line):
   1. device: the card's name and power limit, torch version, TF32 off;
   2. build: every CUDA kernel from `proxytransformation_torch/csrc`
      with nvcc for sm_90a, one nvcc per source, all started together;
-     one `[ptxas]` line per bf16 forward / input-gradient kernel
+     one `[ptxas]` line per bf16 forward / input-gradient and dW kernel
      (registers, spills, its block's dynamic shared memory) and any
      performance note ptxas gives on them;
   3. capture: one flagship predict request at full width (seeded random
@@ -64,15 +64,21 @@ Phases (any failure exits non-zero before the final line):
      input keeps the float32 kernel), times and peak memory;
  11. bf16 train step: one loss and backward captured and every bf16
      forward, dfeats and dW call held against its plain bf16 version
-     (dW within the float32 tolerance), then three AdamW steps from
-     counts of 0 (B=2), and one B=6 step (the flagship's per-chip batch)
-     for its peak memory.
+     (dW within the float32 tolerance, the same bits twice; beside each
+     dW call a dense yardstick: `torch.matmul` of a C_in x hits by a
+     hits x C_out bf16 matrix, no gather), the bytes of dW split
+     partials the step writes under `bf16_dw_launch` against those of
+     the float32 rule `dw_launch_shape` on the same calls (under a
+     quarter, `[bf16 dW]`), then three AdamW steps from counts of 0
+     (B=2), and one B=6 step (the flagship's per-chip batch) for its
+     peak memory.
 Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
 neck): calls, summed ms, bound, rows multiplied per hit (the bf16
-forward and dfeats count each warpgroup's 64 rows), the TFLOP/s on the
-rows multiplied and, for the bf16 forward and dfeats, the dense
-yardstick's summed ms.
+forward and dfeats count each warpgroup's 64 rows, the bf16 dW each
+split's 64-hit stages), the TFLOP/s on the rows multiplied and, for the
+bf16 kernels, the dense yardstick's summed ms, and the bf16 dW's split
+partials a call.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, the one before it the kernels' JSON (`launches`:
@@ -389,34 +395,42 @@ def check_lookup_center(calls):
 
 
 def ptxas_lines(log_text):
-    """One `[ptxas]` line per forward / input-gradient bf16 kernel from
-    nvcc's `-Xptxas -v` output: registers, spills and the block's dynamic
-    shared memory (`bf16_stage_shape`), and ptxas's performance notes."""
+    """One `[ptxas]` line per bf16 forward / input-gradient kernel<BN, KC>
+    and dW kernel<BM, BN> from nvcc's `-Xptxas -v` output: registers,
+    spills and the block's dynamic shared memory (`bf16_stage_shape`,
+    `bf16_dw_stage_shape`), and ptxas's performance notes."""
     import re
     from proxytransformation_torch.ops import sparse as sp
-    # a mangled kernel<BN, KC> name: its symbol, BN, KC
-    kernel = r'(sparse_conv_(?:fwd|dfeats)_bf16_tile)ILi(\d+)ELi(\d+)E'
+    # a mangled kernel<a, b> name: its symbol, a, b
+    kernel = r'(sparse_conv_(?:fwd|dfeats|dw)_bf16_tile)ILi(\d+)ELi(\d+)E'
+
+    def label(kern, a, b):
+        if '_dw_' in kern:
+            return (f'{kern}<BM={a}, BN={b}>',
+                    sp.bf16_dw_stage_shape(int(a), int(b))[1])
+        return f'{kern}<BN={a}, KC={b}>', sp.bf16_stage_shape(int(b),
+                                                              int(a))[1]
+
     lines, name, spill = [], None, ''
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '.*?" + kernel, line)
         if m:
-            name = (m.group(1), int(m.group(2)), int(m.group(3)))
+            name = m.groups()
         elif 'Compiling entry function' in line:
             name = None
         elif name and 'spill' in line:
             spill = line.strip()
         elif name and 'Used' in line and 'registers' in line:
-            kern, bn, kc = name
-            smem = sp.bf16_stage_shape(kc, bn)[1]
+            text, smem = label(*name)
             used = line.split(':', 1)[1].strip()
-            lines.append(f'[ptxas] {kern}<BN={bn}, KC={kc}>: {used}; '
-                         f'{spill}; {smem} bytes dynamic shared memory')
+            lines.append(f'[ptxas] {text}: {used}; {spill}; {smem} bytes '
+                         f'dynamic shared memory')
             name = None
         m = re.search(r'\((C\d+)\) Potential Performance Loss: (.*?) in the '
                       r"function '.*?" + kernel, line)
         if m:
-            lines.append(f'[ptxas] {m.group(3)}<BN={m.group(4)}, '
-                         f'KC={m.group(5)}>: {m.group(1)} {m.group(2)}')
+            lines.append(f'[ptxas] {label(*m.groups()[2:])[0]}: '
+                         f'{m.group(1)} {m.group(2)}')
     return lines
 
 
@@ -445,9 +459,9 @@ def rows_multiplied(nbr, out_mask, plan, C_in, C_out, rows=None):
     return float(bits.amax(2).sum()) * rows
 
 
-def dw_rows_multiplied(nbr, plan, C_in, C_out, step=16):
-    """Hit rows the dW kernel multiplies: each split's hits, padded to
-    its `step`-hit steps on the tile path (32 in the bf16 kernel)."""
+def dw_rows_multiplied(nbr, plan, C_in, C_out):
+    """Hit rows the float32 dW kernel multiplies: each split's hits,
+    padded to its 16-hit steps on the tile path."""
     from proxytransformation_torch.ops import _cuda
     from proxytransformation_torch.ops import sparse as sp
     B, V, K3 = nbr.shape
@@ -457,8 +471,32 @@ def dw_rows_multiplied(nbr, plan, C_in, C_out, step=16):
     chunk, S = sp.dw_split_table(counts, target)
     if tm == 0:
         return float(sum(counts))
-    return float(sum(-(-min(chunk, c - s * chunk) // step) * step
+    return float(sum(-(-min(chunk, c - s * chunk) // 16) * 16
                      for c, n in zip(counts, S) for s in range(n)))
+
+
+def dw_bf16_cut(nbr, plan, C_in, C_out):
+    """(launch, rows multiplied, bytes of split partials, the same under
+    the float32 kernel's `dw_launch_shape`, the rule the bf16 dW kernel
+    took before `bf16_dw_launch`) of a bf16 dW call: each split's hits
+    padded to its 64-hit stages, from `bf16_dw_launch`'s table; the
+    partials of the offsets with more than one split, against every
+    split's."""
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.ops import sparse as sp
+    B, V, K3 = nbr.shape
+    Ci, Co = sp._round_step(C_in), sp._round_step(C_out)
+    n_sm = _cuda.sm_count(nbr.device)
+    cut = sp.bf16_dw_launch(K3, Ci, Co, n_sm)
+    counts = plan.hit_counts.tolist()
+    chunk, S = sp.bf16_dw_split_table(counts, cut.max_splits)
+    step = sp.BF16_DW_HITS
+    rows = sum(-(-max(0, min(chunk, c - s * chunk)) // step) * step
+               for c, n in zip(counts, S) for s in range(n))
+    _, _, target, _ = sp.dw_launch_shape(B * V, K3, Ci, Co, n_sm)
+    _, old = sp.dw_split_table(counts, target)
+    return (cut, float(rows), 4 * Ci * Co * sum(n for n in S if n > 1),
+            4 * Ci * Co * sum(old))
 
 
 def check_sparse_conv(calls):
@@ -658,9 +696,22 @@ def dense_yardstick_ms(rows, C_in, C_out):
     return time_ms('dense yardstick', lambda: torch.matmul(a, b))
 
 
+def dense_dw_yardstick_ms(rows, C_in, C_out):
+    """`time_ms` of torch.matmul of a (C_in x rows) by a (rows x C_out)
+    bf16 matrix: a dense product over the hit rows a dW call multiplies.
+    A yardstick for the bf16 dW kernel, not a computation of dW (no
+    gather)."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    a = torch.randn(C_in, rows, device='cuda', generator=gen).bfloat16()
+    b = torch.randn(rows, C_out, device='cuda', generator=gen).bfloat16()
+    return time_ms('dense dW yardstick', lambda: torch.matmul(a, b))
+
+
 def check_sparse_conv_dw_bf16(calls):
     """The bf16 dW kernel at each captured call against the plain bf16
-    dW (float32 out, the float32 tolerance), and the same bits twice."""
+    dW (float32 out, the float32 tolerance), and the same bits twice;
+    its launch shape, the bytes of split partials it writes (and those
+    the float32 rule would write), and a dense yardstick."""
     from proxytransformation_torch.ops import sparse as sp
     rows = []
     for i, (x, nbr, g, plan) in enumerate(calls):
@@ -678,10 +729,12 @@ def check_sparse_conv_dw_bf16(calls):
         V_out, K3 = nbr.shape[1:]
         C_out = g.shape[-1]
         hits = float((nbr >= 0).sum())
-        rm = dw_rows_multiplied(nbr, plan, C_in, C_out, 32)
+        cut, rm, partial, partial_old = dw_bf16_cut(nbr, plan, C_in, C_out)
         rows.append(dict(
             shape=f'B={B} V_in={V_in} V_out={V_out} K3={K3} C_in={C_in} '
-                  f'C_out={C_out}', max_abs_err=err,
+                  f'C_out={C_out} launch={tuple(cut)}', max_abs_err=err,
+            partial_bytes=partial, partial_bytes_old=partial_old,
+            dense_ms=dense_dw_yardstick_ms(int(rm), C_in, C_out),
             key=(V_in, V_out, C_in, C_out), hits=hits,
             rows_multiplied=rm, mult_ops=2.0 * rm * C_in * C_out,
             ms=time_ms(f'bf16 dW {i}',
@@ -755,6 +808,8 @@ def conv_class_table(rows_by_kernel, classes):
             mult = sum(r['rows_multiplied'] for r in rs)
             ms = sum(r['ms'] for r in rs)
             dense = [r['dense_ms'] for r in rs if 'dense_ms' in r]
+            partial = [r['partial_bytes'] for r in rs
+                       if 'partial_bytes' in r]
             table.append(dict(
                 kernel=name, conv_class=label, calls=len(rs), ms=ms,
                 bound_ms=bound_ms, bound_by=bound_by, rows_multiplied=mult,
@@ -762,7 +817,9 @@ def conv_class_table(rows_by_kernel, classes):
                 rows_multiplied_per_hit=mult / hits if hits else None,
                 tflops_on_rows_multiplied=sum(r['mult_ops'] for r in rs)
                 / ms / 1e9,
-                dense_yardstick_ms=sum(dense) if dense else None))
+                dense_yardstick_ms=sum(dense) if dense else None,
+                partial_bytes_a_call=(sum(partial) / len(partial)
+                                      if partial else None)))
     return table
 
 
@@ -971,7 +1028,7 @@ def run() -> int:
                               'sparse_conv_dw', *BF16_KERNELS,
                               *BF16_TRAIN_ONLY)}, predict['classes'])
     for r in table:
-        dense = r['dense_yardstick_ms']
+        dense, partial = r['dense_yardstick_ms'], r['partial_bytes_a_call']
         log(f'[conv] {r["kernel"]:23s} {r["conv_class"]:16s} '
             f'{r["calls"]:2d} calls {r["ms"]:8.3f} ms, bound '
             f'{r["bound_ms"]:.3f} ms ({r["bound_by"]}), rows multiplied / '
@@ -979,7 +1036,9 @@ def run() -> int:
             f'{r["tflops_on_rows_multiplied"]:.1f} TFLOP/s on them'
             + ('' if dense is None else
                f'; dense yardstick (torch.matmul of those rows, bf16) '
-               f'{dense:.3f} ms'))
+               f'{dense:.3f} ms')
+            + ('' if partial is None else
+               f'; split partials {partial / 1e6:.2f} MB a call'))
     counts = {**predict['counts'],
               **{k: train['counts'][k] for k in TRAIN_ONLY},
               **{k: bf16['counts'].get(k, 0)
@@ -1270,6 +1329,15 @@ def bf16_phases(dev):
         path_rows = check_calls(calls, names, 'the bf16 train step')
     rows.update({k: path_rows.pop(k) for k in BF16_TRAIN_ONLY})
     del calls
+    partials = {rule: sum(r[key] for r in rows['sparse_conv_dw_bf16'])
+                for rule, key in (('bf16_dw_launch', 'partial_bytes'),
+                                  ('dw_launch_shape', 'partial_bytes_old'))}
+    log(f'[bf16 dW] split partials written a bf16 step: '
+        f'{partials["bf16_dw_launch"] / 1e6:.1f} MB under bf16_dw_launch, '
+        f'{partials["dw_launch_shape"] / 1e6:.1f} MB under dw_launch_shape '
+        f'on the same calls')
+    require(partials['bf16_dw_launch'] < partials['dw_launch_shape'] / 4,
+            f'bf16 dW split partials not under a quarter: {partials}')
     step = make_train_step(model, build_optimizer(model),
                            build_lr_schedule(steps_per_epoch=1))
     n_steps = 3
@@ -1290,7 +1358,8 @@ def bf16_phases(dev):
                    step_ms=step_ms, step_host_ms=host_ms, losses=losses,
                    step_peak_gib=train_peak, per_request=per_request,
                    per_step=per_step, b6_step_ms=b6_ms[0],
-                   b6_peak_gib=b6_peak, b6_losses=b6_losses[0])
+                   b6_peak_gib=b6_peak, b6_losses=b6_losses[0],
+                   dw_split_partial_bytes=partials)
     del model, step
     torch.cuda.empty_cache()
     return dict(rows=rows, request_rows=request_rows, path_rows=path_rows,

@@ -12,9 +12,10 @@
 // ops/sparse_conv_pallas.py: ::sparse_conv_gather_gemm_colwin (:744; the casts
 // at :782-783), whose function ::sparse_conv_gather_gemm (:177; :210-211)
 // also computes, and ::sparse_conv_dw_gather_gemm (:399; :422, :436); their
-// VMEM rings hold bf16 (:256, :477, :845, :882). The plan-reading set-up,
-// the dW split table and the split sums are common.cuh's, shared with the
-// float32 kernels of sparse_conv.cu and sparse_conv_dw.cu.
+// VMEM rings hold bf16 (:256, :477, :845, :882). The plan-reading set-up
+// and the forward's split sum are common.cuh's, shared with the float32
+// kernels of sparse_conv.cu and sparse_conv_dw.cu; dW has its own split
+// table (`dw_plan`).
 //
 // Bound on the H100: 2 * hits * C_in * C_out bf16 operations over the dense
 // bf16 tensor-core rate (989 TFLOP/s), or the bytes of x, nbr, W (g) and the
@@ -45,13 +46,26 @@
 //    of the sorted order, so the tiles of masked rows come last. Small
 //    levels split the steps across blocks into a float32 workspace that a
 //    second kernel adds in split order.
-//  * dW (mma.sync.m16n8k16): a block owns (offset k, a split of k's
-//    compacted hit list, a 128 (64) x 128 (64) tile of dW[k]); the hits are
-//    the MMA's k. 32 hits a step through a 3-stage ring: the gathered x
-//    rows and the g rows at the hits, as bf16; A fragments by
-//    ldmatrix.x4.trans of the hit-major x tile. Each warp owns a 32 x WN
-//    tile. Splits are added in a fixed order by a second kernel: the same
-//    bits every run.
+//  * dW (wgmma.mma_async with the hits as k, sm_90a): a block owns (offset
+//    k, a split of k's compacted hit list, a BM x BN tile of dW[k]), BM =
+//    64 or 128 input and BN = 64, 128 or 256 output channels
+//    (ops/sparse.py::bf16_dw_launch), so a gathered x row feeds up to 256
+//    output channels. A = x^T is MN-major (the gathered rows are hit-major,
+//    channels contiguous: a transposed A), B = g at the hits N-major, both
+//    in 64-channel atoms of 64 hit rows in the 128-byte swizzle. Two
+//    warpgroups own 64 input channels each (for C_in <= 64 both own the
+//    same 64 and each takes half of every stage's hits; their sums are
+//    added in one order at the end). A stage is 64 hits (four k16 slices
+//    for one wait and one barrier) through a ring of 4-12 stages in 192
+//    KB, one block an SM; the operands come by 16-byte cp.async copies,
+//    zero-filled past the split's hits. The hit rows and their input rows
+//    (nbr[r, k]) are streamed through a ring of 32 steps by 4-byte copies,
+//    3D and 2D steps ahead of the operands (D = stages - 2), so a split
+//    holds any number of hits. The split table (`dw_plan`, a function of
+//    the hit counts) cuts offsets only as far as one wave of one block an
+//    SM needs; an offset with one split writes dW itself, the others
+//    write float32 partials that a second kernel adds, in split order, for
+//    those offsets alone: the same bits every run, no float atomics.
 #include <cuda.h>
 #include <cuda_bf16.h>
 
@@ -70,22 +84,6 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(smem)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <typename T>
@@ -210,8 +208,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x N, float32) += A (64 x 16, K-major) * B (16 x N, N-major): one
-// warpgroup, both operands from shared memory through their descriptors
+// d (64 x N, float32) += A (64 x 16; K-major, or M-major where TA = 1) * B
+// (16 x N, N-major): one warpgroup, both operands from shared memory
+// through their descriptors
+template <int TA>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -219,7 +219,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -227,9 +227,10 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA));
 }
 
+template <int TA>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -240,7 +241,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -253,9 +254,10 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA));
 }
 
+template <int TA>
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -271,7 +273,7 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint6
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -295,14 +297,15 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a, uint6
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA));
 }
 
-template <int BN>
+// TA = 1: A MN-major (M contiguous, as a transposed A), else K-major
+template <int BN, int TA = 0>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a, uint64_t b) {
-  if constexpr (BN == 64) wgmma_m64n64(d, a, b);
-  else if constexpr (BN == 128) wgmma_m64n128(d, a, b);
-  else wgmma_m64n256(d, a, b);
+  if constexpr (BN == 64) wgmma_m64n64<TA>(d, a, b);
+  else if constexpr (BN == 128) wgmma_m64n128<TA>(d, a, b);
+  else wgmma_m64n256<TA>(d, a, b);
 }
 
 struct ConvArgs {
@@ -520,152 +523,348 @@ void launch_sum(int role, const float* ws, long long n, int S, void* out, cudaSt
 }
 
 // ---------------------------------------------------------------- dW
-constexpr int kStepH = 32;       // hits per step: two MMA k16 slices
-constexpr int kDwStages = 3;     // cp.async ring depth
+constexpr int kDwHits = 64;               // hits a stage: four wgmma k16 slices
+constexpr int kDwAtom = kDwHits * 128;    // a 64-channel atom of a stage's operand tile
+constexpr int kDwRingBytes = 192 * 1024;  // the stages' ring
+constexpr int kDwMaxStages = 12;
+constexpr int kDwIdxSlots = 32;           // steps the hit-index ring holds
+constexpr int kDwMinHits = 256;           // hits a split takes at least
 
-struct DwArgs {
-  const bf16* feats;    // (B, V_in, C_in)
-  const int* nbr;       // (B, V_out, K3)
-  const bf16* g;        // (B, V_out, C_out)
-  const int* hits;      // (K3, R) hit rows of each offset, row order
-  const int* counts;    // (K3,)
-  int V_in, V_out, K3, C_in, C_out, pairs_target;
-  long long R;
-  float* ws;            // (pairs, C_in, C_out) partial sums
+// The split table of a dW call, a function of the hit counts alone (so
+// every block and the sum pass derive the same one): offset k's hits
+// are cut into S[k] splits of `chunk` hits (the last one shorter), one
+// split for an offset without a hit; `chunk` is the least that keeps
+// the splits of all offsets within `max_splits` (one wave of one block
+// an SM, over the channel tiles), and at least kDwMinHits. An offset
+// with one split writes dW itself; the others write float32 partials
+// to workspace slots wbase[k] .. wbase[k] + S[k] - 1, which the sum
+// pass adds in split order. ops/sparse.py::bf16_dw_split_table mirrors
+// it.
+struct DwPlan {
+  int chunk, total, wtotal;
+  int S[kMaxK3], base[kMaxK3], wbase[kMaxK3], cnt[kMaxK3];
 };
 
+// Called by warp 0 alone (K3 <= 32: a lane an offset).
+__device__ __forceinline__ void dw_plan(const int* counts, int K3, int max_splits, DwPlan& t) {
+  const int lane = threadIdx.x & 31;
+  const int c = lane < K3 ? counts[lane] : 0;
+  int chunk = max(__reduce_max_sync(0xffffffffu, c), 1);
+  if (K3 < max_splits) {
+    // the least chunk in [1, the largest count] whose splits fit: their
+    // number falls as the chunk grows
+    int lo = 1, hi = chunk;
+    while (lo < hi) {
+      const int mid = lo + (hi - lo) / 2;
+      const int s = lane < K3 ? max(1, (c + mid - 1) / mid) : 0;
+      if (__reduce_add_sync(0xffffffffu, s) <= max_splits) hi = mid;
+      else lo = mid + 1;
+    }
+    chunk = max(lo, kDwMinHits);
+  }
+  const int S = lane < K3 ? max(1, (c + chunk - 1) / chunk) : 0;
+  const int W = S > 1 ? S : 0;
+  int inc = S, winc = W;  // inclusive prefix sums over the lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(0xffffffffu, inc, o);
+    const int b = __shfl_up_sync(0xffffffffu, winc, o);
+    if (lane >= o) {
+      inc += a;
+      winc += b;
+    }
+  }
+  if (lane < K3) {
+    t.S[lane] = S;
+    t.base[lane] = inc - S;
+    t.wbase[lane] = winc - W;
+    t.cnt[lane] = c;
+  }
+  if (lane == 31) {
+    t.total = inc;
+    t.wtotal = winc;
+  }
+  if (lane == 0) t.chunk = chunk;
+}
+
+// A dW block's shared memory beside its ring: a ring of the hit rows
+// (b * V_out + v) and their input rows (nbr[r, k]) of kDwIdxSlots
+// steps, and the split table.
+struct DwIdx {
+  int r[kDwIdxSlots][kDwHits];
+  int id[kDwIdxSlots][kDwHits];
+  DwPlan plan;
+};
+
+// A stage of a block of BM input x BN output channels: 64 hits of the
+// gathered x rows (kA bytes), then of the g rows at the hits (kG), each
+// hit-major in 64-channel atoms of 64 rows of 128 bytes (the MN-major
+// operand layout), so every atom starts on a 1024-byte boundary.
 template <int BM, int BN>
-struct DwSmem {
-  bf16 a[kDwStages][kStepH * (BM + 8)];  // gathered x rows, hit-major
-  bf16 g[kDwStages][kStepH * (BN + 8)];  // g rows at the hits
-  int r[kMaxChunk];
-  int id[kMaxChunk];
-  SplitTable t;
+struct DwRing {
+  static constexpr int kA = kDwHits * BM * 2;
+  static constexpr int kG = kDwHits * BN * 2;
+  static constexpr int kStage = kA + kG;
+  static constexpr int kStages = kDwRingBytes / kStage < kDwMaxStages ? kDwRingBytes / kStage
+                                                                      : kDwMaxStages;
+  // the ring, the index ring and the table, and 1 KB to align the ring
+  static constexpr int kSmem = kStages * kStage + static_cast<int>(sizeof(DwIdx)) + 1024;
+  static_assert(kStages >= 4 && 3 * (kStages - 2) < kDwIdxSlots, "ring depth");
+};
+
+struct DwArgs {
+  const bf16* feats;  // (B, V_in, C_in)
+  const int* nbr;     // (B, V_out, K3)
+  const bf16* g;      // (B, V_out, C_out)
+  const int* hits;    // (K3, R) hit rows of each offset, row order
+  const int* counts;  // (K3,)
+  int V_in, V_out, K3, C_in, C_out, max_splits;
+  long long R;
+  float* ws;          // (wtotal, C_in, C_out) split partials
+  float* dw;          // (K3, C_in, C_out)
 };
 
 template <int BM, int BN>
 __device__ __forceinline__ void dw_tile(const DwArgs& p) {
-  constexpr int kRowA = BM + 8, kRowG = BN + 8;  // padded tile rows
-  constexpr int WARPS_M = BM / 32, WARPS_N = 8 / WARPS_M;
-  constexpr int WN = BN / WARPS_N;  // 64, 32 or 16
+  using R = DwRing<BM, BN>;
+  constexpr int S = R::kStages;
+  // a step's operands are copied D steps ahead of its MMAs, its input
+  // rows 2D and its hit rows 3D steps ahead: each from indices that
+  // landed by the barrier of the iteration that issues it
+  constexpr int D = S - 2;
+  // C_in <= 64: both warpgroups own the block's 64 input channels, each
+  // multiplies half of every stage's hits, and their sums are added in
+  // one order at the end
+  constexpr bool kSplitK = BM == 64;
+  constexpr int kInFlight = BN >= 128 ? 1 : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DwSmem<BM, BN>& s = *reinterpret_cast<DwSmem<BM, BN>*>(smem_raw);
-  const Split sp = load_split<kThreads>(p, s.t, s.r, s.id);
-  if (sp.nh == 0) return;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const unsigned ring = smem_addr(smem);  // 1024-byte aligned
+  DwIdx& s = *reinterpret_cast<DwIdx*>(smem + S * R::kStage);
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid < 32) dw_plan(p.counts, p.K3, p.max_splits, s.plan);
+  __syncthreads();
+
+  // 1. this block's offset, split and hit range; its channel tile
+  const int pair = blockIdx.x;
+  if (pair >= s.plan.total) return;
+  int k = 0;
+  while (pair >= s.plan.base[k] + s.plan.S[k]) ++k;
+  const int split = pair - s.plan.base[k], n_split = s.plan.S[k];
+  const int h0 = split * s.plan.chunk;
+  const int nh = min(s.plan.chunk, s.plan.cnt[k] - h0);
+  const int n_steps = (nh + kDwHits - 1) / kDwHits;
   const int c_tiles = (p.C_in + BM - 1) / BM;
   const int c0 = blockIdx.y % c_tiles * BM, n0 = blockIdx.y / c_tiles * BN;
-  const int n_steps = (sp.nh + kStepH - 1) / kStepH;
+  const int* hl = p.hits + k * p.R + h0;
 
-  auto load = [&](int step, int stage) {
-    const int hb = step * kStepH;
-    for (int e = tid; e < kStepH * BM / 8; e += kThreads) {
-      const int h = e / (BM / 8), q = e % (BM / 8) * 8;
-      const int hh = hb + h;
-      const bool ok = hh < sp.nh && c0 + q < p.C_in;
+  // step x's hit rows (threads 0-63) and their input rows (threads
+  // 64-127): 4-byte copies into index slot x % kDwIdxSlots, zero past
+  // the split's last hit
+  auto load_r = [&](int x) {
+    if (tid < kDwHits) {
+      const bool ok = x * kDwHits + tid < nh;
+      cp_async4(&s.r[x % kDwIdxSlots][tid], ok ? hl + x * kDwHits + tid : hl, ok);
+    }
+  };
+  auto load_id = [&](int x) {
+    const int i = tid - kDwHits;
+    if (i >= 0 && i < kDwHits) {
+      const bool ok = x * kDwHits + i < nh;
+      const int r = s.r[x % kDwIdxSlots][i];
+      cp_async4(&s.id[x % kDwIdxSlots][i],
+                ok ? p.nbr + static_cast<long long>(r) * p.K3 + k : p.nbr, ok);
+    }
+  };
+  // step x's operands into `stage`: 16-byte copies by every thread
+  // (consecutive threads along a row), each at its address in the
+  // 128-byte swizzle of its atom (ops/sparse.py::bf16_dw_copy_offset
+  // mirrors it); the x rows from c0 on and the g rows from n0 on, zero
+  // past the split's last hit and past C_in / C_out
+  auto load_rows = [&](int x, int stage) {
+    const int slot = x % kDwIdxSlots, hb = x * kDwHits;
+    const unsigned sa = ring + stage * R::kStage;
+    constexpr int kChunksA = BM / 8, kChunksG = BN / 8;
+#pragma unroll
+    for (int i = 0; i < kDwHits * kChunksA / kThreads; ++i) {
+      const int e = tid + i * kThreads, h = e / kChunksA, c = e % kChunksA;
+      const int ch = c0 + c * 8;
+      const bool ok = hb + h < nh && ch < p.C_in;
       const bf16* src = p.feats;
       if (ok) {
-        const long long b = s.r[hh] / p.V_out;
-        src += (b * p.V_in + s.id[hh]) * p.C_in + c0 + q;
+        const int r = s.r[slot][h];
+        src += (static_cast<long long>(r / p.V_out) * p.V_in + s.id[slot][h]) * p.C_in + ch;
       }
-      cp_async16(s.a[stage] + h * kRowA + q, src, ok);
+      cp_async16_to(sa + (c / 8) * kDwAtom + swizzle<128>(h * 128 + (c % 8) * 16), src, ok);
     }
-    for (int e = tid; e < kStepH * BN / 8; e += kThreads) {
-      const int h = e / (BN / 8), q = e % (BN / 8) * 8;
-      const int hh = hb + h;
-      const bool ok = hh < sp.nh && n0 + q < p.C_out;
-      const bf16* src = ok ? p.g + static_cast<long long>(s.r[hh]) * p.C_out + n0 + q : p.g;
-      cp_async16(s.g[stage] + h * kRowG + q, src, ok);
+#pragma unroll
+    for (int i = 0; i < kDwHits * kChunksG / kThreads; ++i) {
+      const int e = tid + i * kThreads, h = e / kChunksG, c = e % kChunksG;
+      const int n = n0 + c * 8;
+      const bool ok = hb + h < nh && n < p.C_out;
+      const bf16* src = ok ? p.g + static_cast<long long>(s.r[slot][h]) * p.C_out + n : p.g;
+      cp_async16_to(sa + R::kA + (c / 8) * kDwAtom + swizzle<128>(h * 128 + (c % 8) * 16), src,
+                    ok);
     }
   };
 
-  float acc[2][WN / 8][4];
+  // 2. the prologue: the hit rows of the first 3D steps, then their
+  // input rows for the first 2D, then the operands of the first D
+#pragma unroll 1
+  for (int x = 0; x < 3 * D && x < n_steps; ++x) load_r(x);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll 1
+  for (int x = 0; x < 2 * D && x < n_steps; ++x) load_id(x);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < WN / 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  for (int x = 0; x < D; ++x) {
+    if (x < n_steps) load_rows(x, x);
+    cp_async_commit();
+  }
 
+  float acc[BN / 2];
 #pragma unroll
-  for (int st = 0; st < kDwStages - 1; ++st) {
-    if (st < n_steps) load(st, st);
-    cp_async_commit();
-  }
-  // A (C_in x hits) is the transpose of the hit-major x tile; B (hits x
-  // C_out) the g tile as stored: both fragments by ldmatrix.trans
-  const int a_h = (lane & 7) + ((lane >> 4) & 1) * 8, a_c = ((lane >> 3) & 1) * 8;
-  const int b_h = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  // A: this warpgroup's 64 input channels (atom wg of the x tile; atom 0
+  // for both where kSplitK), MN-major; B: the g tile, N-major. k-slices
+  // of 16 hits 2048 bytes apart, 8-hit groups 1024 apart, 64-channel
+  // atoms kDwAtom apart
+  const unsigned a_wg = kSplitK ? 0u : static_cast<unsigned>(wg * kDwAtom);
+  const int kk0 = kSplitK ? 2 * wg : 0, kk1 = kSplitK ? kk0 + 2 : kDwHits / 16;
+
+  // 3. the pipeline. Iteration st: step st's operands have landed (every
+  // thread's copies, then the barrier); step st + D's operands go into
+  // the stage that step st - 2 used (its MMAs finished before this
+  // barrier), step st + 2D's input rows and step st + 3D's hit rows into
+  // their slots; the warpgroups multiply step st while step st - 1's
+  // MMAs may still run.
   for (int st = 0; st < n_steps; ++st) {
-    cp_async_wait<kDwStages - 2>();
+    cp_async_wait<D - 1>();
+    fence_proxy_async();
     __syncthreads();
-    const int ahead = st + kDwStages - 1;
-    if (ahead < n_steps) load(ahead, ahead % kDwStages);
+    if (st + D < n_steps) load_rows(st + D, (st + D) % S);
+    if (st + 2 * D < n_steps) load_id(st + 2 * D);
+    if (st + 3 * D < n_steps) load_r(st + 3 * D);
     cp_async_commit();
-    const bf16* a = s.a[st % kDwStages];
-    const bf16* gs = s.g[st % kDwStages];
+    const unsigned sa = ring + (st % S) * R::kStage;
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kStepH / 16; ++ks) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4_trans(af[mi], a + (ks * 16 + a_h) * kRowA + wm * 32 + mi * 16 + a_c);
-#pragma unroll
-      for (int nb = 0; nb < WN / 16; ++nb) {
-        unsigned bfr[4];
-        ldmatrix_x4_trans(bfr, gs + (ks * 16 + b_h) * kRowG + wn * WN + nb * 16 + b_n);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nb], af[mi], bfr[0], bfr[1]);
-          mma_bf16(acc[mi][2 * nb + 1], af[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
+    for (int kk = kk0; kk < kk1; ++kk)
+      wgmma_tile<BN, 1>(acc, wgmma_desc(sa + a_wg + kk * 2048, kDwAtom, 1024, 1),
+                        wgmma_desc(sa + R::kA + kk * 2048, kDwAtom, 1024, 1));
+    wgmma_commit();
+    wgmma_wait<kInFlight>();
+    fence_acc(acc);
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
   cp_async_wait<0>();
 
-  float* out = p.ws + static_cast<long long>(blockIdx.x) * p.C_in * p.C_out;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  // 4. kSplitK: warpgroup 1's sums through the (now idle) ring, added to
+  // warpgroup 0's: one order, the same bits every run
+  if constexpr (kSplitK) {
+    float* red = reinterpret_cast<float*>(smem);
+    __syncthreads();
+    if (wg == 1) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+      for (int i = 0; i < BN / 2; ++i) red[i * 128 + tid - 128] = acc[i];
+    }
+    __syncthreads();
+    if (wg == 1) return;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = c0 + wm * 32 + mi * 16 + g + half * 8;
-      if (c >= p.C_in) continue;
+    for (int i = 0; i < BN / 2; ++i) acc[i] += red[i * 128 + tid];
+  }
+
+  // 5. write back: into dW[k] where offset k has one split, else into the
+  // split's workspace slot. Thread (warp w of the warpgroup, lane g * 4 +
+  // q) holds input channels 16w + g and 16w + g + 8 of its 64, output
+  // channels 8j + 2q and 8j + 2q + 1 of each 8-column block j.
+  const long long CC = static_cast<long long>(p.C_in) * p.C_out;
+  float* out = n_split == 1 ? p.dw + k * CC : p.ws + (s.plan.wbase[k] + split) * CC;
+  const int w4 = (tid & 127) >> 5, gq = (tid & 31) >> 2, q2 = (tid & 3) * 2;
 #pragma unroll
-      for (int nb = 0; nb < WN / 8; ++nb) {
-        const int n = n0 + wn * WN + nb * 8 + t2;
-        if (n >= p.C_out) continue;
-        store2(out + static_cast<long long>(c) * p.C_out + n, acc[mi][nb][2 * half],
-               acc[mi][nb][2 * half + 1]);
-      }
+  for (int half = 0; half < 2; ++half) {
+    const int c = c0 + (kSplitK ? 0 : wg * 64) + w4 * 16 + gq + half * 8;
+    if (c >= p.C_in) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + j * 8 + q2;
+      if (n >= p.C_out) continue;
+      store2(out + static_cast<long long>(c) * p.C_out + n, acc[4 * j + 2 * half],
+             acc[4 * j + 2 * half + 1]);
     }
   }
 }
 
 template <int BM, int BN>
-__global__ void __launch_bounds__(kThreads, 2) sparse_conv_dw_bf16_tile(DwArgs p) {
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_conv_dw_bf16_tile(const __grid_constant__ DwArgs p) {
   dw_tile<BM, BN>(p);
 }
 
-// dW[e] = sum over k's splits in order of ws[split][e]; zero where offset
-// k has no hit. A fixed order, so the same bits every run.
+// dW[k] = the sum over k's splits, in order, of their partials, for the
+// offsets with more than one split: a grid-stride pass over those
+// offsets' elements alone, 16 bytes a thread. One order, so the same
+// bits every run.
 __global__ void sparse_conv_dw_bf16_sum(const float* __restrict__ ws,
-                                        const int* __restrict__ counts, int K3,
-                                        int pairs_target, long long CC, float* __restrict__ dw) {
-  sum_dw_splits(ws, counts, K3, pairs_target, CC, dw);
+                                        const int* __restrict__ counts, int K3, int max_splits,
+                                        long long CC, float* __restrict__ dw) {
+  __shared__ DwPlan t;
+  __shared__ int split_k[kMaxK3];
+  __shared__ int n_split;
+  if (threadIdx.x < 32) {
+    dw_plan(counts, K3, max_splits, t);
+    __syncwarp();
+    const int lane = threadIdx.x;
+    const bool many = lane < K3 && t.S[lane] > 1;
+    const unsigned m = __ballot_sync(0xffffffffu, many);
+    if (many) split_k[__popc(m & ((1u << lane) - 1u))] = lane;
+    if (lane == 0) n_split = __popc(m);
+  }
+  __syncthreads();
+  const long long n4 = CC / 4, total = n_split * n4;
+  const float4* w = reinterpret_cast<const float4*>(ws);
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int k = split_k[e / n4];
+    const long long off = e % n4;
+    const float4* src = w + t.wbase[k] * n4 + off;
+    float4 a = src[0];
+    for (int i = 1; i < t.S[k]; ++i) {
+      const float4 v = src[i * n4];
+      a.x += v.x;
+      a.y += v.y;
+      a.z += v.z;
+      a.w += v.w;
+    }
+    reinterpret_cast<float4*>(dw)[k * n4 + off] = a;
+  }
+}
+
+// The split table of `counts` (K3 <= 32) for `max_splits`: out[0] the
+// chunk, out[1 + k] offset k's splits. One warp: the check of its
+// mirror, ops/sparse.py::bf16_dw_split_table.
+__global__ void sparse_conv_dw_bf16_table(const int* counts, int K3, int max_splits, int* out) {
+  __shared__ DwPlan t;
+  dw_plan(counts, K3, max_splits, t);
+  __syncwarp();
+  if (threadIdx.x == 0) out[0] = t.chunk;
+  if (static_cast<int>(threadIdx.x) < K3) out[1 + threadIdx.x] = t.S[threadIdx.x];
 }
 
 template <int BM, int BN>
-cudaError_t launch_dw(const DwArgs& p, int grid_pairs, cudaStream_t st) {
-  const size_t smem = sizeof(DwSmem<BM, BN>);
-  cudaError_t e = cudaFuncSetAttribute(
+cudaError_t launch_dw(const DwArgs& p, int tiles, cudaStream_t st) {
+  constexpr int smem = DwRing<BM, BN>::kSmem;
+  const cudaError_t e = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(&sparse_conv_dw_bf16_tile<BM, BN>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = ((p.C_in + BM - 1) / BM) * ((p.C_out + BN - 1) / BN);
-  sparse_conv_dw_bf16_tile<BM, BN><<<dim3(grid_pairs, tiles), kThreads, smem, st>>>(p);
+  sparse_conv_dw_bf16_tile<BM, BN><<<dim3(p.max_splits, tiles), kThreads, smem, st>>>(p);
   return cudaSuccess;
 }
 
@@ -776,20 +975,22 @@ extern "C" int ptt_sparse_conv_bf16_smem(int kc, int bn) {
 // bf16 (zero at masked outputs), hits (K3, B * V_out) and counts (K3,)
 // int32 from the map's plan, dw (K3, C_in, C_out) float32; C_in and C_out
 // multiples of 16, feats and g 16-byte aligned; all contiguous on the
-// device. tm, tn = 8 or 4: 16 * tm input and 16 * tn output channels a
-// block (ops/sparse.py::dw_launch_shape). The grid holds `grid_pairs`
-// splits (the most the split table can give); `workspace` holds
-// grid_pairs * C_in * C_out floats.
+// device. bm = 64 or 128 input, bn = 64, 128 or 256 output channels a
+// block; the grid holds max_splits (>= K3) splits of each channel tile
+// (ops/sparse.py::bf16_dw_launch). Where max_splits > K3 an offset may
+// split: `workspace` then holds (max_splits, C_in, C_out) floats and
+// `sum_blocks` blocks add the partials; with max_splits = K3 no offset
+// splits and neither is read.
 extern "C" int ptt_sparse_conv_dw_bf16(const void* feats, const void* nbr, const void* g,
                                        const void* hits, const void* counts, int B, int V_in,
-                                       int V_out, int K3, int C_in, int C_out, int tm, int tn,
-                                       int pairs_target, int grid_pairs, void* workspace,
+                                       int V_out, int K3, int C_in, int C_out, int bm, int bn,
+                                       int max_splits, int sum_blocks, void* workspace,
                                        void* dw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long CC = static_cast<long long>(C_in) * C_out;
-  if (K3 < 1 || K3 > kMaxK3 || pairs_target < 1 || grid_pairs < 1 || C_in % 16 ||
-      C_out % 16 || !aligned16(feats) || !aligned16(g) || (tm != 8 && tm != 4) ||
-      (tn != 8 && tn != 4))
+  if (K3 < 1 || K3 > kMaxK3 || max_splits < K3 || C_in % 16 || C_out % 16 ||
+      !aligned16(feats) || !aligned16(g) || (bm != 64 && bm != 128) ||
+      (bn != 64 && bn != 128 && bn != 256) || (max_splits > K3 && sum_blocks < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (CC == 0) return static_cast<int>(cudaGetLastError());
   DwArgs p;
@@ -799,18 +1000,46 @@ extern "C" int ptt_sparse_conv_dw_bf16(const void* feats, const void* nbr, const
   p.hits = static_cast<const int*>(hits);
   p.counts = static_cast<const int*>(counts);
   p.V_in = V_in; p.V_out = V_out; p.K3 = K3; p.C_in = C_in; p.C_out = C_out;
-  p.pairs_target = pairs_target;
+  p.max_splits = max_splits;
   p.R = static_cast<long long>(B) * V_out;
   p.ws = static_cast<float*>(workspace);
+  p.dw = static_cast<float*>(dw);
+  const int tiles = ((C_in + bm - 1) / bm) * ((C_out + bn - 1) / bn);
   cudaError_t e;
-  if (tm == 8)
-    e = tn == 8 ? launch_dw<128, 128>(p, grid_pairs, st) : launch_dw<128, 64>(p, grid_pairs, st);
+  if (bm == 128)
+    e = bn == 256 ? launch_dw<128, 256>(p, tiles, st)
+        : bn == 128 ? launch_dw<128, 128>(p, tiles, st)
+                    : launch_dw<128, 64>(p, tiles, st);
   else
-    e = tn == 8 ? launch_dw<64, 128>(p, grid_pairs, st) : launch_dw<64, 64>(p, grid_pairs, st);
+    e = bn == 256 ? launch_dw<64, 256>(p, tiles, st)
+        : bn == 128 ? launch_dw<64, 128>(p, tiles, st)
+                    : launch_dw<64, 64>(p, tiles, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long n = K3 * CC;
-  sparse_conv_dw_bf16_sum<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(workspace), p.counts, K3, pairs_target, CC,
-      static_cast<float*>(dw));
+  if (max_splits > K3)
+    sparse_conv_dw_bf16_sum<<<sum_blocks, 256, 0, st>>>(p.ws, p.counts, K3, max_splits, CC,
+                                                        p.dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of the dW block of a (bm, bn) launch shape, -1
+// for a shape the kernel does not take (ops/sparse.py::bf16_dw_launch
+// computes the same).
+extern "C" int ptt_sparse_conv_dw_bf16_smem(int bm, int bn) {
+  if (bm == 128)
+    return bn == 256 ? DwRing<128, 256>::kSmem : bn == 128 ? DwRing<128, 128>::kSmem
+                                             : bn == 64 ? DwRing<128, 64>::kSmem : -1;
+  if (bm == 64)
+    return bn == 256 ? DwRing<64, 256>::kSmem : bn == 128 ? DwRing<64, 128>::kSmem
+                                            : bn == 64 ? DwRing<64, 64>::kSmem : -1;
+  return -1;
+}
+
+// The dW split table of device `counts` (K3 <= 32) for `max_splits` into
+// device `out` (1 + K3 ints: the chunk, then each offset's splits).
+extern "C" int ptt_sparse_conv_dw_bf16_table(const void* counts, int K3, int max_splits,
+                                             void* out, void* stream) {
+  if (K3 < 1 || K3 > kMaxK3 || max_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  sparse_conv_dw_bf16_table<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(counts), K3, max_splits, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

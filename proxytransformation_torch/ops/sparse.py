@@ -820,6 +820,99 @@ def dw_launch_shape(rows: int, K3: int, C_in: int, C_out: int,
     return tm, tn, pairs_target, grid_pairs
 
 
+# csrc/sparse_conv_bf16.cu's dW body: hits a stage, its ring of stages,
+# the steps its hit-index ring holds, and the hits a split takes at least
+BF16_DW_HITS = 64
+BF16_DW_RING_BYTES = 192 * 1024
+BF16_DW_MAX_STAGES = 12
+BF16_DW_IDX_SLOTS = 32
+BF16_DW_MIN_HITS = 256
+# a dW block's shared memory beside its ring: the index ring (hit rows
+# and input rows of BF16_DW_IDX_SLOTS steps), the split table (chunk,
+# total, wtotal; S, base, wbase, counts of up to 32 offsets) and 1 KB for
+# aligning the ring to 1024 bytes
+BF16_DW_FIXED_BYTES = (4 * 2 * BF16_DW_IDX_SLOTS * BF16_DW_HITS
+                       + 4 * (3 + 4 * 32) + 1024)
+
+
+class Bf16DwLaunch(NamedTuple):
+    """How `ptt_sparse_conv_dw_bf16` cuts a call: `bm` input and `bn`
+    output channels a block (64 or 128; the wgmma N, 64, 128 or 256),
+    `stages` of its ring and `smem` its dynamic shared memory, `tiles`
+    channel tiles, a grid of `max_splits` splits of each tile (at least
+    K3; more only where one wave of one block an SM has room for them),
+    and `sum_blocks` blocks of the split sum (0: no offset can split)."""
+    bm: int
+    bn: int
+    stages: int
+    smem: int
+    tiles: int
+    max_splits: int
+    sum_blocks: int
+
+
+def bf16_dw_stage_shape(bm: int, bn: int) -> Tuple[int, int]:
+    """(stages, smem bytes) of a (bm, bn) dW block, as `DwRing` computes
+    them: as many 64-hit stages of x rows (64 x bm) and g rows (64 x bn),
+    in bf16, as fit `BF16_DW_RING_BYTES`, at most `BF16_DW_MAX_STAGES`,
+    and `BF16_DW_FIXED_BYTES`."""
+    stage = 2 * BF16_DW_HITS * (bm + bn)
+    stages = min(BF16_DW_MAX_STAGES, BF16_DW_RING_BYTES // stage)
+    return stages, stages * stage + BF16_DW_FIXED_BYTES
+
+
+def bf16_dw_launch(K3: int, C_in: int, C_out: int,
+                   n_sm: int) -> Bf16DwLaunch:
+    """The `Bf16DwLaunch` of a call's shapes (C_in and C_out multiples of
+    16): blocks of 128 input channels (64 where C_in <= 64) by min(C_out,
+    256) output channels, so a gathered row feeds up to 256 of them; the
+    K3 x tiles blocks that exist without a split, and splits of the
+    offsets' hits only as far as one wave of one block an SM holds:
+    max(K3, n_sm // tiles) a tile (`bf16_dw_split_table`). The sum pass
+    adds at most max_splits // 2 offsets of float4s."""
+    bm = 64 if C_in <= 64 else 128
+    bn = 64 if C_out <= 64 else 128 if C_out <= 128 else 256
+    tiles = -(-C_in // bm) * -(-C_out // bn)
+    max_splits = max(K3, n_sm // tiles)
+    sum_blocks = 0
+    if max_splits > K3:
+        n4 = min(K3, max_splits // 2) * C_in * C_out // 4
+        sum_blocks = max(1, min(2 * n_sm, -(-n4 // 256)))
+    return Bf16DwLaunch(bm, bn, *bf16_dw_stage_shape(bm, bn), tiles,
+                        max_splits, sum_blocks)
+
+
+def bf16_dw_split_table(counts, max_splits: int) -> Tuple[int, list]:
+    """(chunk, splits of each offset) as `csrc/sparse_conv_bf16.cu::
+    dw_plan` derives them on the device from the hit counts (a list
+    here): the least chunk whose splits, ceil(count / chunk) and at
+    least one an offset, number at most `max_splits` (with max_splits <=
+    K3: the largest count, no split), then at least `BF16_DW_MIN_HITS`.
+    Offsets with one split write dW directly; the others' partials are
+    the workspace."""
+    chunk = max(max(counts, default=0), 1)
+    if len(counts) < max_splits:
+        lo, hi = 1, chunk
+        while lo < hi:
+            mid = lo + (hi - lo) // 2
+            if sum(max(1, -(-c // mid)) for c in counts) <= max_splits:
+                hi = mid
+            else:
+                lo = mid + 1
+        chunk = max(lo, BF16_DW_MIN_HITS)
+    return chunk, [max(1, -(-c // chunk)) for c in counts]
+
+
+def bf16_dw_copy_offset(hit, channel):
+    """Byte offset of the 16-byte copy that holds `channel` (a multiple
+    of 8) of hit row `hit` (0-63) in a dW stage's operand tile (ints or
+    integer arrays), the mirror of the copy addresses in `csrc/
+    sparse_conv_bf16.cu::dw_tile`: 64-channel atoms of 64 rows of 128
+    bytes, 8192 bytes apart, each in the 128-byte swizzle."""
+    return (channel // 64) * (BF16_DW_HITS * 128) + bf16_swizzle(
+        hit * 128 + (channel % 64) * 2, 128)
+
+
 def sparse_conv_dw_plain_bf16(feats: torch.Tensor, nbr: torch.Tensor,
                               g: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the bf16 dW kernel (the TPU kernel's
@@ -861,11 +954,12 @@ def sparse_conv_dw_bf16_cuda(feats: torch.Tensor, nbr: torch.Tensor,
                              g: torch.Tensor,
                              plan: Optional[ConvPlan] = None
                              ) -> torch.Tensor:
-    """Launch the bf16 dW kernel (`csrc/sparse_conv_bf16.cu`) over the
-    map's per-offset hit lists (built here when no plan is given);
-    returns (K3, C_in, C_out) float32. float32 features or gradients are
-    rounded to bfloat16 here, once; widths that are not a multiple of 16
-    are zero-padded here and the result sliced back."""
+    """Launch the bf16 dW kernel (`csrc/sparse_conv_bf16.cu`, `wgmma` with
+    the hits as k) over the map's per-offset hit lists (built here when
+    no plan is given), cut by `bf16_dw_launch`; returns (K3, C_in, C_out)
+    float32. float32 features or gradients are rounded to bfloat16 here,
+    once; widths that are not a multiple of 16 are zero-padded here and
+    the result sliced back."""
     B, V_in, C_in = feats.shape
     V_out, K3 = nbr.shape[1:]
     C_out = g.shape[-1]
@@ -883,16 +977,16 @@ def sparse_conv_dw_bf16_cuda(feats: torch.Tensor, nbr: torch.Tensor,
     _cuda.check_cuda('hit_counts', plan.hit_counts, torch.int32, (K3, ))
     Ci, Co = _round_step(C_in), _round_step(C_out)
     f, gb = _bf16_padded(feats, Ci), _bf16_padded(g, Co)
-    tm, tn, pairs_target, grid_pairs = dw_launch_shape(
-        B * V_out, K3, Ci, Co, _cuda.sm_count(feats.device))
+    cut = bf16_dw_launch(K3, Ci, Co, _cuda.sm_count(feats.device))
     dw = torch.empty((K3, Ci, Co), dtype=torch.float32, device=feats.device)
-    ws = torch.empty((grid_pairs, Ci, Co), dtype=torch.float32,
-                     device=feats.device)
+    ws = (torch.empty((cut.max_splits, Ci, Co), dtype=torch.float32,
+                      device=feats.device) if cut.sum_blocks else None)
     SPARSE_CONV_DW_BF16(f.data_ptr(), nbr.data_ptr(), gb.data_ptr(),
                         plan.hits.data_ptr(), plan.hit_counts.data_ptr(), B,
-                        V_in, V_out, K3, Ci, Co, tm, tn, pairs_target,
-                        grid_pairs, ws.data_ptr(), dw.data_ptr(),
-                        _cuda.current_stream(feats))
+                        V_in, V_out, K3, Ci, Co, cut.bm, cut.bn,
+                        cut.max_splits, cut.sum_blocks,
+                        None if ws is None else ws.data_ptr(),
+                        dw.data_ptr(), _cuda.current_stream(feats))
     if (Ci, Co) != (C_in, C_out):
         dw = dw[:, :C_in, :C_out].contiguous()
     return dw

@@ -42,7 +42,9 @@ CONV_ROLES = (('forward', r'sparse_conv_fwd_(?!bf16)'),
               ('dW', r'sparse_conv_dw_(?!bf16)'),
               ('forward bf16', r'sparse_conv_fwd_bf16_'),
               ('dfeats bf16', r'sparse_conv_dfeats_bf16_'),
-              ('dW bf16', r'sparse_conv_dw_bf16_'))
+              ('dW bf16', r'sparse_conv_dw_bf16_'),
+              # of which the split sums (offsets with more than one split)
+              ('dW bf16 split sum', r'sparse_conv_dw_bf16_sum'))
 
 
 # patterns of the kernel symbols of the ball query (its head and tail

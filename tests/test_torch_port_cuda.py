@@ -591,17 +591,95 @@ def test_sparse_conv_bf16_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
         assert torch.equal(launch(feats, nbr, w, out_mask), got16)
 
 
-@pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit', BF16_CONV_CASES)
+# the dW body's launch shapes (`sp.bf16_dw_launch`): C_in and C_out of 64,
+# 128, 256 and 512, equal and not (every (BM, BN) of the kernel), widths
+# padded to the block from 48 and from 16, K3 = 27 and 8, classes that
+# split (max_splits > K3: C_in x C_out up to 256 x 256) and that do not
+# (512 x 512, 1024 x 256), offsets of more than 4096 hits (V_out = 20000,
+# 12000); every case also empties offset K3 - 1, and 0.0 maps miss
+# everywhere
+BF16_DW_CASES = [
+    (20000, 20000, 27, 64, 64, 0.4), (12000, 12000, 27, 128, 128, 0.4),
+    (6000, 6000, 27, 256, 256, 0.45), (2000, 2000, 27, 512, 512, 0.45),
+    (3000, 2500, 27, 64, 128, 0.3), (2500, 2000, 27, 128, 256, 0.3),
+    (1500, 1200, 27, 256, 512, 0.3), (1200, 1000, 27, 512, 256, 0.3),
+    (900, 800, 27, 1024, 256, 0.3), (1000, 900, 27, 128, 64, 0.3),
+    (1500, 1400, 27, 48, 16, 0.3), (1500, 1400, 27, 16, 48, 0.3),
+    (1000, 777, 8, 256, 64, 0.5), (5000, 4000, 8, 64, 256, 0.5),
+    (800, 600, 27, 512, 512, 0.0), (700, 500, 8, 64, 64, 0.0)]
+
+
+@pytest.mark.parametrize('V_in,V_out,K3,C_in,C_out,hit',
+                         BF16_CONV_CASES + BF16_DW_CASES)
 def test_sparse_conv_dw_bf16_kernel(gen, V_in, V_out, K3, C_in, C_out, hit):
-    """The bf16 dW kernel against the plain bf16 dW (float32 out), and
-    the same bits on a rerun (no float atomics)."""
+    """The bf16 dW kernel against the plain bf16 dW (float32 out), an
+    offset without a hit exactly zero, and the same bits on a rerun (no
+    float atomics)."""
     feats, nbr, _, _ = _bf16_conv_inputs(gen, V_in, V_out, K3, C_in, C_out,
                                          hit)
+    nbr[..., K3 - 1] = -1
     g = torch.randn(2, V_out, C_out, device='cuda', generator=gen).bfloat16()
     got = sp.sparse_conv_dw_bf16_cuda(feats, nbr, g)
     assert got.dtype == torch.float32
     _close(got, sp.sparse_conv_dw_plain_bf16(feats, nbr, g))
+    assert bool((got[K3 - 1] == 0).all())
     assert torch.equal(sp.sparse_conv_dw_bf16_cuda(feats, nbr, g), got)
+
+
+@pytest.mark.parametrize('C', [64, 256])
+def test_bf16_dw_split_and_direct_offsets(gen, C):
+    """A call in which some offsets split and others do not (a few
+    offsets hold most hits): against the plain bf16 dW, the same bits
+    twice; the split table on the device equals its mirror."""
+    B, V, K3 = 2, 6000, 27
+    feats = torch.randn(B, V, C, device='cuda', generator=gen).bfloat16()
+    nbr = _random_map(gen, B, V, V, K3, 0.02)
+    nbr[..., :3] = _random_map(gen, B, V, V, 3, 0.9)
+    g = torch.randn(B, V, C, device='cuda', generator=gen).bfloat16()
+    plan = sp.conv_plan(nbr)
+    cut = sp.bf16_dw_launch(K3, C, C, _cuda.sm_count(torch.device('cuda')))
+    _, S = sp.bf16_dw_split_table(plan.hit_counts.tolist(), cut.max_splits)
+    assert max(S) > 1 and min(S) == 1
+    got = sp.sparse_conv_dw_bf16_cuda(feats, nbr, g, plan)
+    _close(got, sp.sparse_conv_dw_plain_bf16(feats, nbr, g))
+    assert torch.equal(sp.sparse_conv_dw_bf16_cuda(feats, nbr, g, plan), got)
+
+
+@pytest.mark.parametrize('K3,max_splits', [(27, 132), (27, 66), (27, 27),
+                                           (8, 132), (32, 40), (1, 5)])
+def test_bf16_dw_table_matches_mirror(gen, K3, max_splits):
+    """The device's dW split table (`dw_plan`) equals
+    `sp.bf16_dw_split_table` on skewed, sparse and empty counts."""
+    lib = _cuda._library('sparse_conv_bf16')
+    fn = lib.ptt_sparse_conv_dw_bf16_table
+    fn.argtypes = [_cuda.ptr, _cuda.i32, _cuda.i32, _cuda.ptr, _cuda.ptr]
+    fn.restype = _cuda.i32
+    rng = np.random.RandomState(K3 * max_splits)
+    for counts in ([int(x) for x in 60_000 * rng.rand(K3) ** 3],
+                   [int(x) if rng.rand() < 0.5 else 0
+                    for x in 9000 * rng.rand(K3)],
+                   [0] * K3, [rng.randint(0, 300) for _ in range(K3)]):
+        dev = torch.tensor(counts, dtype=torch.int32, device='cuda')
+        out = torch.full((1 + K3, ), -1, dtype=torch.int32, device='cuda')
+        assert fn(dev.data_ptr(), K3, max_splits, out.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream) == 0
+        chunk, S = sp.bf16_dw_split_table(counts, max_splits)
+        assert out.tolist() == [chunk, *S]
+
+
+def test_bf16_dw_launch_smem_matches_kernel(gen):
+    """The shared memory `sp.bf16_dw_stage_shape` computes for each dW
+    block shape is what the kernel library allocates, within an H100
+    block's 227 KB; shapes the kernel does not take are refused."""
+    lib = _cuda._library('sparse_conv_bf16')
+    fn = lib.ptt_sparse_conv_dw_bf16_smem
+    fn.argtypes = [_cuda.i32, _cuda.i32]
+    fn.restype = _cuda.i32
+    for bm in (64, 128):
+        for bn in (64, 128, 256):
+            smem = sp.bf16_dw_stage_shape(bm, bn)[1]
+            assert fn(bm, bn) == smem <= sp.SMEM_PER_BLOCK
+    assert fn(32, 64) == fn(128, 512) == fn(256, 256) == -1
 
 
 def test_bf16_kernels_round_float32_inputs(gen):
