@@ -71,7 +71,22 @@ Phases (any failure exits non-zero before the final line):
      the float32 rule `dw_launch_shape` on the same calls (under a
      quarter, `[bf16 dW]`), then three AdamW steps from counts of 0
      (B=2), and one B=6 step (the flagship's per-chip batch) for its
-     peak memory.
+     peak memory;
+ 12. runtime: the flagship config through the port's train CLI
+     (`tools/train.py main(argv)`) with `--amp` and the config's
+     `remat=True`, its data swapped by --cfg-options for
+     `SyntheticGroundingDataset` at full scale (100k points, 20 views at
+     480x480; 4 train samples at B=2, 2 val samples): two train steps
+     from launch counts of 0 (the loader's prefetch thread), a
+     checkpoint, val with GroundingMetric; every kernel call of the
+     runner's first step held against its plain version; the saved
+     checkpoint against the runner's state; then `--resume auto` with
+     max_epochs=2 (a spawn pool of two loader workers): the restored
+     parameters, AdamW state and generator equal the saved ones, and one
+     more epoch runs. `[runner]` lines: s/it, data wait and first wait
+     from `train_timing`, a bare `train_step` on the runner's first
+     batch, the losses, the val keys, peak memory beside phase 11's
+     no-remat bf16 step.
 Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
 neck): calls, summed ms, bound, rows multiplied per hit (the bf16
@@ -83,7 +98,10 @@ partials a call.
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, the one before it the kernels' JSON (`launches`:
 device kernels on the main path, the wrapper's calls times the kernels
-a call launches — two for the ball query); the last line is
+a call launches — two for the ball query; the entries named
+`<kernel>:runner` are phase 12's, their launches those of the runner's
+first run and their times those of its first step's calls); the last
+line is
 {"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1022,6 +1040,9 @@ def run() -> int:
     torch.cuda.empty_cache()
     bf16 = bf16_phases(dev)
 
+    # 12. the runtime: the flagship through the port's train CLI
+    runner = runner_phases(bf16['summary'])
+
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
         {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
@@ -1058,12 +1079,18 @@ def run() -> int:
         replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:177')
     kernels.append(anymap)
     kernels.append(summarize('row_gather', probe_rows['row_gather'], 0, 0))
+    for name in RUNNER_KERNELS:
+        entry = summarize(name, runner['rows'][name], runner['counts'][name],
+                          runner['per_step'][name])
+        entry['name'] = f'{name}:runner'
+        kernels.append(entry)
     log(f'[kernel] timings the spin could not hide host time from: '
         f'{NOT_HIDDEN}')
     detail = {'device': smi, 'torch': torch.__version__,
               'request_ms': predict['req_ms'], 'peak_gib': predict['peak'],
               'stage_ms': predict['stages'], 'train': train['summary'],
-              'bf16': bf16['summary'],
+              'bf16': bf16['summary'], 'runner': runner['summary'],
+              'runner_step_calls': runner['rows'],
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -1196,7 +1223,8 @@ def train_phases(model, dev):
     """Phases 7-8: capture one train step's kernel calls and hold them
     against their plain versions, then three AdamW steps."""
     from proxytransformation_torch.engine.train import (
-        build_lr_schedule, build_optimizer, make_train_step, param_label)
+        BASE_LR, build_lr_schedule, build_optimizer, make_train_step,
+        param_label)
 
     # 7. capture one loss and backward
     calls = capture_kernel_calls(lambda: loss_and_backward(model, dev))
@@ -1225,7 +1253,8 @@ def train_phases(model, dev):
     # 8. three AdamW steps, counts from 0
     opt = build_optimizer(model)
     # one step an epoch: the three steps stay before the first milestone
-    step = make_train_step(model, opt, build_lr_schedule(steps_per_epoch=1))
+    step = make_train_step(model, opt,
+                           build_lr_schedule(BASE_LR, steps_per_epoch=1))
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if param_label(n) == 'frozen'}
     before = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -1280,7 +1309,7 @@ def bf16_phases(dev):
     the same seeded weights as the float32 phases."""
     from proxytransformation_torch.data.synthetic import flagship_batch
     from proxytransformation_torch.engine.train import (
-        build_lr_schedule, build_optimizer, make_train_step)
+        BASE_LR, build_lr_schedule, build_optimizer, make_train_step)
     from proxytransformation_torch.models.detector import (
         SparseFeatureFusion3DGrounderPreshape, batch_to_device)
     model = SparseFeatureFusion3DGrounderPreshape(
@@ -1339,7 +1368,7 @@ def bf16_phases(dev):
     require(partials['bf16_dw_launch'] < partials['dw_launch_shape'] / 4,
             f'bf16 dW split partials not under a quarter: {partials}')
     step = make_train_step(model, build_optimizer(model),
-                           build_lr_schedule(steps_per_epoch=1))
+                           build_lr_schedule(BASE_LR, steps_per_epoch=1))
     n_steps = 3
     step_ms, host_ms, losses, train_counts, train_peak = run_steps(
         step, dev, n_steps, 'bf16 train step')
@@ -1404,6 +1433,208 @@ def run_steps(step, dev, n_steps, label, B=2):
             f'loss_cls {m["loss_cls"]:.6f}, loss_bbox {m["loss_bbox"]:.6f}')
     return (step_ms, host_ms, step_losses, _cuda.launch_counts(),
             torch.cuda.max_memory_allocated() / 2**30)
+
+
+FLAGSHIP_CONFIG = 'configs/grounding/proxy-tiblock33-gs12-wbias-ddr0.6-clip.py'
+RUNNER_KERNELS = (*PREDICT_KERNELS, *TRAIN_ONLY, *BF16_KERNELS,
+                  *BF16_TRAIN_ONLY)
+
+
+def runner_argv(work: Path, max_epochs: int, workers: int,
+                resume: bool = False):
+    """The train CLI's arguments for phase 12: the flagship config with
+    --amp, its datasets swapped for full-scale synthetic ones."""
+    ds = dict(type='SyntheticGroundingDataset', n_points=100_000,
+              n_views=20, img_size=480)
+    root = Path(__file__).resolve().parent
+    return ([str(root / FLAGSHIP_CONFIG), '--amp', '--work-dir', str(work)]
+            + (['--resume', 'auto'] if resume else [])
+            + ['--cfg-options',
+               f'train_dataloader.dataset={dict(ds, length=4)!r}',
+               'val_dataloader.dataset='
+               f'{dict(ds, length=2, test_mode=True)!r}',
+               'train_dataloader.batch_size=2',
+               f'train_dataloader.num_workers={workers}',
+               'val_dataloader.num_workers=0',
+               f'train_cfg.max_epochs={max_epochs}', 'train_cfg.val_interval=1',
+               'log_interval=1'])
+
+
+def require_same(got, want, what):
+    """Nested dicts / lists of tensors and values equal, bit for bit."""
+    if isinstance(want, dict):
+        require(isinstance(got, dict) and set(got) == set(want),
+                f'{what}: keys differ')
+        for k in want:
+            require_same(got[k], want[k], f'{what}.{k}')
+    elif isinstance(want, (list, tuple)):
+        require(len(got) == len(want), f'{what}: lengths differ')
+        for i, (g, w) in enumerate(zip(got, want)):
+            require_same(g, w, f'{what}[{i}]')
+    elif isinstance(want, torch.Tensor):
+        require(torch.equal(got.cpu(), want.cpu()), f'{what} differs')
+    else:
+        require(got == want, f'{what}: {got!r} != {want!r}')
+
+
+def runner_state(runner):
+    return {'model': runner.model.state_dict(),
+            'optimizer': runner.optimizer.state_dict(),
+            'generator': runner.generator.get_state(),
+            'step': runner.global_step}
+
+
+def runner_phases(bf16_summary):
+    """Phase 12: the flagship through `tools/train.py main(argv)` with
+    --amp and remat, two steps, a checkpoint and val; the first step's
+    kernel calls checked; then --resume auto for one more epoch."""
+    import shutil
+    from proxytransformation_torch.engine import runner as runner_mod
+    from proxytransformation_torch.engine.checkpoint import (
+        latest_checkpoint, load_checkpoint)
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.tools import train as train_cli
+    work = Path(__file__).resolve().parent / 'build' / 'chip_smoke_runner'
+    shutil.rmtree(work, ignore_errors=True)
+    first = {}
+    make_train_step = runner_mod.make_train_step
+
+    def capturing_make_train_step(model, optimizer, schedule=None):
+        step = make_train_step(model, optimizer, schedule)
+
+        def train_step(batch, generator=None):
+            if first:
+                return step(batch, generator)
+            out = {}
+            first['batch'] = batch
+            first['calls'] = capture_kernel_calls(
+                lambda: out.update(step(batch, generator)))
+            return out
+        return train_step
+
+    runner_mod.make_train_step = capturing_make_train_step
+    try:
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_cli.main(runner_argv(work, 1, 0))
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        runner_mod.make_train_step = make_train_step
+    model = runner.model
+    require(model.remat and model.remat_painting
+            and model.compute_dtype == 'bfloat16',
+            'remat / --amp did not reach the runner\'s model')
+    per_step = {k: len(first['calls'].get(k, ())) for k in RUNNER_KERNELS}
+    log(f'[runner] flagship config, --amp, remat: 2 train steps, a '
+        f'checkpoint and val in {wall:.1f} s; kernel calls of the first '
+        f'step: {per_step}; launches in the run: '
+        f'{ {k: counts[k] for k in RUNNER_KERNELS} }')
+    for name in RUNNER_KERNELS:
+        require(counts[name] > 0, f'{name}: not launched by the runner')
+        require(per_step[name] > 0, f'{name}: not in the runner\'s step')
+    losses = runner.train_log
+    require(len(losses) == 2 and all(
+        np.isfinite(v) for r in losses for v in r.values()),
+        f'runner losses: {losses}')
+    timing = dict(runner.train_timing)
+    results = json.loads((work / 'val_results.json').read_text())
+    require('Overall@0.25' in results and 'Overall@0.5' in results,
+            f'val results: {sorted(results)}')
+
+    # the checkpoint holds the runner's state
+    path = latest_checkpoint(str(work))
+    payload = load_checkpoint(path)
+    require((payload['epoch'], payload['iteration'], payload['step'])
+            == (1, 0, 2), f'checkpoint {path}: epoch {payload["epoch"]}')
+    saved = {k: payload[k] for k in ('model', 'optimizer', 'generator',
+                                     'step')}
+    require_same(runner_state(runner), saved, 'saved checkpoint')
+
+    # a bare train step on the runner's first batch, for comparison
+    bare = make_train_step(model, runner.optimizer, runner.schedule)
+    bare_ms, bare_host_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        bare(first['batch'], runner.generator)
+        end.record()
+        torch.cuda.synchronize()
+        bare_host_ms.append((time.perf_counter() - t1) * 1e3)
+        bare_ms.append(start.elapsed_time(end))
+    log(f'[runner] s/it {timing["iter_s"]:.3f} (2 steps, the first '
+        f'batch\'s wait included), data_wait_s '
+        f'{timing["data_wait_s"]:.4f}, first_wait_s '
+        f'{timing["first_wait_s"]:.3f} (loader: prefetch thread); bare '
+        f'train_step on the runner\'s first batch: '
+        + ', '.join(f'{h:.1f} ms ({d:.1f} ms of CUDA events)'
+                    for h, d in zip(bare_host_ms, bare_ms)))
+    log('[runner] losses: ' + '; '.join(
+        f'step {r["iter"]} total {r["total_loss"]:.5f} grad_norm '
+        f'{r["grad_norm"]:.4f}' for r in losses)
+        + f'; val_results.json keys: {sorted(results)}')
+    log(f'[runner] peak memory {peak:.2f} GiB with remat=True (two B=2 '
+        f'steps, val, checkpoint); phase 11\'s bf16 B=2 step without '
+        f'remat: {bf16_summary["step_peak_gib"]:.2f} GiB')
+
+    # every kernel call of the first step against its plain version
+    with torch.no_grad():
+        rows = check_calls(first['calls'], RUNNER_KERNELS,
+                           'the runner\'s first step')
+    del runner, model, bare, first
+    torch.cuda.empty_cache()
+
+    # --resume auto: one more epoch from the saved state
+    restored = {}
+    resume_from = runner_mod.Runner.resume_from
+
+    def checked_resume_from(self, path):
+        out = resume_from(self, path)
+        require_same(runner_state(self), saved, 'restored state')
+        restored['from'] = path
+        return out
+
+    runner_mod.Runner.resume_from = checked_resume_from
+    try:
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = train_cli.main(runner_argv(work, 2, 2, resume=True))
+        resume_wall = time.perf_counter() - t0
+        resume_counts = _cuda.launch_counts()
+    finally:
+        runner_mod.Runner.resume_from = resume_from
+    require(restored.get('from') == path, 'the runner did not resume')
+    require([(r['epoch'], r['iter']) for r in runner.train_log]
+            == [(1, 1), (1, 2)], f'resumed log: {runner.train_log}')
+    require(runner.global_step == 4, f'step {runner.global_step}')
+    for name in RUNNER_KERNELS:
+        require(resume_counts[name] > 0, f'{name}: not launched on resume')
+    resume_timing = dict(runner.train_timing)
+    log(f'[runner] --resume auto from {Path(path).name}: restored '
+        f'parameters, AdamW state and generator equal the saved ones; '
+        f'epoch 2 (loader: spawn pool of 2 workers) in {resume_wall:.1f} s, '
+        f's/it {resume_timing["iter_s"]:.3f}, data_wait_s '
+        f'{resume_timing["data_wait_s"]:.4f}, first_wait_s '
+        f'{resume_timing["first_wait_s"]:.3f}; losses '
+        + ', '.join(f'{r["total_loss"]:.5f}' for r in runner.train_log))
+    del runner
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    summary = dict(wall_s=wall, timing=timing, bare_step_ms=bare_ms,
+                   bare_step_host_ms=bare_host_ms, losses=losses,
+                   val_results=results, peak_gib=peak,
+                   no_remat_bf16_step_peak_gib=bf16_summary['step_peak_gib'],
+                   per_step=per_step, resume_wall_s=resume_wall,
+                   resume_timing=resume_timing,
+                   resume_counts={k: resume_counts[k]
+                                  for k in RUNNER_KERNELS})
+    return dict(rows=rows, counts=counts, per_step=per_step,
+                summary=summary)
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

@@ -1,12 +1,16 @@
-"""Synthetic indoor scans for smoke runs and benchmarks.
+"""Synthetic indoor scans and grounding samples for smoke runs, tests and
+benchmarks.
 
 The port's own copy of proxytransformation_tpu/data/synthetic.py::
-surface_scene_points / surface_scene_batch (same numpy draws, so the same
-seed gives the same clouds in both packages).
+surface_scene_points / surface_scene_batch / SyntheticGroundingDataset
+(same numpy draws, so the same seed gives the same clouds and samples in
+both packages).
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.registry import DATASETS
 
 
 def surface_scene_points(n_points: int, seed: int = 0,
@@ -101,3 +105,84 @@ def flagship_batch(B: int = 2, n_points: int = 100_000, V: int = 20,
                       'gt_masks': np.ones((B, G), bool),
                       'positive_maps': pm})
     return batch
+
+
+@DATASETS.register_module()
+class SyntheticGroundingDataset:
+    """Grounding samples with the contract of the real pipeline's output
+    (points, multi-view images, text, gt boxes, flags), the JAX package's
+    draws in the same order: the same seed and index give the same
+    sample in both packages. Points are uniform in a 5 m cube plus
+    `n_objects` boxes of points, not surfaces: at 1 cm voxels nearly
+    every voxel is a singleton."""
+
+    def __init__(self, length: int = 32, n_points: int = 4096,
+                 n_views: int = 4, img_size: int = 96, n_objects: int = 4,
+                 seed: int = 0, test_mode: bool = False):
+        self.length = length
+        self.n_points = n_points
+        self.n_views = n_views
+        self.img_size = img_size
+        self.n_objects = n_objects
+        self.seed = seed
+        self.test_mode = test_mode
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx: int) -> dict:
+        rng = np.random.RandomState(self.seed * 100003 + idx)
+        S = self.img_size
+        # objects: boxes with points concentrated inside
+        centers = rng.uniform(0.5, 4.5, (self.n_objects, 3)).astype(np.float32)
+        sizes = rng.uniform(0.3, 0.9, (self.n_objects, 3)).astype(np.float32)
+        angles = np.stack([
+            rng.uniform(-np.pi, np.pi, self.n_objects),
+            np.zeros(self.n_objects), np.zeros(self.n_objects)
+        ], -1).astype(np.float32)
+        boxes = np.concatenate([centers, sizes, angles], -1)
+
+        per_obj = self.n_points // (self.n_objects + 1)
+        pts = [rng.uniform(0, 5.0, (self.n_points - self.n_objects * per_obj,
+                                    3))]
+        for o in range(self.n_objects):
+            local = rng.uniform(-0.5, 0.5, (per_obj, 3)) * sizes[o]
+            c, s = np.cos(angles[o, 0]), np.sin(angles[o, 0])
+            rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+            pts.append(local @ rot.T + centers[o])
+        points = np.concatenate(pts).astype(np.float32)
+
+        target = rng.randint(self.n_objects)
+        names = ['chair', 'table', 'bed', 'sofa', 'lamp', 'desk', 'shelf',
+                 'cabinet']
+        name = names[target % len(names)]
+        text = f'find the {name} in the room'
+        beg = text.find(name)
+
+        imgs = rng.randint(0, 255, (self.n_views, S, S, 3)).astype(np.uint8)
+        proj = np.tile(np.array([[S, 0, S / 2, 0], [0, S, S / 2, 0],
+                                 [0, 0, 1, 0], [0, 0, 0, 1]], np.float32),
+                       (self.n_views, 1, 1))
+        gt = boxes[target:target + 1]
+        return {
+            'points': points,
+            'imgs': imgs.astype(np.float32),
+            'text': text,
+            'tokens_positive': [[[beg, beg + len(name)]]],
+            'gt_bboxes_3d': gt,
+            'gt_labels_3d': np.asarray([target], np.int64),
+            'depth2img': dict(
+                intrinsic=[p[:3, :3] for p in proj],
+                extrinsic=[np.eye(4, dtype=np.float32)] * self.n_views),
+            'scale_factor': None,
+            'pcd_rotation': None,
+            'pcd_scale_factor': None,
+            'pcd_trans': None,
+            'eval_ann_info': {
+                'gt_bboxes_3d': gt,
+                'gt_labels_3d': np.asarray([target], np.int64),
+                'is_hard': bool(idx % 3 == 0),
+                'is_view_dep': bool(idx % 2 == 0),
+                'is_unique': bool(idx % 4 == 0),
+            },
+        }

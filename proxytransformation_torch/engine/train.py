@@ -7,16 +7,19 @@ multipliers (text tower and the 2D stem and stage 1 frozen, decoder
 ×0.1), gradient clipping at norm 10, MultiStep milestones [8, 11] γ=0.1.
 
 The update follows the reference's optax chain element for element, in
-float32: clip_by_global_norm(10) → scale_by_adam → add_decayed_weights →
-scale by -lr. As `optax.multi_transform` masks each group, the clipping
-norm is each group's own, not the global one; the `grad_norm` metric is
-global over every parameter, the frozen ones included. Frozen parameters
+float32: clip_by_global_norm(clip_norm) → scale_by_adam →
+add_decayed_weights(weight_decay) → scale by -lr. The constants below
+are the flagship recipe's; `build_optimizer` and `build_lr_schedule` take
+a config's values in their place (`engine.runner` reads them from it).
+As `optax.multi_transform` masks each group, the clipping norm is each
+group's own, not the global one; the `grad_norm` metric is global over
+every parameter, the frozen ones included. Frozen parameters
 keep `requires_grad` (their gradients enter `grad_norm`) but are not in
 the optimizer, so they stay bit for bit as they are.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,15 +40,19 @@ MILESTONES = (8, 11)
 GAMMA = 0.1
 
 
-def build_lr_schedule(steps_per_epoch: int) -> Schedule:
-    """MultiStep lr by epoch: step → float32 lr, BASE_LR scaled by GAMMA
-    at each of MILESTONES × steps_per_epoch (optax's
-    piecewise_constant_schedule)."""
-    boundaries = sorted({m * steps_per_epoch: GAMMA for m in MILESTONES}
+def build_lr_schedule(base_lr: float, steps_per_epoch: int,
+                      max_epochs: int = 12,
+                      milestones: Sequence[int] = MILESTONES,
+                      gamma: float = GAMMA) -> Schedule:
+    """MultiStep lr by epoch: step → float32 lr, `base_lr` scaled by
+    `gamma` at each of `milestones` × steps_per_epoch (optax's
+    piecewise_constant_schedule; `max_epochs` is kept for the reference
+    signature and bounds nothing)."""
+    boundaries = sorted({m * steps_per_epoch: gamma for m in milestones}
                         .items())
 
     def schedule(step: int) -> float:
-        v = np.float32(BASE_LR)
+        v = np.float32(base_lr)
         for threshold, scale in boundaries:
             if step >= threshold:
                 v = np.float32(scale) * v
@@ -69,15 +76,20 @@ def param_label(name: str) -> str:
 
 class AdamW(torch.optim.Optimizer):
     """optax's clip → adam → decoupled weight decay → -lr chain, per
-    parameter group, with the recipe's constants. Each group holds
-    'lr_mult'; the lr of a step is schedule(count) × lr_mult, count being
-    the number of earlier steps."""
+    parameter group. Each group holds 'lr_mult', 'weight_decay' and
+    'clip_norm' (the recipe's values unless given) and 'lr', the base lr
+    a step takes when no schedule is given; with one, the lr of a step is
+    schedule(count) × lr_mult, count being the number of earlier steps."""
 
-    def __init__(self, param_groups):
-        super().__init__(param_groups, dict(lr_mult=1.0))
+    def __init__(self, param_groups, lr: float = BASE_LR,
+                 weight_decay: float = WEIGHT_DECAY,
+                 clip_norm: float = CLIP_NORM):
+        super().__init__(param_groups, dict(lr=lr, lr_mult=1.0,
+                                            weight_decay=weight_decay,
+                                            clip_norm=clip_norm))
 
     @torch.no_grad()
-    def step(self, schedule: Schedule):
+    def step(self, schedule: Optional[Schedule] = None):
         b1, b2 = BETAS
         for group in self.param_groups:
             params = group['params']
@@ -85,11 +97,18 @@ class AdamW(torch.optim.Optimizer):
                 continue
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
+            clip = group['clip_norm']
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            if not bool(g_norm < CLIP_NORM):
-                grads = [(g / g_norm) * CLIP_NORM for g in grads]
+            if not bool(g_norm < clip):
+                grads = [(g / g_norm) * clip for g in grads]
             count = group.setdefault('count', 0)
-            lr = np.float32(schedule(count)) * np.float32(group['lr_mult'])
+            if schedule is None:
+                # optax: a Python float lr times the multiplier, rounded
+                # to float32 once
+                lr = np.float32(group['lr'] * group['lr_mult'])
+            else:
+                lr = (np.float32(schedule(count))
+                      * np.float32(group['lr_mult']))
             bc1 = 1 - np.float32(b1) ** np.float32(count + 1)
             bc2 = 1 - np.float32(b2) ** np.float32(count + 1)
             for p, g in zip(params, grads):
@@ -101,14 +120,18 @@ class AdamW(torch.optim.Optimizer):
                 nu = (1 - b2) * (g * g) + b2 * st['nu']
                 st['mu'], st['nu'] = mu, nu
                 u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + EPS)
-                u = u + WEIGHT_DECAY * p
+                u = u + group['weight_decay'] * p
                 p.add_(float(-lr) * u)
             group['count'] = count + 1
 
 
-def build_optimizer(model: nn.Module) -> AdamW:
-    """AdamW over the 'default' and 'decoder' groups of `param_label`;
-    the frozen group stays out."""
+def build_optimizer(model: nn.Module, base_lr: float = BASE_LR,
+                    weight_decay: float = WEIGHT_DECAY,
+                    decoder_lr_mult: float = DECODER_LR_MULT,
+                    clip_norm: float = CLIP_NORM) -> AdamW:
+    """AdamW over the 'default' and 'decoder' groups of `param_label`
+    (the decoder's lr × `decoder_lr_mult`); the frozen group stays out.
+    The defaults are the flagship recipe's."""
     groups = {'default': [], 'decoder': []}
     for name, p in model.named_parameters():
         label = param_label(name)
@@ -117,16 +140,17 @@ def build_optimizer(model: nn.Module) -> AdamW:
     return AdamW([{'params': groups['default'], 'name': 'default',
                    'lr_mult': 1.0},
                   {'params': groups['decoder'], 'name': 'decoder',
-                   'lr_mult': DECODER_LR_MULT}])
+                   'lr_mult': decoder_lr_mult}],
+                 lr=base_lr, weight_decay=weight_decay, clip_norm=clip_norm)
 
 
 def make_train_step(model: nn.Module, optimizer: AdamW,
-                    schedule: Schedule) -> Callable:
+                    schedule: Optional[Schedule] = None) -> Callable:
     """train_step(batch, generator=None) → metrics: the losses,
     'total_loss' (their sum) and 'grad_norm' (the global norm of every
     gradient), as float32 scalar tensors; the update takes its lr from
-    `schedule` (`build_lr_schedule`). The loss, its backward and the
-    update run with TF32 off."""
+    `schedule` (`build_lr_schedule`; None: the optimizer's constant base
+    lr). The loss, its backward and the update run with TF32 off."""
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None

@@ -13,6 +13,8 @@ With `dtype` bfloat16 (reference models/decoder.py:30-100) the attention
 projections and the FFN run in bfloat16, the logits and softmax in
 float32 (the softmax cast back), and each residual sum is cast to
 float32; the LayerNorms, position nets and box refinement stay float32.
+`remat` recomputes each decoder layer in the backward (reference
+models/decoder.py:176-177).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from .layers import Conv1x1, dense, linear, matmul_f32
-from .norms import BatchNormParams, layer_norm
+from .norms import BatchNormParams, checkpoint_block, layer_norm
 
 
 class MultiheadAttention(nn.Module):
@@ -132,8 +134,9 @@ class SparseFeatureFusionTransformerDecoder(nn.Module):
 
     def __init__(self, num_layers: int = 6, embed_dims: int = 256,
                  num_heads: int = 8, feedforward_channels: int = 2048,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.self_posembed = PositionEmbeddingLearned(9, embed_dims)
         self.cross_posembed = PositionEmbeddingLearned(3, embed_dims)
         self.norm = layer_norm(embed_dims)
@@ -151,8 +154,10 @@ class SparseFeatureFusionTransformerDecoder(nn.Module):
         key_pos = self.cross_posembed(feats_coords, feats_mask, train)
         for layer in self.layers:
             query_pos = self.self_posembed(pred_bboxes, query_mask, train)
-            query = layer(query, feats, feats, query_pos, key_pos,
-                          feats_padding_mask, text_feats, text_padding_mask)
+            args = (query, feats, feats, query_pos, key_pos,
+                    feats_padding_mask, text_feats, text_padding_mask)
+            query = (checkpoint_block(layer, *args) if self.remat
+                     else layer(*args))
             new_pred = bbox_coder_fn(query_coords, reg_branch_fn(query))
             pred_bboxes = new_pred.detach()
             inter.append(self.norm(query))

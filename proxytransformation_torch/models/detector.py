@@ -61,18 +61,25 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     decoder compute in bfloat16, the neck and the painting keep the
     dtype they are given, and geometry, norm statistics, scores and
     losses stay float32; parameters stay float32. Its sparse convs run
-    the bf16 form of the conv kernels on the card. `remat_painting`
-    recomputes the 2D→3D painting in the backward
-    (`torch.utils.checkpoint`, as `jax.checkpoint` at reference
-    detector.py:202-204); None follows `remat`, which the port does not
-    have yet, so None means False.
+    the bf16 form of the conv kernels on the card.
+
+    `remat` recomputes the 2D ResNet's blocks, MinkResNet's basic blocks
+    and the decoder layers in the backward (`torch.utils.checkpoint`, as
+    `nn.remat` in the reference; the recompute leaves BatchNorm running
+    statistics alone). `remat_painting` does the same for the 2D→3D
+    painting (reference detector.py:202-204); None follows `remat`.
+    `use_xyz_feat=False` voxelizes the point channels after xyz (colour)
+    as features instead of xyz. `t_type` names the text tower: only
+    'clip' is ported.
     """
 
     def __init__(self, num_queries: int = 256, voxel_size: float = 0.01,
+                 use_xyz_feat: bool = True,
                  max_text_len: int = 256, n_points: int = 100_000,
                  img_base_channels: int = 16, img_depth: int = 50,
-                 text_width: int = 768, text_layers: int = 12,
-                 text_heads: int = 12, grid_size: int = 12,
+                 t_type: str = 'clip', text_width: int = 768,
+                 text_layers: int = 12, text_heads: int = 12,
+                 grid_size: int = 12,
                  text_blocks: int = 3, img_blocks: int = 3,
                  dynamic_drop_radio: float = 0.6, num_sub: int = 30,
                  img_spacial_dim: int = 15, backbone3d_depth: int = 34,
@@ -82,23 +89,32 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                  neck_out_channels: int = 256, pts_prune_threshold: int = 1000,
                  decoder_layers: int = 6, embed_dims: int = 256,
                  num_heads: int = 8, ffn_channels: int = 2048,
-                 compute_dtype: str = 'float32',
+                 remat: bool = False, compute_dtype: str = 'float32',
                  remat_painting: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f'compute_dtype must be one of '
                              f'{sorted(_COMPUTE_DTYPES)}, got {compute_dtype!r}')
+        if t_type != 'clip':
+            raise NotImplementedError(
+                f't_type={t_type!r}: only the CLIP text tower is ported; '
+                'the other towers are ROADMAP item 14')
         cdt = _COMPUTE_DTYPES[compute_dtype]
         dev = resolve_device(device)
         self.compute_dtype = compute_dtype
-        self.remat_painting = bool(remat_painting)
+        self.remat = bool(remat)
+        self.remat_painting = (self.remat if remat_painting is None
+                               else bool(remat_painting))
+        self.use_xyz_feat = use_xyz_feat
         self.num_queries = num_queries
         self.voxel_size = voxel_size
         self.n_points = n_points
+        self.max_text_len = max_text_len
         self.voxel_extent = tuple(voxel_extent)
         with torch.device(dev):
-            self.backbone = ResNet(img_depth, img_base_channels, cdt)
+            self.backbone = ResNet(img_depth, img_base_channels, cdt,
+                                   self.remat)
             self.text_encoder = CLIPTextEncoder(width=text_width,
                                                 layers=text_layers,
                                                 heads=text_heads)
@@ -110,14 +126,16 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                 num_sub=num_sub, input_dim=img_base_channels * 32,
                 img_spacial_dim=img_spacial_dim, dtype=cdt)
             self.backbone_3d = MinkResNet(backbone3d_depth, 3,
-                                          sparse_capacities, cdt)
+                                          sparse_capacities, cdt,
+                                          self.remat)
             img_chans = [img_base_channels * 4 * 2 ** i for i in range(4)]
             mink_chans = [64, 128, 256, 512]
             self.neck_3d = MinkNeck(
                 1, tuple(m + i for m, i in zip(mink_chans, img_chans)),
                 neck_out_channels, pts_prune_threshold)
             self.decoder = SparseFeatureFusionTransformerDecoder(
-                decoder_layers, embed_dims, num_heads, ffn_channels, cdt)
+                decoder_layers, embed_dims, num_heads, ffn_channels, cdt,
+                self.remat)
             self.bbox_head = GroundingHead(embed_dims, 9, max_text_len)
         self.eval()
 
@@ -145,7 +163,17 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
         points, points_mask = self.preshape(
             xyz, batch['points_mask'], text_feats, batch['text_mask'],
             img_feats[-1], train, generator)
-        lvl0 = voxelize_points(points, points_mask, points, self.voxel_size,
+        if self.use_xyz_feat:
+            feats = points
+        else:
+            # the point channels after xyz (e.g. colour) as voxel features
+            if batch['points'].shape[-1] <= 3:
+                raise ValueError(
+                    'use_xyz_feat=False needs points with >3 channels '
+                    f'(got {batch["points"].shape[-1]}); keep color '
+                    'channels in the pipeline or set use_xyz_feat=True')
+            feats = batch['points'][..., 3:]
+        lvl0 = voxelize_points(points, points_mask, feats, self.voxel_size,
                                self.n_points, self.voxel_extent)
         levels, self_maps, self_plans = self.backbone_3d(lvl0, train)
 

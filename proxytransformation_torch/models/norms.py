@@ -8,11 +8,47 @@ keeps one method for each so the float32 rounding follows the reference.
 In train mode the first two normalize with batch statistics and update
 the running buffers in place. `torch.nn.BatchNorm*` is not used: its
 running variance is unbiased and its momentum means the other fraction.
+
+`checkpoint_block` is the JAX package's `nn.remat` of a block: its
+backward recomputes the block's forward, and the recompute leaves the
+running statistics as they are, since flax's functional `batch_stats`
+take the update once.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+from typing import Iterator
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen() -> Iterator[None]:
+    """Inside the block, train-mode norms normalize with the batch's
+    statistics but do not update the running ones (the recompute runs on
+    whichever thread runs the backward, and the flag is that thread's)."""
+    saved = getattr(_RECOMPUTE, 'frozen', False)
+    _RECOMPUTE.frozen = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.frozen = saved
+
+
+def checkpoint_block(fn, *args):
+    """`fn(*args)` under `torch.utils.checkpoint` (non-reentrant): its
+    activations are recomputed in the backward, with the running
+    statistics frozen. Without grad mode it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          running_stats_frozen()))
 
 
 class BatchNormParams(nn.Module):
@@ -34,7 +70,10 @@ class BatchNormParams(nn.Module):
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, var: torch.Tensor,
                 momentum: float) -> None:
-        """running = momentum * running + (1 - momentum) * batch stat."""
+        """running = momentum * running + (1 - momentum) * batch stat;
+        nothing inside `running_stats_frozen`."""
+        if getattr(_RECOMPUTE, 'frozen', False):
+            return
         keep = 1.0 - momentum
         self.running_mean.copy_(momentum * self.running_mean + keep * mean)
         self.running_var.copy_(momentum * self.running_var + keep * var)

@@ -34,7 +34,8 @@ def apply_inverse_aug(points: torch.Tensor,
     if pcd_trans is not None:
         p = p - pcd_trans[..., None, :]
     if pcd_scale_factor is not None:
-        p = p / pcd_scale_factor.reshape(*pcd_scale_factor.shape, 1, 1)
+        # one scale a sample, (B,) or the preprocessor's (B, 1)
+        p = p / pcd_scale_factor.reshape(*p.shape[:-2], 1, 1)
     if pcd_rotation is not None:
         p = p @ pcd_rotation.transpose(-1, -2)
     return p

@@ -7,7 +7,8 @@ package; inside, the convolutions run NCHW through
 `torch.nn.functional.conv2d` (the JAX package leaves them to XLA too).
 In `dtype` bfloat16 the input, the convolutions and the activations are
 bfloat16 (reference models/resnet.py:100-125); the folded BatchNorm
-computes in float32 and returns the input's dtype.
+computes in float32 and returns the input's dtype. `remat` recomputes
+each bottleneck block in the backward (reference models/resnet.py:120-121).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norms import BatchNormParams
+from .norms import BatchNormParams, checkpoint_block
 
 
 class _Conv2d(nn.Conv2d):
@@ -74,9 +75,10 @@ class ResNet(nn.Module):
     arch_settings = {50: (3, 4, 6, 3)}
 
     def __init__(self, depth: int = 50, base_channels: int = 16,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.conv1 = _conv(3, base_channels, 7, 2)
         self.bn1 = BatchNormParams(base_channels)
         inpl = base_channels
@@ -95,6 +97,7 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for i in range(4):
-            x = getattr(self, f'layer{i + 1}')(x)
+            for block in getattr(self, f'layer{i + 1}'):
+                x = checkpoint_block(block, x) if self.remat else block(x)
             outs.append(x.permute(0, 2, 3, 1))
         return outs

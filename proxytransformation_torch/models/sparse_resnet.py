@@ -13,7 +13,9 @@ With `dtype` bfloat16 the stem conv still reads the float32 xyz features
 (the float32 kernel); its output is cast to bfloat16 and every later
 conv, norm output and activation is bfloat16 (reference
 models/sparse_resnet.py:254-259), so the stages run the bf16 form of the
-sparse-conv kernels.
+sparse-conv kernels. `remat` recomputes each `SparseBasicBlock` in the
+backward, its running statistics untouched by the recompute (reference
+models/sparse_resnet.py:306-308).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from torch import nn
 
 from ..ops.sparse import (SparseLevel, build_neighbor_map, conv_plan,
                           downsample_coords, sparse_conv, sparse_max_pool)
-from .norms import MaskedBatchNorm, MaskedInstanceNorm
+from .norms import (MaskedBatchNorm, MaskedInstanceNorm,
+                    checkpoint_block)
 
 
 class SparseConv(nn.Module):
@@ -97,10 +100,11 @@ class MinkResNet(nn.Module):
     def __init__(self, depth: int = 34, in_channels: int = 3,
                  capacities: Sequence[int] = (100_000, 80_000, 50_000,
                                               20_000, 6_000, 2_000),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.capacities = tuple(capacities)
         self.dtype = dtype
+        self.remat = remat
         self.stage_blocks = self.arch_settings[depth]
         self.conv1 = SparseConv(in_channels, 64, 27)
         self.norm1 = MaskedInstanceNorm(64)
@@ -135,9 +139,11 @@ class MinkResNet(nn.Module):
             plan_self = conv_plan(nbr_self)
             for j, block in enumerate(getattr(self, f'layer{i + 1}')):
                 first = j == 0
-                x = block(x, new_lvl.mask, nbr_stride3 if first else nbr_self,
-                          nbr_self, nbr_stride1 if first else None, train,
-                          plan_stride3 if first else plan_self, plan_self)
+                args = (x, new_lvl.mask, nbr_stride3 if first else nbr_self,
+                        nbr_self, nbr_stride1 if first else None, train,
+                        plan_stride3 if first else plan_self, plan_self)
+                x = (checkpoint_block(block, *args) if self.remat
+                     else block(*args))
             lvl = new_lvl
             outs.append(lvl._replace(feats=x))
             self_maps.append(nbr_self)

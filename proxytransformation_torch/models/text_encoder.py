@@ -3,11 +3,19 @@
 Counterpart of proxytransformation_tpu/models/text_encoder.py::
 CLIPTextEncoder: token + position embeddings, pre-LN blocks with causal
 and padding attention and quick-GELU MLPs, final LayerNorm. LayerNorms
-use the JAX package's epsilon (1e-6). The tokenizer is not part of this
-module: it takes `input_ids` directly.
+use the JAX package's epsilon (1e-6). The tower takes `input_ids`.
+
+Also here, as in the JAX package (reference :144-279), the host-side
+tokenization: `build_tokenizer` (the CLIP BPE of `data/clip_bpe.py` over
+a local vocab, a local HF tokenizer where transformers is installed, else
+the offline `HashTokenizer`) and `create_positive_map`, numpy only.
 """
 from __future__ import annotations
 
+import re
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -110,3 +118,159 @@ class CLIPTextEncoder(nn.Module):
         for layer in tm.encoder.layers:
             x = layer(x, mask)
         return tm.final_layer_norm(x)
+
+
+# --------------------------------------------------------------------------
+# host-side tokenization
+# --------------------------------------------------------------------------
+class TokenizedBatch:
+    """Mirror of the HF BatchEncoding bits the pipeline needs."""
+
+    def __init__(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                 char_maps: List[List[Optional[int]]]):
+        self.input_ids = input_ids
+        self.attention_mask = attention_mask
+        self._char_maps = char_maps
+
+    def char_to_token(self, batch_idx: int, char_idx: int) -> Optional[int]:
+        cm = self._char_maps[batch_idx]
+        if 0 <= char_idx < len(cm):
+            return cm[char_idx]
+        return None
+
+
+class HashTokenizer:
+    """Deterministic offline tokenizer (fallback when no HF vocab files).
+
+    Word-level split with stable FNV-1a hashing into the CLIP vocab
+    range; BOS/EOS like CLIP. Preserves char→token mapping for
+    positive-map construction.
+    """
+    bos_id = 49406
+    eos_id = 49407
+    pad_id = 0
+
+    def __init__(self, vocab_size: int = 49408, max_length: int = 77):
+        self.vocab_size = vocab_size
+        self.max_length = max_length
+
+    @staticmethod
+    def _hash(word: str, mod: int) -> int:
+        h = 2166136261
+        for ch in word.encode('utf-8'):
+            h = ((h ^ ch) * 16777619) & 0xFFFFFFFF
+        return 1 + h % (mod - 3)  # avoid pad/bos/eos
+
+    @staticmethod
+    def _lower_with_origin(text: str) -> Tuple[str, List[int]]:
+        """text.lower() and the index in `text` of each of its characters
+        (a character such as 'İ' lowers to two; the JAX package indexes
+        the lowered text as if it were the original and then misplaces
+        or, near the end, fails with an IndexError)."""
+        low = text.lower()
+        if len(low) == len(text):
+            return low, list(range(len(text)))
+        orig = [i for i, ch in enumerate(text) for _ in ch.lower()]
+        if len(orig) != len(low):  # lower() of the whole differs per char
+            orig = [min(i, len(text) - 1) for i in range(len(low))]
+        return low, orig
+
+    def __call__(self, texts: Sequence[str]) -> TokenizedBatch:
+        tokenized, char_maps = [], []
+        for text in texts:
+            ids = [self.bos_id]
+            cmap: List[Optional[int]] = [None] * len(text)
+            low, orig = self._lower_with_origin(text)
+            for m in re.finditer(r"\w+|[^\w\s]", low):
+                tid = self._hash(m.group(0), self.vocab_size)
+                if len(ids) >= self.max_length - 1:
+                    break
+                for ci in range(m.start(), m.end()):
+                    cmap[orig[ci]] = len(ids)
+                ids.append(tid)
+            ids.append(self.eos_id)
+            tokenized.append(ids)
+            char_maps.append(cmap)
+        L = max(len(t) for t in tokenized)
+        input_ids = np.full((len(texts), L), self.pad_id, np.int32)
+        attn = np.zeros((len(texts), L), np.int32)
+        for i, t in enumerate(tokenized):
+            input_ids[i, :len(t)] = t
+            attn[i, :len(t)] = 1
+        return TokenizedBatch(input_ids, attn, char_maps)
+
+
+class HFTokenizerWrapper:
+    """Wraps a HuggingFace tokenizer loaded from a local path."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+        self.tok = AutoTokenizer.from_pretrained(path)
+
+    def __call__(self, texts: Sequence[str]) -> TokenizedBatch:
+        enc = self.tok.batch_encode_plus(list(texts), padding='longest',
+                                         truncation=True, return_tensors='np')
+        char_maps = []
+        for i, text in enumerate(texts):
+            cmap: List[Optional[int]] = []
+            for ci in range(len(text)):
+                try:
+                    cmap.append(enc.char_to_token(i, ci))
+                except Exception:
+                    cmap.append(None)
+            char_maps.append(cmap)
+        return TokenizedBatch(np.asarray(enc['input_ids'], np.int32),
+                              np.asarray(enc['attention_mask'], np.int32),
+                              char_maps)
+
+
+def build_tokenizer(path: Optional[str] = None):
+    """Best available tokenizer for a local path.
+
+    Preference order: our pure-python CLIP BPE (exact, offline — see
+    data/clip_bpe.py) when vocab.json+merges.txt exist at `path`, then
+    a HF tokenizer loaded from `path`, then the hash fallback.
+
+    Equivalence scope: the BPE engine reproduces HF CLIPTokenizer's
+    non-ftfy path exactly (incl. NFC, CJK spacing, final-sigma lower —
+    HF-parity tested on unicode inputs); an environment WITH ftfy
+    installed differs only on mojibake/ambiguous-encoding inputs.
+    """
+    if path:
+        import os
+        vj = os.path.join(path, 'vocab.json')
+        mt = os.path.join(path, 'merges.txt')
+        if os.path.exists(vj) and os.path.exists(mt):
+            try:
+                from ..data.clip_bpe import ClipBPETokenizer
+                return ClipBPETokenizer.from_files(vj, mt)
+            except Exception:
+                pass
+        try:
+            return HFTokenizerWrapper(path)
+        except Exception:
+            pass
+    return HashTokenizer()
+
+
+def create_positive_map(tokenized: TokenizedBatch,
+                        tokens_positive: Sequence[Sequence[Tuple[int, int]]],
+                        batch_idx: int,
+                        max_text_len: int = 256) -> np.ndarray:
+    """Box→token association map (reference :796-847): positive_map[i, j]
+    is 1/span for tokens j inside box i's character ranges."""
+    positive_map = np.zeros((len(tokens_positive), max_text_len), np.float32)
+    for j, tok_list in enumerate(tokens_positive):
+        for (beg, end) in tok_list:
+            beg_pos = tokenized.char_to_token(batch_idx, beg)
+            end_pos = tokenized.char_to_token(batch_idx, end - 1)
+            if beg_pos is None:
+                beg_pos = (tokenized.char_to_token(batch_idx, beg + 1)
+                           or tokenized.char_to_token(batch_idx, beg + 2))
+            if end_pos is None:
+                end_pos = (tokenized.char_to_token(batch_idx, end - 2)
+                           or tokenized.char_to_token(batch_idx, end - 3))
+            if beg_pos is None or end_pos is None:
+                continue
+            positive_map[j, beg_pos:end_pos + 1] = 1.0
+    return positive_map / (positive_map.sum(-1, keepdims=True) + 1e-6)

@@ -33,7 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..data.synthetic import flagship_batch
 from ..device import full_float32
-from ..engine.train import (build_lr_schedule, build_optimizer,
+from ..engine.train import (BASE_LR, build_lr_schedule, build_optimizer,
                             make_train_step)
 from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
@@ -53,7 +53,7 @@ def main() -> None:
     model = SparseFeatureFusion3DGrounderPreshape(
         **model_kwargs(args.compute_dtype)).random_init_(0)
     opt = build_optimizer(model)
-    schedule = build_lr_schedule(steps_per_epoch=1)
+    schedule = build_lr_schedule(BASE_LR, steps_per_epoch=1)
     step = make_train_step(model, opt, schedule)
 
     def batch(seed):

@@ -492,7 +492,7 @@ def test_tiny_train_step_card_vs_cpu(gen):
                             torch.from_numpy(np.random.RandomState(seed)
                                              .rand(*shape) < 0.8).to(dev))
         step = make_train_step(model, build_optimizer(model),
-                               build_lr_schedule(steps_per_epoch=1))
+                               build_lr_schedule(BASE_LR, steps_per_epoch=1))
         metrics = step(batch)
         outs.append(({k: float(v) for k, v in metrics.items()},
                      {n: p.grad.detach().cpu()
@@ -820,3 +820,39 @@ def test_bf16_wrappers_refuse_other_types(gen):
     with pytest.raises(ValueError, match='g'):
         sp.sparse_conv_dw_bf16_cuda(feats, nbr, torch.zeros(
             2, 200, 16, dtype=torch.half, device='cuda'))
+
+
+# --------------------------------------------------------------------------
+# the runtime: the Runner on the card
+# --------------------------------------------------------------------------
+def test_runner_tiny_config_card_vs_cpu(gen, tmp_path, monkeypatch):
+    """configs/grounding/synthetic_smoke.py through the Runner for one
+    epoch (4 steps) on the card and on the CPU: the same seeded weights
+    (drawn on the CPU), the same batches and the same dropout masks (one
+    numpy stream per run, injected through `Dropout.draw`); the first
+    step's losses, total and grad norm within the train step's 1e-4
+    relative, every step's finite."""
+    from pathlib import Path
+    from proxytransformation_torch.engine.runner import Runner
+    from proxytransformation_torch.utils.config import Config
+    path = (Path(__file__).resolve().parents[1]
+            / 'configs/grounding/synthetic_smoke.py')
+    logs = {}
+    for device in ('cuda', 'cpu'):
+        masks = np.random.RandomState(0)
+        monkeypatch.setattr(
+            Dropout, 'draw', lambda self, shape, dev, generator, rs=masks:
+            torch.from_numpy(rs.rand(*shape) < 0.8).to(dev))
+        cfg = Config.fromfile(str(path))
+        cfg.merge_from_dict({'train_cfg.val_interval': 99})
+        runner = Runner(cfg, str(tmp_path / device), device=device)
+        runner.train()
+        assert runner.device.type == device
+        logs[device] = runner.train_log
+    assert [r['iter'] for r in logs['cuda']] == [1, 2, 3, 4]
+    for rec in logs['cuda']:
+        assert all(np.isfinite(v) for v in rec.values())
+    got, want = logs['cuda'][0], logs['cpu'][0]
+    for k in ('loss_cls', 'loss_bbox', 'd0.loss_cls', 'd0.loss_bbox',
+              'total_loss', 'grad_norm'):
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) + 1e-6, k
