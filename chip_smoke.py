@@ -86,8 +86,26 @@ Phases (any failure exits non-zero before the final line):
      more epoch runs. `[runner]` lines: s/it, data wait and first wait
      from `train_timing`, a bare `train_step` on the runner's first
      batch, the losses, the val keys, peak memory beside phase 11's
-     no-remat bf16 step.
-Then one `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
+     no-remat bf16 step;
+ 13. the EmbodiedScan data path: every fixture of
+     `tests/torch_port_images/` decoded by the port's host decoder to the
+     sha256 cv2 recorded in its manifest (and the decode of one 640x480
+     JPEG and one 640x480 16-bit PNG timed); a temporary EmbodiedScan
+     tree written from the two fixture views (a ScanNet scan and a
+     Matterport scan with depth in quarter millimetres for its shift of
+     4000; 50 view entries each with distinct poses, 4 boxes each, a vg
+     json with unique, hard and multi-target utterances); the flagship
+     config, as it is but for --amp, the data root and file names, the
+     EMA hook (`custom_hooks`) and the batch and epoch counts, through
+     `tools/train.py main(argv)`: two B=2 steps at 20 views from the
+     files, a checkpoint, val at 50 ordered views; every kernel call of
+     its first step held against its plain version; the checkpoint's EMA
+     weights equal the runner's and restore bit for bit; val and then
+     `tools/test.py` on the checkpoint ran on the EMA weights.
+     `[realdata]` lines: s/it, data wait, first wait, peak memory, and
+     one train sample's host pipeline by stage.
+Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
+`[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
 neck): calls, summed ms, bound, rows multiplied per hit (the bf16
 forward and dfeats count each warpgroup's 64 rows, the bf16 dW each
@@ -100,8 +118,8 @@ nvidia-smi gives them, the one before it the kernels' JSON (`launches`:
 device kernels on the main path, the wrapper's calls times the kernels
 a call launches — two for the ball query; the entries named
 `<kernel>:runner` are phase 12's, their launches those of the runner's
-first run and their times those of its first step's calls); the last
-line is
+first run and their times those of its first step's calls, and
+`<kernel>:realdata` phase 13's in the same way); the last line is
 {"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
@@ -112,6 +130,7 @@ import subprocess
 import sys
 import time
 import types
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -123,8 +142,16 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 CONV_RTOL = 1e-4
 
 
+LOG_PATH = Path(__file__).resolve().parent / 'chiprun_out' / 'chip_smoke.log'
+
+
 def log(msg: str) -> None:
+    """Print a line, and keep it in chiprun_out/chip_smoke.log (the whole
+    run's lines, where the end of the output holds only the last ones)."""
     print(msg, flush=True)
+    LOG_PATH.parent.mkdir(exist_ok=True)
+    with open(LOG_PATH, 'a') as f:
+        f.write(msg + '\n')
 
 
 def require(ok: bool, msg: str) -> None:
@@ -999,6 +1026,7 @@ def run() -> int:
     from proxytransformation_torch.ops import _cuda
 
     t_start = time.perf_counter()
+    LOG_PATH.unlink(missing_ok=True)
     # 1. device
     smi = nvidia_smi_line()
     log(f'[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda}'
@@ -1043,6 +1071,9 @@ def run() -> int:
     # 12. the runtime: the flagship through the port's train CLI
     runner = runner_phases(bf16['summary'])
 
+    # 13. the EmbodiedScan data path: the flagship from JPEG / PNG files
+    realdata = data_path_phases(smi)
+
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
         {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
@@ -1079,11 +1110,12 @@ def run() -> int:
         replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:177')
     kernels.append(anymap)
     kernels.append(summarize('row_gather', probe_rows['row_gather'], 0, 0))
-    for name in RUNNER_KERNELS:
-        entry = summarize(name, runner['rows'][name], runner['counts'][name],
-                          runner['per_step'][name])
-        entry['name'] = f'{name}:runner'
-        kernels.append(entry)
+    for phase, out in (('runner', runner), ('realdata', realdata)):
+        for name in RUNNER_KERNELS:
+            entry = summarize(name, out['rows'][name], out['counts'][name],
+                              out['per_step'][name])
+            entry['name'] = f'{name}:{phase}'
+            kernels.append(entry)
     log(f'[kernel] timings the spin could not hide host time from: '
         f'{NOT_HIDDEN}')
     detail = {'device': smi, 'torch': torch.__version__,
@@ -1091,6 +1123,8 @@ def run() -> int:
               'stage_ms': predict['stages'], 'train': train['summary'],
               'bf16': bf16['summary'], 'runner': runner['summary'],
               'runner_step_calls': runner['rows'],
+              'realdata': realdata['summary'],
+              'realdata_step_calls': realdata['rows'],
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -1477,6 +1511,34 @@ def require_same(got, want, what):
         require(got == want, f'{what}: {got!r} != {want!r}')
 
 
+@contextmanager
+def capturing_first_step(first):
+    """While open, the Runner's train step records the kernel calls of its
+    first call into `first['calls']` (and its batch into
+    `first['batch']`)."""
+    from proxytransformation_torch.engine import runner as runner_mod
+    make_train_step = runner_mod.make_train_step
+
+    def capturing_make_train_step(model, optimizer, schedule=None):
+        step = make_train_step(model, optimizer, schedule)
+
+        def train_step(batch, generator=None):
+            if first:
+                return step(batch, generator)
+            out = {}
+            first['batch'] = batch
+            first['calls'] = capture_kernel_calls(
+                lambda: out.update(step(batch, generator)))
+            return out
+        return train_step
+
+    runner_mod.make_train_step = capturing_make_train_step
+    try:
+        yield
+    finally:
+        runner_mod.make_train_step = make_train_step
+
+
 def runner_state(runner):
     return {'model': runner.model.state_dict(),
             'optimizer': runner.optimizer.state_dict(),
@@ -1497,23 +1559,7 @@ def runner_phases(bf16_summary):
     work = Path(__file__).resolve().parent / 'build' / 'chip_smoke_runner'
     shutil.rmtree(work, ignore_errors=True)
     first = {}
-    make_train_step = runner_mod.make_train_step
-
-    def capturing_make_train_step(model, optimizer, schedule=None):
-        step = make_train_step(model, optimizer, schedule)
-
-        def train_step(batch, generator=None):
-            if first:
-                return step(batch, generator)
-            out = {}
-            first['batch'] = batch
-            first['calls'] = capture_kernel_calls(
-                lambda: out.update(step(batch, generator)))
-            return out
-        return train_step
-
-    runner_mod.make_train_step = capturing_make_train_step
-    try:
+    with capturing_first_step(first):
         _cuda.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1521,8 +1567,6 @@ def runner_phases(bf16_summary):
         wall = time.perf_counter() - t0
         counts = _cuda.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-    finally:
-        runner_mod.make_train_step = make_train_step
     model = runner.model
     require(model.remat and model.remat_painting
             and model.compute_dtype == 'bfloat16',
@@ -1554,7 +1598,8 @@ def runner_phases(bf16_summary):
     require_same(runner_state(runner), saved, 'saved checkpoint')
 
     # a bare train step on the runner's first batch, for comparison
-    bare = make_train_step(model, runner.optimizer, runner.schedule)
+    bare = runner_mod.make_train_step(model, runner.optimizer,
+                                      runner.schedule)
     bare_ms, bare_host_ms = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1633,6 +1678,348 @@ def runner_phases(bf16_summary):
                    resume_timing=resume_timing,
                    resume_counts={k: resume_counts[k]
                                   for k in RUNNER_KERNELS})
+    return dict(rows=rows, counts=counts, per_step=per_step,
+                summary=summary)
+
+
+FIXTURES = 'tests/torch_port_images'
+MATTERPORT_SCAN = 'matterport3d/1mp3d_0000/region0'
+REALDATA_CLASSES = ('cabinet', 'bed', 'chair', 'table')
+N_SCAN_VIEWS = 50
+
+
+def write_png16(path: Path, depth: np.ndarray) -> None:
+    """A 16-bit grayscale PNG (filter type 0 on every row), without cv2."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return (struct.pack('>I', len(data)) + kind + data
+                + struct.pack('>I', zlib.crc32(kind + data)))
+
+    h, w = depth.shape
+    rows = np.zeros((h, 1 + 2 * w), np.uint8)
+    rows[:, 1:] = depth.astype('>u2').view(np.uint8).reshape(h, 2 * w)
+    path.write_bytes(
+        b'\x89PNG\r\n\x1a\n'
+        + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 16, 0, 0, 0, 0))
+        + chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
+        + chunk(b'IEND', b''))
+
+
+def write_embodiedscan_tree(root: Path, fixtures: Path) -> dict:
+    """A two-scan EmbodiedScan tree from the fixture views: infos pkls,
+    vg jsons and, per scan, 50 view entries cycling through the views
+    with distinct poses (2 mm apart along x). The ScanNet scan keeps the
+    depth in millimetres (shift 1000); the Matterport scan holds it in
+    quarter millimetres, its shift being 4000, and its axis alignment is a
+    translation (its boxes are moved by it). Returns the file names."""
+    import pickle
+    import shutil
+    from proxytransformation_torch.data.image_io import imread
+    manifest = json.loads((fixtures / 'manifest.json').read_text())
+    cam2img = np.asarray(manifest['cam2img'], np.float64)
+    boxes = [list(b) for b in manifest['boxes']]
+    boxes.append([0.6, 0.9, 0.4, 1.2, 0.7, 0.8, 0.0, 0.0, 0.0])  # a table
+    align = {'scannet/scene0000_00': np.eye(4), MATTERPORT_SCAN: np.eye(4)}
+    align[MATTERPORT_SCAN][:3, 3] = [0.5, -0.3, 0.0]
+    scans = {}
+    for scan_id, m in align.items():
+        scan_dir = root / 'posed_images' / scan_id.replace('/', '_')
+        scan_dir.mkdir(parents=True)
+        for k, view in enumerate(manifest['views']):
+            shutil.copy(fixtures / view['image'], scan_dir / f'view{k}.jpg')
+            if scan_id == MATTERPORT_SCAN:
+                write_png16(scan_dir / f'depth{k}.png',
+                            imread(str(fixtures / view['depth']), -1) * 4)
+            else:
+                shutil.copy(fixtures / view['depth'],
+                            scan_dir / f'depth{k}.png')
+        images = []
+        for i in range(N_SCAN_VIEWS):
+            k = i % len(manifest['views'])
+            pose = np.asarray(manifest['views'][k]['cam2global'], np.float64)
+            pose[0, 3] += 0.002 * i
+            rel = scan_dir.relative_to(root)
+            images.append({'img_path': str(rel / f'view{k}.jpg'),
+                           'depth_path': str(rel / f'depth{k}.png'),
+                           'cam2global': pose})
+        aligned = [list(np.add(b[:3], m[:3, 3])) + b[3:] for b in boxes]
+        scans[scan_id] = {
+            'sample_idx': scan_id, 'axis_align_matrix': m,
+            'cam2img': cam2img, 'depth_cam2img': cam2img, 'images': images,
+            'instances': [{'bbox_3d': b, 'bbox_label_3d': j + 1,
+                           'bbox_id': j} for j, b in enumerate(aligned)]}
+    categories = {c: j + 1 for j, c in enumerate(REALDATA_CLASSES)}
+
+    def utterances(scan_id, n):
+        both = [
+            {'scan_id': scan_id, 'text': 'the chair next to the bed',
+             'target_id': 2, 'distractor_ids': [],
+             'tokens_positive': [[4, 9]]},                     # unique
+            {'scan_id': scan_id, 'text': 'the cabinet and the table',
+             'target_id': [0, 3], 'distractor_ids': [1, 2, 5, 6],
+             'tokens_positive': [[4, 11], [20, 25]]},          # multi, hard
+            {'scan_id': scan_id, 'text': 'the bed facing the chair',
+             'target_id': 1, 'distractor_ids': [4],
+             'tokens_positive': [[4, 7]]}]
+        return both[:n]
+
+    names = {}
+    for split, n in (('train', 2), ('val', 1)):
+        infos = {'metainfo': {'categories': categories},
+                 'data_list': list(scans.values())}
+        names[split] = (f'embodiedscan_infos_{split}.pkl',
+                        f'embodiedscan_{split}_vg.json')
+        with open(root / names[split][0], 'wb') as f:
+            pickle.dump(infos, f)
+        vg = [u for scan_id in scans for u in utterances(scan_id, n)]
+        (root / names[split][1]).write_text(json.dumps(vg))
+    return names
+
+
+def realdata_argv(config: Path, work: Path, root: Path, names: dict,
+                  checkpoint: str = None):
+    """The train CLI's arguments for phase 13 (with --amp), or the test
+    CLI's for `checkpoint`: the flagship config with the data root and
+    file names of the tree, the EMA hook, B=2 and one epoch."""
+    ema = [dict(type='EMAHook', ema_type='ExpMomentumEMA', momentum=0.0002,
+                gamma=2000)]
+    opts = [f'custom_hooks={ema!r}']
+    loaders = ((('test_dataloader.dataset', 'val'), ) if checkpoint else
+               (('train_dataloader.dataset.dataset', 'train'),
+                ('val_dataloader.dataset', 'val')))
+    for key, split in loaders:
+        opts += [f'{key}.data_root={str(root) + "/"!r}',
+                 f'{key}.ann_file={names[split][0]!r}',
+                 f'{key}.vg_file={names[split][1]!r}']
+    if not checkpoint:
+        opts += ['train_dataloader.batch_size=2', 'train_cfg.max_epochs=1',
+                 'train_cfg.val_interval=1', 'log_interval=1']
+    return ([str(config), checkpoint or '--amp', '--work-dir', str(work),
+             '--cfg-options', *opts])
+
+
+def decode_check(fixtures: Path):
+    """Each fixture decoded to the digest cv2 recorded; decode ms of one
+    640x480 JPEG and one 640x480 16-bit PNG (median of 10)."""
+    import hashlib
+    from proxytransformation_torch.data import image_io
+    t0 = time.perf_counter()
+    image_io.build()
+    build_s = time.perf_counter() - t0
+    manifest = json.loads((fixtures / 'manifest.json').read_text())
+    for f in manifest['files']:
+        flag = (image_io.IMREAD_COLOR if f['flags'] == 'IMREAD_COLOR'
+                else image_io.IMREAD_UNCHANGED)
+        img = image_io.imread(str(fixtures / f['name']), flag)
+        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        require(got == f['sha256'] and list(img.shape) == f['shape']
+                and str(img.dtype) == f['dtype'],
+                f'{f["name"]}: decoded array differs from cv2\'s')
+    ms = {}
+    for kind, name in (('jpeg', 'view0_640x480.jpg'),
+                       ('png', 'depth0_640x480.png')):
+        data = (fixtures / name).read_bytes()
+        t = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            image_io.decode(data, image_io.IMREAD_UNCHANGED)
+            t.append((time.perf_counter() - t0) * 1e3)
+        ms[kind] = float(np.median(t))
+    return len(manifest['files']), build_s, ms
+
+
+def host_pipeline_breakdown(root: Path, names: dict, pipeline, n: int = 3):
+    """ms of one train sample's host pipeline by stage (the median of `n`
+    samples after a warm one), and of the B=2 collate."""
+    from proxytransformation_torch.data import image_io
+    from proxytransformation_torch.data import transforms as tf
+    from proxytransformation_torch.data.dataset import (
+        MultiView3DGroundingDataset)
+    spent = {}
+    patches = [
+        (image_io, 'decode_jpeg', 'jpeg decode'),
+        (image_io, 'decode_png', 'png decode'),
+        (tf, 'depth_to_points', 'depth to points'),
+        (tf, 'resize_bilinear_u8', 'resize'),
+        (tf.PointSample, '__call__', 'point sampling'),
+        (tf.AggregateMultiViewPoints, '__call__', 'aggregation'),
+        (tf.GlobalRotScaleTrans, '__call__', 'augmentation'),
+        (tf.Pack3DDetInputs, '__call__', 'packing')]
+    originals = [getattr(obj, attr) for obj, attr, _ in patches]
+
+    def timed(fn, label):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    for (obj, attr, label), fn in zip(patches, originals):
+        setattr(obj, attr, timed(fn, label))
+    try:
+        ds = MultiView3DGroundingDataset(
+            data_root=str(root) + '/', ann_file=names['train'][0],
+            vg_file=names['train'][1], pipeline=pipeline)
+        rows = []
+        for i in range(n + 1):
+            spent.clear()
+            t0 = time.perf_counter()
+            sample = ds[i % len(ds)]
+            total = time.perf_counter() - t0
+            row = {k: v * 1e3 for k, v in spent.items()}
+            row['other'] = total * 1e3 - sum(row.values())
+            row['total'] = total * 1e3
+            rows.append(row)
+    finally:
+        for (obj, attr, _), fn in zip(patches, originals):
+            setattr(obj, attr, fn)
+    stages = {k: float(np.median([r.get(k, 0.0) for r in rows[1:]]))
+              for k in rows[1]}
+    return stages, sample
+
+
+def data_path_phases(smi):
+    """Phase 13: the flagship config from a tree of JPEG / PNG views, with
+    the EMA hook: decode check, train, val and test through the CLIs, the
+    first step's kernel calls checked, the EMA checkpoint checked."""
+    import shutil
+    import tempfile
+    from proxytransformation_torch.data.preprocessor import (
+        Det3DDataPreprocessor)
+    from proxytransformation_torch.engine import runner as runner_mod
+    from proxytransformation_torch.engine.checkpoint import (
+        latest_checkpoint, load_checkpoint)
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.tools import test as test_cli
+    from proxytransformation_torch.tools import train as train_cli
+    from proxytransformation_torch.utils.config import Config
+    repo = Path(__file__).resolve().parent
+    fixtures = repo / FIXTURES
+    t_phase = time.perf_counter()
+    n_files, build_s, decode_ms = decode_check(fixtures)
+    log(f'[realdata] {n_files} fixtures decode to the sha256 cv2 recorded '
+        f'(decoder library built in {build_s:.1f} s); host decode of one '
+        f'640x480 JPEG {decode_ms["jpeg"]:.2f} ms, one 640x480 16-bit PNG '
+        f'{decode_ms["png"]:.2f} ms ({smi})')
+    data_root = Path(tempfile.mkdtemp(prefix='chip_smoke_embodiedscan_'))
+    work = repo / 'build' / 'chip_smoke_realdata'
+    shutil.rmtree(work, ignore_errors=True)
+    ema_checks = []
+    ema_weights = runner_mod.Runner._ema_weights
+
+    @contextmanager
+    def checked_ema_weights(self):
+        with ema_weights(self):
+            params = dict(self.model.named_parameters())
+            ema_checks.append(self.ema_state is not None and all(
+                torch.equal(p, self.ema_state[n]) for n, p in params.items()))
+            yield
+
+    try:
+        t0 = time.perf_counter()
+        names = write_embodiedscan_tree(data_root, fixtures)
+        log(f'[realdata] wrote a 2-scan EmbodiedScan tree ({N_SCAN_VIEWS} '
+            f'views a scan) in {time.perf_counter() - t0:.1f} s')
+        cfg = Config.fromfile(str(repo / FLAGSHIP_CONFIG))
+        stages, sample = host_pipeline_breakdown(data_root, names,
+                                                 cfg['train_pipeline'])
+        pp = Det3DDataPreprocessor(**{
+            k: v for k, v in cfg['model']['data_preprocessor'].items()
+            if k != 'type'})
+        t0 = time.perf_counter()
+        pp([sample, sample])
+        collate_ms = (time.perf_counter() - t0) * 1e3
+        log('[realdata] host pipeline of one train sample (20 views, ms): '
+            + ', '.join(f'{k} {v:.1f}' for k, v in stages.items())
+            + f'; collate of a B=2 batch {collate_ms:.1f} ({smi})')
+
+        first = {}
+        runner_mod.Runner._ema_weights = checked_ema_weights
+        with capturing_first_step(first):
+            _cuda.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runner = train_cli.main(realdata_argv(
+                repo / FLAGSHIP_CONFIG, work, data_root, names))
+            wall = time.perf_counter() - t0
+            counts = _cuda.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        per_step = {k: len(first['calls'].get(k, ())) for k in RUNNER_KERNELS}
+        for name in RUNNER_KERNELS:
+            require(counts[name] > 0, f'{name}: not launched from the files')
+            require(per_step[name] > 0, f'{name}: not in the first step')
+        model = runner.model
+        require(model.remat and model.compute_dtype == 'bfloat16'
+                and runner.ema is not None,
+                '--amp, remat or the EMA hook did not reach the runner')
+        batch = first['batch']
+        require(tuple(batch['imgs'].shape[:2]) == (2, 20)
+                and tuple(batch['points'].shape[:2]) == (2, model.n_points),
+                f'first batch: imgs {tuple(batch["imgs"].shape)}')
+        losses = runner.train_log
+        require(len(losses) == 2 and all(
+            np.isfinite(v) for r in losses for v in r.values()),
+            f'losses: {losses}')
+        results = json.loads((work / 'val_results.json').read_text())
+        require('Overall@0.25' in results, f'val results: {sorted(results)}')
+        require(ema_checks == [True], f'val on the EMA weights: {ema_checks}')
+        timing = dict(runner.train_timing)
+        log(f'[realdata] flagship config, --amp, EMA hook, from files: 2 '
+            f'steps (B=2, 20 views), a checkpoint and val (50 ordered '
+            f'views) in {wall:.1f} s; s/it {timing["iter_s"]:.3f}, '
+            f'data_wait_s {timing["data_wait_s"]:.4f}, first_wait_s '
+            f'{timing["first_wait_s"]:.3f} (loader: the config\'s '
+            f'{cfg["train_dataloader"]["num_workers"]} spawn workers), peak '
+            f'memory {peak:.2f} GiB ({smi})')
+        log('[realdata] losses: ' + '; '.join(
+            f'step {r["iter"]} total {r["total_loss"]:.5f} grad_norm '
+            f'{r["grad_norm"]:.4f}' for r in losses)
+            + f'; val (on the EMA weights) {sorted(results)}')
+
+        # the checkpoint carries the EMA weights, and a restore gives them
+        path = latest_checkpoint(str(work))
+        saved = load_checkpoint(path)['ema']
+        require(saved is not None and set(saved) == set(runner.ema_state),
+                'the checkpoint holds no EMA weights')
+        require_same(runner.ema_state, saved, 'checkpoint EMA')
+        for e in runner.ema_state.values():
+            e.zero_()
+        runner.resume_from(path)
+        require_same(runner.ema_state, saved, 'restored EMA')
+        moved = sum(not torch.equal(p.detach().cpu(), saved[n])
+                    for n, p in model.named_parameters())
+        require(moved > 0, 'the EMA weights equal the trained weights')
+        log(f'[realdata] {Path(path).name}: {len(saved)} EMA tensors, '
+            f'restored bit for bit; {moved} differ from the trained weights')
+        with torch.no_grad():
+            rows = check_calls(first['calls'], RUNNER_KERNELS,
+                               'the first step from files')
+        del runner, model, first
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        test_cli.main(realdata_argv(repo / FLAGSHIP_CONFIG, work, data_root,
+                                    names, checkpoint=path))
+        test_s = time.perf_counter() - t0
+        dump = json.loads((work / 'test_results.json').read_text())
+        require(ema_checks == [True, True] and len(dump) == 2,
+                f'test: {len(dump)} results, EMA swaps {ema_checks}')
+        log(f'[realdata] tools/test.py on {Path(path).name}: {len(dump)} '
+            f'samples at 50 views on the EMA weights in {test_s:.1f} s; '
+            f'phase 13 in {time.perf_counter() - t_phase:.1f} s')
+    finally:
+        runner_mod.Runner._ema_weights = ema_weights
+        shutil.rmtree(data_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    summary = dict(decode_ms=decode_ms, host_stage_ms=stages,
+                   collate_ms=collate_ms, wall_s=wall, timing=timing,
+                   peak_gib=peak, losses=losses, val_results=results,
+                   per_step=per_step, test_s=test_s)
     return dict(rows=rows, counts=counts, per_step=per_step,
                 summary=summary)
 

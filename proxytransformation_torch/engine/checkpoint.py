@@ -8,7 +8,8 @@ holding one `state.pth` written by `torch.save`: the model's state_dict
 (running statistics included), the AdamW state (each group's `count`,
 lr multiplier, weight decay and clip norm with it), the global `step`,
 the `epoch` to start from, the `iteration` reached inside it (0 at an
-epoch's end) and the dropout generator's state.
+epoch's end), the dropout generator's state and, with the EMA hook, the
+EMA weights (name → tensor; None without the hook).
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ def _ckpt_dir(work_dir: str, step: int) -> str:
 def save_checkpoint(work_dir: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer, step: int, epoch: int,
                     max_keep: int = 2, iteration: int = 0,
-                    generator: Optional[torch.Generator] = None) -> str:
+                    generator: Optional[torch.Generator] = None,
+                    ema: Optional[Dict[str, torch.Tensor]] = None) -> str:
     """Save the train state after `step` optimizer steps and keep the
     newest `max_keep` checkpoints. `iteration` > 0 marks a mid-epoch
     checkpoint: on resume the runner skips that many consumed batches of
@@ -45,6 +47,7 @@ def save_checkpoint(work_dir: str, model: nn.Module,
         'epoch': int(epoch),
         'iteration': int(iteration),
         'generator': None if generator is None else generator.get_state(),
+        'ema': ema,
     }
     tmp = os.path.join(path, _STATE_FILE + '.tmp')
     torch.save(payload, tmp)
@@ -74,15 +77,23 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def restore_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                   payload: Dict[str, Any],
-                  generator: Optional[torch.Generator] = None) -> None:
+                  generator: Optional[torch.Generator] = None,
+                  ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Full resume: the model's parameters and buffers, the optimizer's
-    moments and group values, and the generator's state, in place."""
+    moments and group values, the generator's state and the EMA weights,
+    in place."""
     model.load_state_dict(payload['model'])
     optimizer.load_state_dict(payload['optimizer'])
     if generator is not None:
         if payload.get('generator') is None:
             raise ValueError('the checkpoint holds no generator state')
         generator.set_state(payload['generator'])
+    if ema is not None:
+        if payload.get('ema') is None:
+            raise ValueError('the checkpoint holds no EMA weights')
+        with torch.no_grad():
+            for name, e in ema.items():
+                e.copy_(payload['ema'][name])
 
 
 @torch.no_grad()

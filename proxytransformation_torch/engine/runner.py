@@ -12,10 +12,12 @@ reference's FastResumeIterBasedTrainLoop does, runner/loops.py:19-84).
 The runner runs on one device: `device=None` is the card (raising
 without one, `device.resolve_device`); pass `device='cpu'` for the
 plain PyTorch path. The recipe (lr, weight decay, clip norm, milestones,
-gamma, the decoder's lr multiplier) comes from the config. What the port
-cannot honour raises rather than being dropped: other tasks, the
-baseline grounder, other text towers, TTA, custom hooks (the EMA hook)
-and the EmbodiedScan datasets.
+gamma, the decoder's lr multiplier) comes from the config, and so does
+the EMA hook (`custom_hooks`: `ExpMomentumEMA`, advanced after each
+optimizer step, carried in the checkpoint and swapped in for val and
+test). What the port cannot honour raises rather than being dropped:
+other tasks, the baseline grounder, other text towers, TTA and other
+hooks.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import json
 import logging
 import os
 import time
+from contextlib import contextmanager
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -30,12 +33,13 @@ import torch
 
 from ..data.loader import DataLoader
 from ..data.preprocessor import Det3DDataPreprocessor
-from ..data import synthetic  # noqa: F401  (registers the datasets)
+from ..data import dataset, synthetic  # noqa: F401  (register datasets)
 from ..device import resolve_device
 from ..eval import grounding_metric  # noqa: F401  (registers the metric)
 from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
 from ..models.layers import random_init_
+from ..models.misc import ExpMomentumEMA
 from ..utils.registry import DATASETS, METRICS
 from ..utils.vis_backend import build_vis_backends
 from .checkpoint import (latest_checkpoint, load_checkpoint,
@@ -65,9 +69,9 @@ _NOT_PORTED = {
     'detection': 'detection pretraining is ROADMAP item 12',
     'occupancy': 'occupancy is ROADMAP item 13',
 }
-# the EmbodiedScan datasets of the JAX package's data/dataset.py
-_REAL_DATASETS = ('MultiView3DGroundingDataset', 'EmbodiedScanDataset',
-                  'RepeatDataset')
+# keys of the EMA hook the port honours (`priority` orders hooks, and the
+# port has no other)
+_EMA_HOOK_KEYS = {'type', 'ema_type', 'momentum', 'gamma', 'priority'}
 
 # model-config keys the grounder takes as they are
 _FLAT_KEYS = ('num_queries', 'voxel_size', 'use_xyz_feat', 'n_points',
@@ -177,6 +181,31 @@ def build_model_from_cfg(model_cfg: Dict[str, Any], device=None
     return SparseFeatureFusion3DGrounderPreshape(**kw, device=device)
 
 
+def ema_from_hooks(hooks) -> Optional[ExpMomentumEMA]:
+    """The EMA of `custom_hooks`, as the JAX Runner's `_ema` reads it
+    (engine/runner.py:315-330): `EMAHook` with `ema_type='ExpMomentumEMA'`
+    (or no ema_type) or `ExpMomentumEMA`, with `momentum` and `gamma`.
+    Another hook, another ema_type or a key the port does not take
+    raises."""
+    ema = None
+    for hook in hooks or []:
+        kind = hook.get('type', '')
+        if kind not in ('EMAHook', 'ExpMomentumEMA') \
+                or hook.get('ema_type', 'ExpMomentumEMA') != 'ExpMomentumEMA':
+            raise NotImplementedError(
+                f'custom hook {hook}: the port has the ExpMomentumEMA hook '
+                'only')
+        unknown = sorted(set(hook) - _EMA_HOOK_KEYS)
+        if unknown:
+            raise NotImplementedError(
+                f'custom hook {hook}: keys {unknown} are not honoured')
+        if ema is not None:
+            raise NotImplementedError(f'custom hook {hook}: a second EMA hook')
+        ema = ExpMomentumEMA(momentum=hook.get('momentum', 0.0002),
+                             gamma=hook.get('gamma', 2000))
+    return ema
+
+
 def _recipe(cfg) -> Dict[str, Any]:
     """The optimizer and schedule values of a config (the JAX Runner's
     `_init_state`, engine/runner.py:330-351, plus the decoder's lr
@@ -217,12 +246,10 @@ class Runner:
     def __init__(self, cfg, work_dir: Optional[str] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        hooks = cfg.get('custom_hooks') or []
-        if hooks:
-            raise NotImplementedError(
-                f'custom_hooks {[h.get("type") for h in hooks]}: the port '
-                'has none yet (the EMA hook, models/misc.py::'
-                'ExpMomentumEMA, is ROADMAP item 10.6)')
+        self.ema = ema_from_hooks(cfg.get('custom_hooks'))
+        # name → float32 EMA copy of each parameter (buffers are not
+        # averaged, as in the JAX package)
+        self.ema_state: Optional[Dict[str, torch.Tensor]] = None
         self.work_dir = work_dir or cfg.get('work_dir', './work_dir')
         os.makedirs(self.work_dir, exist_ok=True)
         logging.basicConfig(level=logging.INFO)
@@ -283,11 +310,6 @@ class Runner:
 
     def _build_loader(self, loader_cfg: Dict[str, Any], train: bool):
         ds_cfg = loader_cfg['dataset']
-        if ds_cfg.get('type') in _REAL_DATASETS:
-            raise NotImplementedError(
-                f'{ds_cfg["type"]}: the EmbodiedScan data path is not '
-                'ported yet (ROADMAP item 10.3); give a '
-                'SyntheticGroundingDataset through --cfg-options')
         dataset = DATASETS.build(ds_cfg)
         n_views = self._pipeline_n_views(ds_cfg)
         collate = (self.preprocessor
@@ -331,10 +353,15 @@ class Runner:
 
     def _init_state(self):
         """Seeded weights (drawn on the CPU, so every device starts from
-        the same ones), the config's optimizer and schedule, the dropout
-        generator (seed + 1) and the `load_from` warm start."""
+        the same ones), the EMA copy of them, the config's optimizer and
+        schedule, the dropout generator (seed + 1) and the `load_from`
+        warm start."""
         seed = self.cfg.get('seed', 0)
         random_init_(self.model, torch.Generator().manual_seed(seed))
+        # the EMA starts from the seeded weights, before the warm start, as
+        # the JAX package's create_train_state(with_ema=True) does
+        self.ema_state = None if self.ema is None else {
+            n: p.detach().clone() for n, p in self.model.named_parameters()}
         recipe = _recipe(self.cfg)
         self.schedule = build_lr_schedule(
             recipe['base_lr'], self._steps_per_epoch,
@@ -365,7 +392,8 @@ class Runner:
         iteration) to continue from."""
         logger.info('resuming from %s', path)
         payload = load_checkpoint(path)
-        restore_state(self.model, self.optimizer, payload, self.generator)
+        restore_state(self.model, self.optimizer, payload, self.generator,
+                      self.ema_state)
         self.global_step = payload['step']
         return payload['epoch'], payload['iteration']
 
@@ -395,6 +423,7 @@ class Runner:
                                 'batches of epoch %d', start_iter,
                                 start_epoch)
         step_fn = make_train_step(self.model, self.optimizer, self.schedule)
+        params = dict(self.model.named_parameters())
         self.train_log = []
 
         def _timed(inner):
@@ -423,6 +452,9 @@ class Runner:
                     continue  # fast resume: skip the consumed batches
                 dev_batch, _ = self._split_batch(batch)
                 metrics = step_fn(dev_batch, self.generator)
+                if self.ema is not None:
+                    # the JAX train step passes the step count before it
+                    self.ema.update(self.ema_state, params, self.global_step)
                 self.global_step += 1
                 # metrics are read back (a device sync) only here
                 if (i + 1) % log_interval == 0 or i == 0:
@@ -442,7 +474,8 @@ class Runner:
                     save_checkpoint(self.work_dir, self.model,
                                     self.optimizer, self.global_step, epoch,
                                     max_keep, iteration=i + 1,
-                                    generator=self.generator)
+                                    generator=self.generator,
+                                    ema=self.ema_state)
             self._sync()
             n_done = max(len(loader) - start_iter, 1)
             self.train_timing = {
@@ -453,7 +486,7 @@ class Runner:
             start_iter = 0
             save_checkpoint(self.work_dir, self.model, self.optimizer,
                             self.global_step, epoch + 1, max_keep,
-                            generator=self.generator)
+                            generator=self.generator, ema=self.ema_state)
             if (epoch + 1) % val_interval == 0:
                 self.val(init_state=False)
         return self.model
@@ -479,25 +512,28 @@ class Runner:
         if init_state or self.optimizer is None:
             self._init_state()
             if resume:
-                self.model.load_state_dict(load_checkpoint(resume)['model'])
+                payload = load_checkpoint(resume)
+                self.model.load_state_dict(payload['model'])
+                self._load_ema(payload, resume)
             else:
                 logger.warning(
                     'val() is scoring freshly-initialized random weights '
                     '(no checkpoint given) — pass resume=CKPT or call '
                     'after train() for a meaningful metric')
-        for batch in loader:
-            batch, _ = self._pad_batch(batch, bs)
-            dev_batch, host = self._split_batch(batch)
-            out = {k: v.cpu().numpy()
-                   for k, v in self.model(dev_batch).items()}
-            for b, ann in enumerate(host['eval_ann_info']):
-                metric.process(None, [{
-                    'eval_ann_info': ann,
-                    'pred_instances_3d': {
-                        'bboxes_3d': out['bboxes_3d'][b],
-                        'scores_3d': out['scores_3d'][b],
-                        'target_scores_3d': out['scores_3d'][b]},
-                }])
+        with self._ema_weights():
+            for batch in loader:
+                batch, _ = self._pad_batch(batch, bs)
+                dev_batch, host = self._split_batch(batch)
+                out = {k: v.cpu().numpy()
+                       for k, v in self.model(dev_batch).items()}
+                for b, ann in enumerate(host['eval_ann_info']):
+                    metric.process(None, [{
+                        'eval_ann_info': ann,
+                        'pred_instances_3d': {
+                            'bboxes_3d': out['bboxes_3d'][b],
+                            'scores_3d': out['scores_3d'][b],
+                            'target_scores_3d': out['scores_3d'][b]},
+                    }])
         results = metric.evaluate()
         logger.info('val results: %s',
                     {k: round(v, 4) for k, v in results.items()})
@@ -506,6 +542,42 @@ class Runner:
         with open(os.path.join(self.work_dir, 'val_results.json'), 'w') as f:
             json.dump(results, f)
         return results
+
+    def _load_ema(self, payload: Dict[str, Any], path: str) -> None:
+        """The checkpoint's EMA weights into `ema_state`; a checkpoint
+        saved without the hook leaves its own weights there."""
+        if self.ema_state is None:
+            return
+        src = payload.get('ema')
+        if src is None:
+            logger.warning('%s holds no EMA weights: the EMA hook starts '
+                           'from its parameters', path)
+            src = payload['model']
+        with torch.no_grad():
+            for name, e in self.ema_state.items():
+                e.copy_(src[name])
+
+    @contextmanager
+    def _ema_weights(self):
+        """With the EMA hook, the parameters hold the EMA weights for the
+        duration (mmengine's EMAHook swap, reference ema.py:123-189; the
+        JAX Runner's val, engine/runner.py:553-557); running statistics
+        stay the model's."""
+        if self.ema_state is None:
+            yield
+            return
+        logger.info('validating with EMA-averaged weights')
+        params = dict(self.model.named_parameters())
+        saved = {n: p.detach().clone() for n, p in params.items()}
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(self.ema_state[n])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(saved[n])
 
     def test(self, resume: Optional[str] = None, tta: bool = False):
         return self.val(resume=resume, tta=tta)

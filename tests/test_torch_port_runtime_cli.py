@@ -136,7 +136,11 @@ def test_entry_points_need_a_card_or_device_cpu(tmp_path):
 # import hygiene
 # --------------------------------------------------------------------------
 FORBIDDEN = {'jax', 'flax', 'proxytransformation_tpu', 'regex', 'cv2',
-             'orbax', 'optax'}
+             'orbax', 'optax', 'PIL', 'imageio'}
+# the fixture writer's OpenCV reference: imported in its `main` only, and
+# no module of the runtime imports it
+FIXTURE_TOOL = ('proxytransformation_torch/tools/make_image_fixtures.py',
+                'main')
 # optional packages, each allowed in the one guarded branch that the JAX
 # package also has
 OPTIONAL = {'wandb': ('proxytransformation_torch/utils/vis_backend.py',
@@ -173,6 +177,8 @@ def test_port_imports_no_jax_or_missing_packages():
     for f in files:
         rel = str(f.relative_to(ROOT))
         for mod, scope in _imports(f):
+            if mod == 'cv2' and (rel, scope) == FIXTURE_TOOL:
+                continue
             assert mod not in FORBIDDEN, (rel, mod)
             if mod in OPTIONAL:
                 assert (rel, scope) == OPTIONAL[mod], (rel, scope, mod)
@@ -181,9 +187,15 @@ def test_port_imports_no_jax_or_missing_packages():
 
 
 def test_port_runtime_loads_no_forbidden_module():
+    # the data path too: a JPEG and a PNG view through the host decoder
     code = ('import sys, proxytransformation_torch.tools.train, '
             'proxytransformation_torch.tools.test, '
-            'proxytransformation_torch.tools.eval; '
+            'proxytransformation_torch.tools.eval, '
+            'proxytransformation_torch.tools.make_image_fixtures; '
+            'from proxytransformation_torch.data import image_io; '
+            'image_io.imread("tests/torch_port_images/view0_640x480.jpg"); '
+            'image_io.imread("tests/torch_port_images/depth0_640x480.png", '
+            '-1); '
             'print(sorted({m.split(".")[0] for m in sys.modules}))')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

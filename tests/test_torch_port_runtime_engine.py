@@ -134,10 +134,10 @@ def test_model_builder_drops_nothing(change, error, match):
 
 
 @pytest.mark.parametrize('option,match', [
-    ("custom_hooks=[{'type':'EMAHook','ema_type':'ExpMomentumEMA'}]",
-     'item 10.6'),
+    ("custom_hooks=[{'type':'EMAHook','ema_type':'ExponentialMovingAverage'}]",
+     'ExpMomentumEMA hook only'),
     ("optim_wrapper.optimizer.type='SGD'", 'AdamW only'),
-    ("train_dataloader.dataset.type='RepeatDataset'", 'item 10.3'),
+    ("model.type='Embodied3DDetector'", 'item 12'),
 ])
 def test_runner_raises_on_what_it_cannot_honour(tmp_path, option, match):
     with pytest.raises(NotImplementedError, match=match):
