@@ -103,7 +103,22 @@ Phases (any failure exits non-zero before the final line):
      weights equal the runner's and restore bit for bit; val and then
      `tools/test.py` on the checkpoint ran on the EMA weights.
      `[realdata]` lines: s/it, data wait, first wait, peak memory, and
-     one train sample's host pipeline by stage.
+     one train sample's host pipeline by stage;
+ 14. detection pretraining on phase 13's tree: the detection config
+     (`configs/detection/embodied-det3d-resnet50.py`: 284 classes, 100k
+     points, MinkResNet-34, ResNet-50 at base 16, head 128, prune 1000,
+     its train pipeline at 20 views of 480x480, float32, B=4) as it is
+     but for the data root, the ann files (the train scans listed four
+     times: two steps) and a val loader, which the config lacks (the val
+     split through the train pipeline without its two random
+     augmentations), through `tools/train.py main(argv)`: two steps, a
+     checkpoint (held against the runner's state), val with the batched
+     3D NMS and IndoorDetMetric; every kernel call of the first step held
+     against its plain version (no ball query and no bf16 kernel may
+     run); a bare step on the first batch timed; then `tools/test.py` on
+     the checkpoint. `[detection]` lines: s/it, data wait, first wait,
+     peak memory, the bare step's device time, the losses, val's NMS ms
+     and metric keys, and each kernel's calls, ms and launches.
 Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
 `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
@@ -119,15 +134,18 @@ device kernels on the main path, the wrapper's calls times the kernels
 a call launches — two for the ball query; the entries named
 `<kernel>:runner` are phase 12's, their launches those of the runner's
 first run and their times those of its first step's calls, and
-`<kernel>:realdata` phase 13's in the same way); the last line is
+`<kernel>:realdata` phase 13's and `<kernel>:detection` phase 14's in
+the same way); the last line is
 {"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from contextlib import contextmanager
@@ -1071,8 +1089,14 @@ def run() -> int:
     # 12. the runtime: the flagship through the port's train CLI
     runner = runner_phases(bf16['summary'])
 
-    # 13. the EmbodiedScan data path: the flagship from JPEG / PNG files
-    realdata = data_path_phases(smi)
+    # 13. the EmbodiedScan data path: the flagship from JPEG / PNG files;
+    # 14. detection pretraining on the same files
+    data_root = Path(tempfile.mkdtemp(prefix='chip_smoke_embodiedscan_'))
+    try:
+        realdata = data_path_phases(smi, data_root)
+        detection = detection_phases(smi, data_root, realdata['names'])
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
 
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
@@ -1110,12 +1134,20 @@ def run() -> int:
         replaces='proxytransformation_tpu/ops/sparse_conv_pallas.py:177')
     kernels.append(anymap)
     kernels.append(summarize('row_gather', probe_rows['row_gather'], 0, 0))
-    for phase, out in (('runner', runner), ('realdata', realdata)):
-        for name in RUNNER_KERNELS:
+    for phase, out, names in (('runner', runner, RUNNER_KERNELS),
+                              ('realdata', realdata, RUNNER_KERNELS),
+                              ('detection', detection, DETECTION_KERNELS)):
+        for name in names:
             entry = summarize(name, out['rows'][name], out['counts'][name],
                               out['per_step'][name])
             entry['name'] = f'{name}:{phase}'
             kernels.append(entry)
+    for e in kernels[-len(DETECTION_KERNELS):]:
+        log(f'[detection] kernels line: {e["name"]} {e["wrapper_calls"]} '
+            f'calls in the run ({e["launches"]} launches), '
+            f'{e["calls_checked"]} in the first step summing {e["ms"]:.3f} '
+            f'ms (plain {e["plain_ms"]:.3f} ms, bound {e["bound_ms"]:.4f} '
+            f'ms), max abs err {e["max_abs_err"]:.3g}')
     log(f'[kernel] timings the spin could not hide host time from: '
         f'{NOT_HIDDEN}')
     detail = {'device': smi, 'torch': torch.__version__,
@@ -1125,6 +1157,8 @@ def run() -> int:
               'runner_step_calls': runner['rows'],
               'realdata': realdata['summary'],
               'realdata_step_calls': realdata['rows'],
+              'detection': detection['summary'],
+              'detection_step_calls': detection['rows'],
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -1550,7 +1584,6 @@ def runner_phases(bf16_summary):
     """Phase 12: the flagship through `tools/train.py main(argv)` with
     --amp and remat, two steps, a checkpoint and val; the first step's
     kernel calls checked; then --resume auto for one more epoch."""
-    import shutil
     from proxytransformation_torch.engine import runner as runner_mod
     from proxytransformation_torch.engine.checkpoint import (
         latest_checkpoint, load_checkpoint)
@@ -1715,7 +1748,6 @@ def write_embodiedscan_tree(root: Path, fixtures: Path) -> dict:
     quarter millimetres, its shift being 4000, and its axis alignment is a
     translation (its boxes are moved by it). Returns the file names."""
     import pickle
-    import shutil
     from proxytransformation_torch.data.image_io import imread
     manifest = json.loads((fixtures / 'manifest.json').read_text())
     cam2img = np.asarray(manifest['cam2img'], np.float64)
@@ -1882,12 +1914,11 @@ def host_pipeline_breakdown(root: Path, names: dict, pipeline, n: int = 3):
     return stages, sample
 
 
-def data_path_phases(smi):
-    """Phase 13: the flagship config from a tree of JPEG / PNG views, with
-    the EMA hook: decode check, train, val and test through the CLIs, the
-    first step's kernel calls checked, the EMA checkpoint checked."""
-    import shutil
-    import tempfile
+def data_path_phases(smi, data_root: Path):
+    """Phase 13: the flagship config from a tree of JPEG / PNG views
+    written into `data_root` (and left there for phase 14), with the EMA
+    hook: decode check, train, val and test through the CLIs, the first
+    step's kernel calls checked, the EMA checkpoint checked."""
     from proxytransformation_torch.data.preprocessor import (
         Det3DDataPreprocessor)
     from proxytransformation_torch.engine import runner as runner_mod
@@ -1905,7 +1936,6 @@ def data_path_phases(smi):
         f'(decoder library built in {build_s:.1f} s); host decode of one '
         f'640x480 JPEG {decode_ms["jpeg"]:.2f} ms, one 640x480 16-bit PNG '
         f'{decode_ms["png"]:.2f} ms ({smi})')
-    data_root = Path(tempfile.mkdtemp(prefix='chip_smoke_embodiedscan_'))
     work = repo / 'build' / 'chip_smoke_realdata'
     shutil.rmtree(work, ignore_errors=True)
     ema_checks = []
@@ -2013,13 +2043,215 @@ def data_path_phases(smi):
             f'phase 13 in {time.perf_counter() - t_phase:.1f} s')
     finally:
         runner_mod.Runner._ema_weights = ema_weights
-        shutil.rmtree(data_root, ignore_errors=True)
     torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
     summary = dict(decode_ms=decode_ms, host_stage_ms=stages,
                    collate_ms=collate_ms, wall_s=wall, timing=timing,
                    peak_gib=peak, losses=losses, val_results=results,
                    per_step=per_step, test_s=test_s)
+    return dict(rows=rows, counts=counts, per_step=per_step,
+                summary=summary, names=names)
+
+
+DETECTION_CONFIG = 'configs/detection/embodied-det3d-resnet50.py'
+DETECTION_KERNELS = ('lookup_pmz', 'lookup_center', 'sparse_conv',
+                     'sparse_conv_dfeats', 'sparse_conv_dw')
+# the train split's scans, each listed this many times: two B=4 steps
+DET_REPEATS = 4
+
+
+def detection_argv(config: Path, work: Path, root: Path, names: dict,
+                   checkpoint: str = None):
+    """tools/train.py's arguments for phase 14 (tools/test.py's with
+    `checkpoint`): the detection config as it is but for the data root,
+    the ann files and a val loader, which the config lacks: the val split
+    through the train pipeline without its two random augmentations."""
+    from proxytransformation_torch.utils.config import Config
+    cfg = Config.fromfile(str(config))
+    pipeline = [t for t in cfg['train_pipeline']
+                if t['type'] not in ('GlobalRotScaleTrans', 'RandomFlip3D')]
+    val = dict(batch_size=2, num_workers=0,
+               sampler=dict(type='DefaultSampler', shuffle=False),
+               dataset=dict(type='EmbodiedScanDataset',
+                            data_root=str(root) + '/',
+                            ann_file=names['val'][0],
+                            metainfo=cfg['metainfo'], pipeline=pipeline,
+                            test_mode=True))
+    opts = [f'val_dataloader={val!r}']
+    if not checkpoint:
+        opts += [f'train_dataloader.dataset.data_root={str(root) + "/"!r}',
+                 f'train_dataloader.dataset.ann_file='
+                 f'{names["det_train"]!r}',
+                 'train_cfg.max_epochs=1', 'train_cfg.val_interval=1',
+                 'log_interval=1']
+    return ([str(config)] + ([checkpoint] if checkpoint else [])
+            + ['--work-dir', str(work), '--cfg-options', *opts])
+
+
+def write_detection_ann(root: Path, names: dict) -> None:
+    """The train split's infos with each scan listed DET_REPEATS times
+    (eight samples: two steps at the config's B=4), beside the others."""
+    import pickle
+    with open(root / names['train'][0], 'rb') as f:
+        infos = pickle.load(f)
+    infos['data_list'] = infos['data_list'] * DET_REPEATS
+    names['det_train'] = 'embodiedscan_infos_det_train.pkl'
+    with open(root / names['det_train'], 'wb') as f:
+        pickle.dump(infos, f)
+
+
+@contextmanager
+def timed_nms(record):
+    """While open, the Runner's batched NMS appends its device ms a call
+    (CUDA events) to `record`."""
+    from proxytransformation_torch.engine import runner as runner_mod
+    nms = runner_mod.multiclass_nms
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = nms(*a, **kw)
+        end.record()
+        end.synchronize()
+        record.append(start.elapsed_time(end))
+        return out
+
+    runner_mod.multiclass_nms = timed
+    try:
+        yield
+    finally:
+        runner_mod.multiclass_nms = nms
+
+
+def detection_phases(smi, data_root: Path, names: dict):
+    """Phase 14: the detection config at full width (284 classes, 100k
+    points, MinkResNet-34, ResNet-50 at base 16, head 128, prune 1000, 20
+    views at 480x480, float32, B=4) through the train CLI from phase 13's
+    tree: two steps, val with the batched NMS and IndoorDetMetric, a
+    checkpoint; the first step's kernel calls checked; a bare step timed;
+    then the test CLI on the checkpoint."""
+    from proxytransformation_torch.engine import runner as runner_mod
+    from proxytransformation_torch.engine.checkpoint import (
+        latest_checkpoint, load_checkpoint)
+    from proxytransformation_torch.models.embodied_det3d import (
+        Embodied3DDetector)
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.tools import test as test_cli
+    from proxytransformation_torch.tools import train as train_cli
+    repo = Path(__file__).resolve().parent
+    config = repo / DETECTION_CONFIG
+    work = repo / 'build' / 'chip_smoke_detection'
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    write_detection_ann(data_root, names)
+    first, nms_ms = {}, []
+    with capturing_first_step(first), timed_nms(nms_ms):
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_cli.main(detection_argv(config, work, data_root,
+                                               names))
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    model = runner.model
+    require(isinstance(model, Embodied3DDetector)
+            and model.bbox_head.num_classes == 284
+            and model.n_points == 100_000
+            and model.bbox_head.pts_prune_threshold == 1000,
+            'phase 14 did not build the full detection config')
+    batch = first['batch']
+    require(tuple(batch['imgs'].shape[:4]) == (4, 20, 480, 480)
+            and tuple(batch['points'].shape) == (4, 100_000, 3),
+            f'first batch: imgs {tuple(batch["imgs"].shape)}')
+    per_step = {k: len(first['calls'].get(k, ()))
+                for k in DETECTION_KERNELS}
+    for name in DETECTION_KERNELS:
+        require(counts[name] > 0, f'{name}: not launched by the detector')
+        require(per_step[name] > 0, f'{name}: not in the detector\'s step')
+    for name in ('ball_query', *BF16_KERNELS, *BF16_TRAIN_ONLY):
+        require(counts[name] == 0, f'{name}: launched by the detector')
+    losses = runner.train_log
+    require(len(losses) == 2 and all(
+        np.isfinite(v) for r in losses for v in r.values()),
+        f'detector losses: {losses}')
+    require({'loss_center', 'loss_bbox', 'loss_cls'} <= set(losses[0]),
+            f'detector losses: {sorted(losses[0])}')
+    results = json.loads((work / 'val_results.json').read_text())
+    require({'mAP_0.25', 'mAR_0.25', 'mAP_0.50', 'mAR_0.50'}
+            <= set(results), f'val results: {sorted(results)}')
+    require(len(nms_ms) == 1, f'NMS calls in val: {len(nms_ms)}')
+    timing = dict(runner.train_timing)
+
+    # the checkpoint holds the runner's state
+    path = latest_checkpoint(str(work))
+    payload = load_checkpoint(path)
+    require((payload['epoch'], payload['step']) == (1, 2),
+            f'checkpoint {path}: epoch {payload["epoch"]}')
+    require_same(runner_state(runner),
+                 {k: payload[k] for k in ('model', 'optimizer', 'generator',
+                                          'step')}, 'detector checkpoint')
+
+    # every kernel call of the first step against its plain version
+    with torch.no_grad():
+        rows = check_calls(first['calls'], DETECTION_KERNELS,
+                           'the detector\'s first step')
+
+    # a bare train step on the runner's first batch: device time
+    bare = runner_mod.make_train_step(model, runner.optimizer,
+                                      runner.schedule)
+    step_ms, step_host_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        bare(batch, runner.generator)
+        end.record()
+        torch.cuda.synchronize()
+        step_host_ms.append((time.perf_counter() - t1) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+    log(f'[detection] {DETECTION_CONFIG} (284 classes, 100k points, '
+        f'MinkResNet-34, ResNet-50 base 16, head 128, prune 1000, float32, '
+        f'B=4, 20 views at 480x480) from files: 2 steps, a checkpoint and '
+        f'val in {wall:.1f} s; s/it {timing["iter_s"]:.3f}, data_wait_s '
+        f'{timing["data_wait_s"]:.4f}, first_wait_s '
+        f'{timing["first_wait_s"]:.3f}; peak memory {peak:.2f} GiB ({smi})')
+    log('[detection] bare train step on the first batch: '
+        + ', '.join(f'{h:.1f} ms ({d:.1f} ms of CUDA events)'
+                    for h, d in zip(step_host_ms, step_ms))
+        + '; losses: ' + '; '.join(
+            f'step {r["iter"]} center {r["loss_center"]:.5f} bbox '
+            f'{r["loss_bbox"]:.5f} cls {r["loss_cls"]:.5f} grad_norm '
+            f'{r["grad_norm"]:.4f}' for r in losses))
+    log(f'[detection] val: batched NMS (nms_pre 1000, max_out 256, 284 '
+        f'classes) {nms_ms[0]:.1f} ms of CUDA events for a B=2 batch; '
+        f'IndoorDetMetric keys {len(results)}, the means '
+        + ', '.join(f'{k} {results[k]:.4f}' for k in sorted(results)
+                    if k.startswith('mA')))
+    del runner, model, bare, first, batch
+    torch.cuda.empty_cache()
+
+    test_nms = []
+    t0 = time.perf_counter()
+    with timed_nms(test_nms):
+        tested = test_cli.main(detection_argv(config, work, data_root, names,
+                                              checkpoint=path))
+    test_s = time.perf_counter() - t0
+    require('mAP_0.25' in tested and len(test_nms) == 1,
+            f'test: {sorted(tested)}, NMS calls {len(test_nms)}')
+    log(f'[detection] tools/test.py on {Path(path).name}: mAP_0.25 '
+        f'{tested["mAP_0.25"]:.4f} in {test_s:.1f} s (NMS {test_nms[0]:.1f} '
+        f'ms); phase 14 in {time.perf_counter() - t_phase:.1f} s')
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    summary = dict(wall_s=wall, timing=timing, peak_gib=peak,
+                   bare_step_ms=step_ms, bare_step_host_ms=step_host_ms,
+                   losses=losses, val_results=results, nms_ms=nms_ms,
+                   test_nms_ms=test_nms, test_s=test_s, per_step=per_step,
+                   counts={k: counts[k] for k in DETECTION_KERNELS})
     return dict(rows=rows, counts=counts, per_step=per_step,
                 summary=summary)
 

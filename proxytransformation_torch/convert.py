@@ -3,7 +3,9 @@
 `state_dict_from_jax` is the inverse of the JAX package's
 `converter/torch_weights.py::convert_detector`: it turns a
 `{'params', 'batch_stats'}` tree of arrays back into tensors under the
-upstream key names, for every submodule of the grounder's predict path.
+upstream key names, for every submodule of the grounder's predict path
+and of the detector (`Embodied3DDetector`: backbone, backbone_3d and the
+FCAF3D bbox_head).
 It reads plain nested dicts of arrays; nothing here imports JAX.
 """
 from __future__ import annotations
@@ -105,7 +107,8 @@ def _backbone_3d(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
                  st['downsample_norm'])
 
 
-def _neck(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
+def _fpn_blocks(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
+    """The up and out blocks of MinkNeck and of the FCAF3D head."""
     for i in range(1, _count(p, r'up_block_(\d+)')):
         blk, st, dst = p[f'up_block_{i}'], s[f'up_block_{i}'], f'{pre}up_block_{i}'
         w.put(dst + '.0.kernel', blk['transpose_kernel'])
@@ -116,8 +119,25 @@ def _neck(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
         blk, st, dst = p[f'out_block_{i}'], s[f'out_block_{i}'], f'{pre}out_block_{i}'
         w.me_conv(dst + '.0', blk['conv'])
         w.bn(dst + '.1.bn', blk['norm'], st['norm'])
-    w.put(pre + 'conv_cls.kernel', p['conv_cls']['kernel'])
-    w.put(pre + 'conv_cls.bias', p['conv_cls']['bias'])
+
+
+def _dense(w: _Writer, key: str, p: Tree) -> None:
+    """A flax Dense kept as a 1x1 sparse conv: `kernel` (C, out), `bias`."""
+    w.put(key + '.kernel', p['kernel'])
+    w.put(key + '.bias', p['bias'])
+
+
+def _neck(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
+    _fpn_blocks(w, p, s, pre)
+    _dense(w, pre + 'conv_cls', p['conv_cls'])
+
+
+def _fcaf3d_head(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
+    _fpn_blocks(w, p, s, pre)
+    for name in ('conv_center', 'conv_reg', 'conv_cls'):
+        _dense(w, pre + name, p[name])
+    for i in range(_count(p, r'scale_(\d+)')):
+        w.put(f'{pre}scales.{i}.scale', np.asarray(p[f'scale_{i}'])[0])
 
 
 def _decoder(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
@@ -195,8 +215,9 @@ def _text_encoder(w: _Writer, p: Tree, pre: str) -> None:
 
 def state_dict_from_jax(variables: Mapping[str, Tree]
                         ) -> Dict[str, torch.Tensor]:
-    """`{'params', 'batch_stats'}` of the JAX grounder (arrays) → the
-    port's state_dict; submodules absent from the tree are skipped."""
+    """`{'params', 'batch_stats'}` of the JAX grounder or detector
+    (arrays) → the port's state_dict; submodules absent from the tree are
+    skipped."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
     w = _Writer()
@@ -215,6 +236,9 @@ def state_dict_from_jax(variables: Mapping[str, Tree]
         _neck(w, params['neck_3d'], stats['neck_3d'], 'neck_3d.')
     if 'decoder' in params:
         _decoder(w, params['decoder'], stats['decoder'], 'decoder.')
-    if 'bbox_head' in params:
+    if 'bbox_head' in params and 'conv_center' in params['bbox_head']:
+        _fcaf3d_head(w, params['bbox_head'], stats['bbox_head'],
+                     'bbox_head.')
+    elif 'bbox_head' in params:
         _head(w, params['bbox_head'], 'bbox_head.')
     return w.sd

@@ -1,13 +1,17 @@
 """Runner: config → dataset, model and optimizer → train / val / test loops.
 
 Counterpart of proxytransformation_tpu/engine/runner.py (mmengine's
-Runner in the reference) for the grounding task: `Runner.from_cfg(cfg)`
-builds everything from a python-file config, `train()` runs the epoch
-loop over `engine.train.make_train_step`, `val()` / `test()` run predict
-and the grounding metric. A checkpoint each epoch with rotation,
-auto-resume and fast resume (the loader's order is a function of its
-seed and epoch, so the consumed batches of an epoch are skipped, as the
-reference's FastResumeIterBasedTrainLoop does, runner/loops.py:19-84).
+Runner in the reference) for the grounding and detection tasks:
+`Runner.from_cfg(cfg)` builds everything from a python-file config,
+`train()` runs the epoch loop over `engine.train.make_train_step`,
+`val()` / `test()` run predict and the task's metric (the grounding
+metric; for the detector the batched 3D NMS of the config's `test_cfg`,
+then `IndoorDetMetric`). Fresh weights follow flax's initialisers
+(`models/init.py`), seeded from the config. A checkpoint each epoch
+with rotation, auto-resume and fast resume (the loader's order is a
+function of its seed and epoch, so the consumed batches of an epoch are
+skipped, as the reference's FastResumeIterBasedTrainLoop does,
+runner/loops.py:19-84).
 
 The runner runs on one device: `device=None` is the card (raising
 without one, `device.resolve_device`); pass `device='cpu'` for the
@@ -16,8 +20,8 @@ gamma, the decoder's lr multiplier) comes from the config, and so does
 the EMA hook (`custom_hooks`: `ExpMomentumEMA`, advanced after each
 optimizer step, carried in the checkpoint and swapped in for val and
 test). What the port cannot honour raises rather than being dropped:
-other tasks, the baseline grounder, other text towers, TTA and other
-hooks.
+occupancy, the baseline grounder, other text towers, TTA, other hooks
+and `--amp` on the detector.
 """
 from __future__ import annotations
 
@@ -35,11 +39,13 @@ from ..data.loader import DataLoader
 from ..data.preprocessor import Det3DDataPreprocessor
 from ..data import dataset, synthetic  # noqa: F401  (register datasets)
 from ..device import resolve_device
-from ..eval import grounding_metric  # noqa: F401  (registers the metric)
+from ..eval import grounding_metric, indoor_eval  # noqa: F401  (metrics)
 from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
-from ..models.layers import random_init_
+from ..models.embodied_det3d import Embodied3DDetector
+from ..models.init import flax_init_
 from ..models.misc import ExpMomentumEMA
+from ..ops.nms3d import multiclass_nms
 from ..utils.registry import DATASETS, METRICS
 from ..utils.vis_backend import build_vis_backends
 from .checkpoint import (latest_checkpoint, load_checkpoint,
@@ -66,9 +72,11 @@ _MODEL_TASKS = {
     'DenseFusionOccPredictor': 'occupancy',
 }
 _NOT_PORTED = {
-    'detection': 'detection pretraining is ROADMAP item 12',
     'occupancy': 'occupancy is ROADMAP item 13',
 }
+# the val metric of each task when the config names none
+_DEFAULT_METRIC = {'grounding': 'GroundingMetric',
+                   'detection': 'IndoorDetMetric'}
 # keys of the EMA hook the port honours (`priority` orders hooks, and the
 # port has no other)
 _EMA_HOOK_KEYS = {'type', 'ema_type', 'momentum', 'gamma', 'priority'}
@@ -107,6 +115,35 @@ _FIXED = {
 # sub-config entries checked against what the grounder derives
 _DERIVED = (('neck_3d', 'voxel_size'), ('neck_3d', 'in_channels'))
 
+# the detector's keywords, read as the grounder's are
+_DET_FLAT_KEYS = ('voxel_size', 'n_points', 'num_classes', 'voxel_extent',
+                  'pts_prune_threshold')
+_DET_NESTED_KEYS = {
+    'backbone': {'base_channels': 'img_base_channels', 'depth': 'img_depth'},
+    'backbone_3d': {'depth': 'backbone3d_depth',
+                    'capacities': 'sparse_capacities'},
+    'bbox_head': {'out_channels': 'head_out_channels',
+                  'pts_prune_threshold': 'pts_prune_threshold',
+                  'pts_assign_threshold': 'pts_assign_threshold',
+                  'pts_center_threshold': 'pts_center_threshold'},
+}
+_DET_FIXED = {
+    ('backbone', 'type'): 'ResNet',
+    ('backbone_3d', 'type'): 'MinkResNet',
+    ('backbone_3d', 'in_channels'): 3,
+    ('coord_type', ): 'DEPTH',
+}
+# bbox_head entries checked against the model's own values: type and
+# num_reg_outs choose the rotation parameters, the rest must agree
+_DET_HEAD_CHECKED = ('type', 'num_reg_outs', 'num_classes', 'voxel_size',
+                     'in_channels')
+_HEAD_ROT = {'FCAF3DHead': 'euler', 'FCAF3DHeadRotMat': 'ortho6d'}
+_REG_OUTS_ROT = {9: 'euler', 12: 'ortho6d'}
+# test_cfg keys and defaults (the JAX Runner's val, engine/runner.py:
+# 636-647)
+_TEST_CFG = {'score_thr': 0.01, 'iou_thr': 0.5, 'nms_pre': 1000,
+             'max_out': 256}
+
 
 def apply_amp(cfg) -> None:
     """`--amp`: bfloat16 compute with the painting checkpointed (the
@@ -132,14 +169,95 @@ def _model_task(model_cfg: Dict[str, Any]) -> str:
     return task
 
 
-def build_model_from_cfg(model_cfg: Dict[str, Any], device=None
-                         ) -> SparseFeatureFusion3DGrounderPreshape:
-    """The grounder of a reference-style nested model config (the JAX
-    package's keyword mapping, engine/runner.py:124-181). Every key must
-    reach the model or hold the one value the port has fixed; another
-    key or value raises, so that no knob is dropped silently (the JAX
-    package's own `--amp` once was, engine/runner.py:140-143)."""
-    _model_task(model_cfg)
+def _check_fixed(cfg: Dict[str, Any], fixed: Dict[tuple, Any]) -> None:
+    for key, want in fixed.items():
+        d = cfg
+        for part in key[:-1]:
+            d = d.get(part, {})
+        if key[-1] in d and d[key[-1]] != want:
+            raise NotImplementedError(
+                f'model.{".".join(key)}={d[key[-1]]!r}: the port builds '
+                f'{want!r} only')
+
+
+def _build_detection_model(model_cfg: Dict[str, Any],
+                           device=None) -> Embodied3DDetector:
+    """`Embodied3DDetector` of a detection config
+    (configs/detection/*.py; the JAX package's `_build_detection_model`,
+    engine/runner.py:54-83, which drops unknown keys). Every key must
+    reach the detector, hold its one fixed value or agree with what the
+    detector derives; anything else raises."""
+    cfg = dict(model_cfg)
+    if 'compute_dtype' in cfg or 'remat_painting' in cfg:
+        raise NotImplementedError(
+            'Embodied3DDetector runs in float32 only: the JAX package\'s '
+            'detector has no bfloat16 mode (--amp sets compute_dtype), '
+            'and the port adds no feature the reference lacks')
+    kw: Dict[str, Any] = {k: cfg[k] for k in _DET_FLAT_KEYS if k in cfg}
+    if 'voxel_extent' in kw:
+        kw['voxel_extent'] = tuple(kw['voxel_extent'])
+    unknown = []
+    for sub, table in _DET_NESTED_KEYS.items():
+        for k, v in cfg.get(sub, {}).items():
+            if k in table:
+                if table[k] in kw and kw[table[k]] != v:
+                    raise ValueError(f'model.{sub}.{k}={v!r} differs from '
+                                     f'model.{k}={kw[table[k]]!r}')
+                kw[table[k]] = tuple(v) if k == 'capacities' else v
+            elif (sub, k) not in _DET_FIXED and not (
+                    sub == 'bbox_head' and k in _DET_HEAD_CHECKED):
+                unknown.append(f'{sub}.{k}')
+    _check_fixed(cfg, _DET_FIXED)
+    unknown += [k for k in cfg if k not in {
+        *_DET_FLAT_KEYS, *_DET_NESTED_KEYS, 'type', 'data_preprocessor',
+        'coord_type', 'test_cfg'}]
+    unknown += [f'test_cfg.{k}' for k in cfg.get('test_cfg', {})
+                if k not in _TEST_CFG]
+    if unknown:
+        raise ValueError(f'model config keys the port does not take: '
+                         f'{sorted(unknown)}')
+    head = cfg.get('bbox_head', {})
+    rot = _HEAD_ROT.get(head.get('type', 'FCAF3DHead'))
+    if rot is None:
+        raise NotImplementedError(f'bbox_head.type={head["type"]!r}: the '
+                                  f'port has {sorted(_HEAD_ROT)}')
+    if 'num_reg_outs' in head:
+        by_outs = _REG_OUTS_ROT.get(head['num_reg_outs'])
+        if by_outs is None or (head.get('type') == 'FCAF3DHeadRotMat'
+                               and by_outs != rot):
+            raise ValueError(f'bbox_head.num_reg_outs='
+                             f'{head["num_reg_outs"]!r} with '
+                             f'{head.get("type", "FCAF3DHead")}')
+        rot = by_outs     # 12 outputs are the RotMat head's
+    kw['rot_param'] = rot
+    if 'num_classes' in head and kw.setdefault(
+            'num_classes', head['num_classes']) != head['num_classes']:
+        raise ValueError(f'bbox_head.num_classes={head["num_classes"]!r} '
+                         f'differs from model.num_classes='
+                         f'{kw["num_classes"]!r}')
+    if 'voxel_size' in head and head['voxel_size'] != kw.get('voxel_size',
+                                                             0.01):
+        raise ValueError('bbox_head.voxel_size differs from the model\'s '
+                         'voxel_size, which the head uses')
+    if 'in_channels' in head:
+        base = kw.get('img_base_channels', 16)
+        derived = [m + base * 4 * 2 ** i
+                   for i, m in enumerate((64, 128, 256, 512))]
+        if list(head['in_channels']) != derived:
+            raise ValueError(f'bbox_head.in_channels {head["in_channels"]} '
+                             f'differ from the derived {derived}')
+    return Embodied3DDetector(**kw, device=device)
+
+
+def build_model_from_cfg(model_cfg: Dict[str, Any], device=None):
+    """The grounder or the detector of a reference-style nested model
+    config (the JAX package's keyword mapping, engine/runner.py:54-181).
+    Every key must reach the model or hold the one value the port has
+    fixed; another key or value raises, so that no knob is dropped
+    silently (the JAX package's own `--amp` once was,
+    engine/runner.py:140-143)."""
+    if _model_task(model_cfg) == 'detection':
+        return _build_detection_model(model_cfg, device)
     cfg = dict(model_cfg)
     kw: Dict[str, Any] = {k: cfg[k] for k in _FLAT_KEYS if k in cfg}
     if 'voxel_extent' in kw:
@@ -151,14 +269,7 @@ def build_model_from_cfg(model_cfg: Dict[str, Any], device=None
                 kw[table[k]] = tuple(v) if k == 'capacities' else v
             elif (sub, k) not in _FIXED and (sub, k) not in _DERIVED:
                 unknown.append(f'{sub}.{k}')
-    for key, want in _FIXED.items():
-        d = cfg
-        for part in key[:-1]:
-            d = d.get(part, {})
-        if key[-1] in d and d[key[-1]] != want:
-            raise NotImplementedError(
-                f'model.{".".join(key)}={d[key[-1]]!r}: the port builds '
-                f'{want!r} only')
+    _check_fixed(cfg, _FIXED)
     # keys the runner reads, or that the sub-dicts above carry
     handled = set(_FLAT_KEYS) | set(_NESTED_KEYS) | {
         'type', 'data_preprocessor', 'coord_type'}
@@ -254,11 +365,13 @@ class Runner:
         os.makedirs(self.work_dir, exist_ok=True)
         logging.basicConfig(level=logging.INFO)
 
+        self.task = _model_task(cfg['model'])
         self.model = build_model_from_cfg(cfg['model'], self.device)
         pp_cfg = dict(cfg['model'].get('data_preprocessor', {}))
         pp_cfg.pop('type', None)
         pp_cfg.setdefault('n_points', self.model.n_points)
-        pp_cfg.setdefault('max_text_len', self.model.max_text_len)
+        pp_cfg.setdefault('max_text_len',
+                          getattr(self.model, 'max_text_len', 256))
         self.n_views = cfg.get('n_views', 20)
         self._pp_cfg = pp_cfg
         # train and eval view capacities differ in the reference protocol
@@ -352,12 +465,12 @@ class Runner:
         return out, real
 
     def _init_state(self):
-        """Seeded weights (drawn on the CPU, so every device starts from
-        the same ones), the EMA copy of them, the config's optimizer and
-        schedule, the dropout generator (seed + 1) and the `load_from`
-        warm start."""
+        """Seeded weights by flax's initialisers (drawn on the CPU, so
+        every device starts from the same ones), the EMA copy of them, the
+        config's optimizer and schedule, the dropout generator (seed + 1)
+        and the `load_from` warm start."""
         seed = self.cfg.get('seed', 0)
-        random_init_(self.model, torch.Generator().manual_seed(seed))
+        flax_init_(self.model, torch.Generator().manual_seed(seed))
         # the EMA starts from the seeded weights, before the warm start, as
         # the JAX package's create_train_state(with_ema=True) does
         self.ema_state = None if self.ema is None else {
@@ -501,11 +614,11 @@ class Runner:
             or self.cfg.get('test_dataloader')
         loader = self._build_loader(loader_cfg, train=False)
         self._steps_per_epoch = max(len(loader), 1)
-        metric_cfg = dict(self.cfg.get('val_evaluator',
-                                       {'type': 'GroundingMetric'}))
-        metric_cfg.setdefault('type', 'GroundingMetric')
-        # a leaderboard dump (format_only) goes to the work dir
-        metric_cfg.setdefault('result_dir', self.work_dir)
+        metric_cfg = dict(self.cfg.get('val_evaluator', {}))
+        metric_cfg.setdefault('type', _DEFAULT_METRIC[self.task])
+        if metric_cfg['type'] == 'GroundingMetric':
+            # a leaderboard dump (format_only) goes to the work dir
+            metric_cfg.setdefault('result_dir', self.work_dir)
         metric = METRICS.build(metric_cfg)
 
         bs = loader_cfg.get('batch_size', 1)
@@ -524,16 +637,18 @@ class Runner:
             for batch in loader:
                 batch, _ = self._pad_batch(batch, bs)
                 dev_batch, host = self._split_batch(batch)
-                out = {k: v.cpu().numpy()
-                       for k, v in self.model(dev_batch).items()}
-                for b, ann in enumerate(host['eval_ann_info']):
-                    metric.process(None, [{
-                        'eval_ann_info': ann,
-                        'pred_instances_3d': {
-                            'bboxes_3d': out['bboxes_3d'][b],
-                            'scores_3d': out['scores_3d'][b],
-                            'target_scores_3d': out['scores_3d'][b]},
-                    }])
+                out = self.model(dev_batch)
+                if self.task == 'detection':
+                    preds = self._detections(out)
+                else:
+                    out = {k: v.cpu().numpy() for k, v in out.items()}
+                    preds = [{'bboxes_3d': out['bboxes_3d'][b],
+                              'scores_3d': out['scores_3d'][b],
+                              'target_scores_3d': out['scores_3d'][b]}
+                             for b in range(len(out['bboxes_3d']))]
+                for ann, pred in zip(host['eval_ann_info'], preds):
+                    metric.process(None, [{'eval_ann_info': ann,
+                                           'pred_instances_3d': pred}])
         results = metric.evaluate()
         logger.info('val results: %s',
                     {k: round(v, 4) for k, v in results.items()})
@@ -542,6 +657,19 @@ class Runner:
         with open(os.path.join(self.work_dir, 'val_results.json'), 'w') as f:
             json.dump(results, f)
         return results
+
+    def _detections(self, out: Dict[str, torch.Tensor]):
+        """The detector's outputs through the batched per-class NMS of
+        `test_cfg` (on the device) → per scene {'bboxes_3d', 'scores_3d',
+        'labels_3d'} of the kept boxes, numpy."""
+        test_cfg = dict(_TEST_CFG, **self.cfg['model'].get('test_cfg', {}))
+        nms = multiclass_nms(out['bboxes_3d'], out['scores_3d'], out['mask'],
+                             **test_cfg)
+        boxes, scores, labels, valid = (a.cpu().numpy() for a in nms)
+        return [{'bboxes_3d': boxes[b][valid[b]],
+                 'scores_3d': scores[b][valid[b]],
+                 'labels_3d': labels[b][valid[b]].astype(np.int64)}
+                for b in range(len(valid))]
 
     def _load_ema(self, payload: Dict[str, Any], path: str) -> None:
         """The checkpoint's EMA weights into `ema_state`; a checkpoint

@@ -63,7 +63,8 @@ def build_lr_schedule(base_lr: float, steps_per_epoch: int,
 
 def param_label(name: str) -> str:
     """Parameter group of a state_dict name (reference `_label_params`,
-    :48): 'frozen', 'decoder' or 'default'."""
+    :48): 'frozen' (the text tower, and the 2D stem and stage 1 of the
+    grounder and of the detector alike), 'decoder' or 'default'."""
     if name.startswith('text_encoder.'):
         return 'frozen'
     if name.startswith(('backbone.conv1.', 'backbone.bn1.',
@@ -130,17 +131,17 @@ def build_optimizer(model: nn.Module, base_lr: float = BASE_LR,
                     decoder_lr_mult: float = DECODER_LR_MULT,
                     clip_norm: float = CLIP_NORM) -> AdamW:
     """AdamW over the 'default' and 'decoder' groups of `param_label`
-    (the decoder's lr × `decoder_lr_mult`); the frozen group stays out.
+    (the decoder's lr × `decoder_lr_mult`; the detector has no decoder,
+    and no group without parameters is made); the frozen group stays out.
     The defaults are the flagship recipe's."""
     groups = {'default': [], 'decoder': []}
     for name, p in model.named_parameters():
         label = param_label(name)
         if label != 'frozen':
             groups[label].append(p)
-    return AdamW([{'params': groups['default'], 'name': 'default',
-                   'lr_mult': 1.0},
-                  {'params': groups['decoder'], 'name': 'decoder',
-                   'lr_mult': decoder_lr_mult}],
+    mults = {'default': 1.0, 'decoder': decoder_lr_mult}
+    return AdamW([{'params': groups[g], 'name': g, 'lr_mult': mults[g]}
+                  for g in ('default', 'decoder') if groups[g]],
                  lr=base_lr, weight_decay=weight_decay, clip_norm=clip_norm)
 
 

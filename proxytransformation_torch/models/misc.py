@@ -10,6 +10,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..data.native import fma32
+from ..ops.common import recip32
+
 
 class ExpMomentumEMA:
     """EMA with an exponentially ramped momentum: after optimizer step
@@ -20,13 +23,19 @@ class ExpMomentumEMA:
         self.momentum = momentum
         self.gamma = gamma
 
+    def exponent(self, step: int) -> np.float32:
+        """-(1 + step) / gamma in float32 as the JAX package's jitted
+        train step computes it: XLA folds the division by the constant
+        gamma into a multiplication by its float32 reciprocal."""
+        return np.float32(-(1 + int(step))) * np.float32(recip32(self.gamma))
+
     def momentum_at(self, step: int) -> np.float32:
-        """m in float32, as the JAX package computes it from its int32
-        step (the exponential may differ from XLA's by an ulp)."""
-        one = np.float32(1)
-        t = np.float32(-(1 + int(step))) / np.float32(self.gamma)
-        return ((one - np.float32(self.momentum)) * np.exp(t)
-                + np.float32(self.momentum))
+        """m in float32 as the jitted step computes it: XLA's CPU code
+        multiplies and adds in one fused multiply-add, and its exp is
+        within an ulp of the correctly rounded one taken here."""
+        e = np.float32(np.exp(np.float64(self.exponent(step))))
+        return fma32(np.float32(1 - self.momentum), e,
+                     np.float32(self.momentum))[()]
 
     @torch.no_grad()
     def update(self, ema: Dict[str, torch.Tensor],

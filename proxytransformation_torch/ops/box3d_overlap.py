@@ -1,13 +1,17 @@
 """Exact IoU of oriented 9-DoF 3D boxes.
 
 Counterpart of proxytransformation_tpu/ops/box3d_overlap.py (the
-Hungarian matcher's IoU cost). Each box is 6 half-spaces; every vertex of
+Hungarian matcher's IoU cost, the detector's rotated-IoU loss, 3D NMS and
+the detection metric). Each box is 6 half-spaces; every vertex of
 the intersection polytope is the intersection of 3 of the 12 planes, so
 the 160 triples that hold no two opposite faces of one box are solved
 with Cramer's rule and the feasible ones kept. The volume follows from
 the divergence theorem, V = (1/3) Σ_faces b_i · Area_i, each face polygon
 being the feasible vertices on plane i sorted by angle. float32
-throughout, on whatever device the boxes are.
+throughout, on whatever device the boxes are, and differentiable through
+autograd (the vertex solve, the angular sort's gathers, the shoelace).
+Many pairs run in chunks of PAIR_CHUNK pairs: 3D NMS over 1000 candidates
+is 10⁶ pairs, tens of GB of intermediates at once.
 """
 from __future__ import annotations
 
@@ -130,24 +134,61 @@ def _pairs_intersection_volume(boxes1: torch.Tensor, boxes2: torch.Tensor,
 
     vol = torch.sum(torch.where(is_dup, torch.zeros_like(area), b * area),
                     dim=1) / 3.0
-    return torch.clamp(vol, min=0.0)
+    # jnp.maximum's gradient (halved at a tie), not clamp's
+    return torch.maximum(vol, vol.new_zeros(()))
 
 
-def _iou(flat1: torch.Tensor, flat2: torch.Tensor, eps: float):
-    inter = _pairs_intersection_volume(flat1, flat2, eps)
-    v1 = torch.prod(flat1[:, 3:6].abs(), dim=-1)
-    v2 = torch.prod(flat2[:, 3:6].abs(), dim=-1)
-    return torch.clamp(inter / torch.clamp(v1 + v2 - inter, min=1e-8),
-                       0.0, 1.0)
+# pairs a chunk: each pair's intermediates are a few (12, 160) planes by
+# vertex candidates, ~0.1 MB; pairs are independent, so chunking changes
+# no value
+PAIR_CHUNK = 16384
+
+
+def pairs_intersection_volume(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                              eps: float = 1e-4) -> torch.Tensor:
+    """`_pairs_intersection_volume` over the pair axis in chunks of
+    PAIR_CHUNK (differentiable: the chunks are concatenated)."""
+    P = boxes1.shape[0]
+    if P <= PAIR_CHUNK:
+        return _pairs_intersection_volume(boxes1, boxes2, eps)
+    return torch.cat([
+        _pairs_intersection_volume(boxes1[i:i + PAIR_CHUNK],
+                                   boxes2[i:i + PAIR_CHUNK], eps)
+        for i in range(0, P, PAIR_CHUNK)])
+
+
+def _pair_intersection_volume(box1: torch.Tensor, box2: torch.Tensor,
+                              eps: float) -> torch.Tensor:
+    """Intersection volume of two (9,) boxes."""
+    return _pairs_intersection_volume(box1[None], box2[None], eps)[0]
+
+
+def box3d_intersection_volume(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                              eps: float = 1e-4) -> torch.Tensor:
+    """Pairwise intersection volumes: (N, 9) × (M, 9) → (N, M), a chunk
+    of rows at a time so that at most ~PAIR_CHUNK pairs are expanded."""
+    N, M = boxes1.shape[0], boxes2.shape[0]
+    b1, b2 = boxes1.float(), boxes2.float()
+    rows = max(1, PAIR_CHUNK // max(M, 1))
+    out = []
+    for i in range(0, N, rows):
+        r = b1[i:i + rows]
+        n = r.shape[0]
+        out.append(_pairs_intersection_volume(
+            r[:, None, :].expand(n, M, 9).reshape(-1, 9),
+            b2[None].expand(n, M, 9).reshape(-1, 9), eps).reshape(n, M))
+    return torch.cat(out) if out else b1.new_zeros((0, M))
 
 
 def box3d_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
               eps: float = 1e-4) -> torch.Tensor:
     """Exact pairwise IoU: (N, 9) × (M, 9) → (N, M)."""
-    N, M = boxes1.shape[0], boxes2.shape[0]
-    b1 = boxes1.float()[:, None, :].expand(N, M, 9).reshape(-1, 9)
-    b2 = boxes2.float()[None, :, :].expand(N, M, 9).reshape(-1, 9)
-    return _iou(b1, b2, eps).reshape(N, M)
+    b1, b2 = boxes1.float(), boxes2.float()
+    inter = box3d_intersection_volume(b1, b2, eps)
+    v1 = torch.prod(b1[:, 3:6].abs(), dim=-1)
+    v2 = torch.prod(b2[:, 3:6].abs(), dim=-1)
+    union = v1[:, None] + v2[None, :] - inter
+    return torch.clamp(inter / torch.clamp(union, min=1e-8), 0.0, 1.0)
 
 
 def box3d_iou_aligned(boxes1: torch.Tensor, boxes2: torch.Tensor,
@@ -157,4 +198,9 @@ def box3d_iou_aligned(boxes1: torch.Tensor, boxes2: torch.Tensor,
     shape = torch.broadcast_shapes(boxes1.shape[:-1], boxes2.shape[:-1])
     flat1 = boxes1.float().expand(*shape, 9).reshape(-1, 9)
     flat2 = boxes2.float().expand(*shape, 9).reshape(-1, 9)
-    return _iou(flat1, flat2, eps).reshape(shape)
+    inter = pairs_intersection_volume(flat1, flat2, eps)
+    v1 = torch.prod(flat1[:, 3:6].abs(), dim=-1)
+    v2 = torch.prod(flat2[:, 3:6].abs(), dim=-1)
+    iou = torch.clamp(inter / torch.clamp(v1 + v2 - inter, min=1e-8),
+                      0.0, 1.0)
+    return iou.reshape(shape)

@@ -2,7 +2,8 @@
 convention).
 
 Counterpart of proxytransformation_tpu/structures/rotation.py::
-euler_angles_to_matrix, ::ortho_6d_to_matrix and ::matrix_to_euler_angles.
+euler_angles_to_matrix, ::ortho_6d_to_matrix, ::matrix_to_euler_angles
+and ::rotation_3d_in_euler.
 """
 from __future__ import annotations
 
@@ -53,3 +54,20 @@ def ortho_6d_to_matrix(x_raw: torch.Tensor, y_raw: torch.Tensor
     z = normalize(torch.linalg.cross(x_raw, y, dim=-1))
     x = torch.linalg.cross(y, z, dim=-1)
     return torch.stack([x, y, z], dim=-1)
+
+
+def rotation_3d_in_euler(points: torch.Tensor, angles: torch.Tensor,
+                         return_mat: bool = False):
+    """Rotate point sets by per-set ZXY euler angles: points (N, M, 3) (or
+    (M, 3), one set), angles (N, 3) (or (3,)) → (N, M, 3) = points @ Rᵀ;
+    with `return_mat` also Rᵀ."""
+    batch_free = points.ndim == 2
+    if batch_free:
+        points = points[None]
+    if angles.ndim == 1:
+        angles = angles.expand(points.shape[0], 3)
+    rot_mat_t = euler_angles_to_matrix(angles, 'ZXY').transpose(-2, -1)
+    out = points @ rot_mat_t
+    if batch_free:
+        out, rot_mat_t = out[0], rot_mat_t[0]
+    return (out, rot_mat_t) if return_mat else out

@@ -15,8 +15,10 @@ _make_mini_dataset`, files written by cv2) plus a matterport scan
   multiply-adds of `transform_points` included. Boxes that went through
   `box_transform` / `box_flip` (float32 torch here, XLA there) and colors
   sampled at projected pixels are held within BOX_TOL;
-- `ExpMomentumEMA` against the JAX package's over several steps, within
-  EMA_RTOL (float32 `exp` of numpy against XLA's may differ by an ulp);
+- `ExpMomentumEMA` against the JAX package's update under `jax.jit` (the
+  form its Runner runs) over several steps, within EMA_RTOL, and its
+  momentum at every step of 0-19999: the exponent bit for bit, m within
+  EMA_ULPS (float32 `exp` of numpy against XLA's may differ by an ulp);
 - the port's Runner trains an epoch, validates on the EMA weights,
   checkpoints them, resumes them bit for bit and tests, through the CLIs,
   on the CPU.
@@ -27,6 +29,7 @@ import logging
 import os
 import pickle
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +57,7 @@ from test_realdata_e2e import _CFG, _make_mini_dataset
 # float32 box rotations composed by torch here and by XLA there
 BOX_TOL = dict(rtol=1e-5, atol=1e-6)
 EMA_RTOL = 1e-6
+EMA_ULPS = 1
 MATTERPORT = 'matterport3d/17DRP5sb8fy/region0'
 EMA_HOOK = ("custom_hooks = [dict(type='EMAHook', ema_type='ExpMomentumEMA',"
             " momentum=0.0002, gamma=2000)]\n")
@@ -358,6 +362,12 @@ def test_samples_and_batches_equal_jax(root, test_mode):
 # --------------------------------------------------------------------------
 # the EMA hook
 # --------------------------------------------------------------------------
+def _jitted_jax_update(ref):
+    """The JAX package's EMA update under `jax.jit`, as its Runner's
+    jitted train step runs it (the step an int32 array)."""
+    return jax.jit(lambda e, p, s: ref.update(e, p, s))
+
+
 def test_ema_update_matches_jax():
     rng = np.random.RandomState(0)
     shapes = {'a': (3, 4), 'b': (7, ), 'c': (2, 2, 2)}
@@ -367,22 +377,37 @@ def test_ema_update_matches_jax():
     # port's in-place update would then change under the JAX side
     ema_j = {k: jnp.asarray(v.numpy().copy()) for k, v in ema_t.items()}
     port, ref = ExpMomentumEMA(0.0002, 2000), JaxEMA(0.0002, 2000)
+    update = _jitted_jax_update(ref)
     for step in (0, 1, 2, 7, 1999, 20000):
         params = {k: rng.randn(*s).astype(np.float32)
                   for k, s in shapes.items()}
         port.update(ema_t, {k: torch.from_numpy(v)
                             for k, v in params.items()}, step)
-        ema_j = ref.update(ema_j, {k: jnp.asarray(v)
-                                   for k, v in params.items()},
-                           jnp.asarray(step, jnp.int32))
+        ema_j = update(ema_j, {k: jnp.asarray(v) for k, v in params.items()},
+                       jnp.asarray(step, jnp.int32))
         for k in shapes:
             np.testing.assert_allclose(ema_t[k].numpy(), np.asarray(ema_j[k]),
                                        rtol=EMA_RTOL, atol=EMA_RTOL)
-        np.testing.assert_allclose(
-            port.momentum_at(step),
-            np.asarray((1 - 0.0002) * jnp.exp(
-                -(1 + jnp.asarray(step, jnp.int32)) / 2000) + 0.0002),
-            rtol=EMA_RTOL)
+
+
+def test_ema_momentum_matches_the_jitted_jax_step_at_every_step():
+    """Steps 0-19999 at gamma 2000: the exponent bit for bit with the
+    jitted JAX expression (its division folded into a multiplication by
+    the float32 reciprocal), and m within one ulp of the jitted JAX m
+    (EMA_ULPS: XLA's CPU exp is another polynomial than numpy's). m is
+    read from the jitted update itself: ema 0 moved towards 1 is m."""
+    port, ref = ExpMomentumEMA(0.0002, 2000), JaxEMA(0.0002, 2000)
+    steps = jnp.arange(20000, dtype=jnp.int32)
+    exponent = jax.jit(jax.vmap(lambda s: -(1 + s) / ref.gamma))(steps)
+    m_jax = jax.jit(jax.vmap(lambda s: ref.update(
+        {'m': jnp.float32(0)}, {'m': jnp.float32(1)}, s)['m']))(steps)
+    exponent, m_jax = np.asarray(exponent), np.asarray(m_jax)
+    assert exponent.dtype == np.float32 and m_jax.dtype == np.float32
+    got_t = np.array([port.exponent(s) for s in range(20000)], np.float32)
+    got_m = np.array([port.momentum_at(s) for s in range(20000)], np.float32)
+    np.testing.assert_array_equal(got_t, exponent)
+    ulps = np.abs(got_m - m_jax) / np.spacing(m_jax)
+    assert ulps.max() <= EMA_ULPS, (ulps.max(), int(np.argmax(ulps)))
 
 
 @pytest.mark.parametrize('hooks,match', [

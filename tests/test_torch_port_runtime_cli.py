@@ -29,7 +29,7 @@ from proxytransformation_torch.engine.runner import (
 from proxytransformation_torch.engine.train import (
     build_lr_schedule, build_optimizer, make_train_step)
 from proxytransformation_torch.models.detector import batch_to_device
-from proxytransformation_torch.models.layers import random_init_
+from proxytransformation_torch.models.init import flax_init_
 from proxytransformation_torch.tools import eval as teval
 from proxytransformation_torch.tools import test as ttest
 from proxytransformation_torch.tools import train as ttrain_cli
@@ -63,7 +63,7 @@ def test_runner_trains_validates_and_matches_the_train_step(tmp_path):
     loader.set_epoch(0)
     first = next(iter(loader))
     model = build_model_from_cfg(cfg['model'], 'cpu')
-    random_init_(model, torch.Generator().manual_seed(cfg['seed']))
+    flax_init_(model, torch.Generator().manual_seed(cfg['seed']))
     opt = build_optimizer(model, base_lr=1e-4)
     step = make_train_step(model, opt, build_lr_schedule(1e-4, len(loader)))
     want = step(batch_to_device({k: v for k, v in first.items()

@@ -6,7 +6,8 @@ checkpoints and resume.
   recompute must not update the running statistics a second time), and
   with remat each checkpointed block runs its forward twice.
 - The model builder and the Runner raise on what the port cannot honour
-  rather than dropping it.
+  rather than dropping it; the detection configs build the detector, and
+  its builder raises on a key it does not take and on `--amp`.
 - Checkpoints: rotation, `latest_checkpoint`, a warm start that copies
   only parameters of matching name and shape (also from an upstream
   `.pth` through `load_from`). A run resumed from a mid-epoch checkpoint
@@ -23,11 +24,13 @@ import torch
 
 from proxytransformation_torch.engine import checkpoint as ckpt
 from proxytransformation_torch.engine.runner import (
-    Runner, build_model_from_cfg)
+    Runner, apply_amp, build_model_from_cfg)
 from proxytransformation_torch.engine.train import (
     build_lr_schedule, build_optimizer, make_train_step)
 from proxytransformation_torch.models.detector import (
     SparseFeatureFusion3DGrounderPreshape as TGrounder, batch_to_device)
+from proxytransformation_torch.models.embodied_det3d import (
+    Embodied3DDetector)
 from proxytransformation_torch.models.layers import random_init_
 from proxytransformation_torch.utils.config import Config
 
@@ -36,6 +39,8 @@ from test_torch_port_detector import TINY
 
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = str(ROOT / 'configs/grounding/synthetic_smoke.py')
+DET_SMOKE = str(ROOT / 'configs/detection/synthetic_smoke.py')
+DET_FULL = str(ROOT / 'configs/detection/embodied-det3d-resnet50.py')
 # two steps an epoch, no validation unless asked
 SHORT = ['train_dataloader.dataset.length=4', 'train_cfg.val_interval=99',
          'val_dataloader.dataset.length=2']
@@ -112,7 +117,8 @@ def test_use_xyz_feat_false_voxelizes_the_colour():
 
 @pytest.mark.parametrize('change,error,match', [
     ({'t_type': 'roberta'}, NotImplementedError, 'item 14'),
-    ({'type': 'Embodied3DDetector'}, NotImplementedError, 'item 12'),
+    # the detector's builder takes none of the grounder's keys
+    ({'type': 'Embodied3DDetector'}, ValueError, "'preshape'"),
     ({'type': 'EmbodiedOccPredictor'}, NotImplementedError, 'item 13'),
     ({'type': 'SparseFeatureFusion3DGrounder'}, NotImplementedError,
      'item 14'),
@@ -133,15 +139,70 @@ def test_model_builder_drops_nothing(change, error, match):
         build_model_from_cfg(cfg, device='meta')
 
 
-@pytest.mark.parametrize('option,match', [
-    ("custom_hooks=[{'type':'EMAHook','ema_type':'ExponentialMovingAverage'}]",
-     'ExpMomentumEMA hook only'),
-    ("optim_wrapper.optimizer.type='SGD'", 'AdamW only'),
-    ("model.type='Embodied3DDetector'", 'item 12'),
-])
-def test_runner_raises_on_what_it_cannot_honour(tmp_path, option, match):
+@pytest.mark.parametrize('config,option,match', [
+    (SMOKE, "custom_hooks=[{'type':'EMAHook','ema_type':"
+     "'ExponentialMovingAverage'}]", 'ExpMomentumEMA hook only'),
+    (SMOKE, "optim_wrapper.optimizer.type='SGD'", 'AdamW only'),
+    # --amp on the detector: the JAX package's has no bfloat16 mode
+    (DET_SMOKE, None, 'no bfloat16 mode'),
+], ids=["custom_hooks=[{'type':'EMAHook','ema_type':"
+        "'ExponentialMovingAverage'}]-ExpMomentumEMA hook only",
+        "optim_wrapper.optimizer.type='SGD'-AdamW only",
+        'detection --amp-no bfloat16 mode'])
+def test_runner_raises_on_what_it_cannot_honour(tmp_path, config, option,
+                                                match):
+    cfg = Config.fromfile(config)
+    if option is None:
+        apply_amp(cfg)
+    else:
+        cfg.merge_from_dict(Config.parse_cfg_options([option]))
     with pytest.raises(NotImplementedError, match=match):
-        Runner(smoke_cfg(option), str(tmp_path), device='cpu').train()
+        Runner(cfg, str(tmp_path), device='cpu').train()
+
+
+@pytest.mark.parametrize('config', [DET_SMOKE, DET_FULL],
+                         ids=['synthetic_smoke', 'embodied_det3d'])
+def test_detection_configs_build_the_detector(config):
+    """Both detection configs build `Embodied3DDetector` (on the meta
+    device) with every key they hold; 12 regression outputs or the RotMat
+    head give the 6-D rotation."""
+    model_cfg = Config.fromfile(config)['model']
+    model = build_model_from_cfg(model_cfg, device='meta')
+    head = model.bbox_head
+    assert isinstance(model, Embodied3DDetector)
+    assert head.num_classes == model_cfg['num_classes']
+    assert head.rot_param == 'euler'
+    assert model.n_points == model_cfg['n_points']
+    assert head.conv_reg.kernel.shape[-1] == 9
+    plain = {k: v for k, v in model_cfg['bbox_head'].items()
+             if k != 'num_reg_outs'}
+    for head_cfg in (dict(plain, num_reg_outs=12),
+                     dict(plain, type='FCAF3DHeadRotMat')):
+        cfg = dict(model_cfg, bbox_head=head_cfg)
+        rot = build_model_from_cfg(cfg, device='meta').bbox_head
+        assert rot.rot_param == 'ortho6d'
+        assert rot.conv_reg.kernel.shape[-1] == 12
+
+
+@pytest.mark.parametrize('change,error,match', [
+    ({'bbox_head': {'loss_cls': {'type': 'FocalLoss'}}}, ValueError,
+     'bbox_head.loss_cls'),
+    ({'test_cfg': {'use_rotation': False}}, ValueError,
+     'test_cfg.use_rotation'),
+    ({'bbox_head': {'type': 'FCAF3DHeadRotMat', 'num_reg_outs': 9}},
+     ValueError, 'num_reg_outs'),
+    ({'bbox_head': {'num_classes': 3}}, ValueError, 'num_classes'),
+    ({'backbone_3d': {'depth': 14, 'in_channels': 6}}, NotImplementedError,
+     'in_channels'),
+    ({'compute_dtype': 'bfloat16'}, NotImplementedError, 'no bfloat16'),
+])
+def test_detection_builder_raises_on_what_it_cannot_honour(change, error,
+                                                           match):
+    cfg = Config.fromfile(DET_SMOKE)['model']
+    for k, v in change.items():
+        cfg[k] = dict(cfg.get(k, {}), **v) if isinstance(v, dict) else v
+    with pytest.raises(error, match=match):
+        build_model_from_cfg(cfg, device='meta')
 
 
 def test_tta_raises(tmp_path):
