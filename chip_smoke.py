@@ -118,7 +118,33 @@ Phases (any failure exits non-zero before the final line):
      run); a bare step on the first batch timed; then `tools/test.py` on
      the checkpoint. `[detection]` lines: s/it, data wait, first wait,
      peak memory, the bare step's device time, the losses, val's NMS ms
-     and metric keys, and each kernel's calls, ms and launches.
+     and metric keys, and each kernel's calls, ms and launches;
+ 15. occupancy: `configs/occupancy/embodied-occ.py` as it is (40x40x16
+     voxels over 6.4 x 6.4 x 2.56 m, 81 classes, ResNet-50 at base 16,
+     neck 128, AdamW lr 1e-4, weight decay 1e-2, clip 35, float32) with
+     loaders by --cfg-options (the config has none):
+     `SyntheticOccupancyDataset` at 100k points, 20 views of 480x480 and
+     2048 occupied voxels of 25,600, B=2, the prefetch thread; through
+     `tools/train.py main(argv)`: two steps, val with OccupancyMetric, a
+     checkpoint (held against the runner's state), then `tools/test.py`
+     on it; no kernel of `csrc/` may launch (occupancy runs no TPU
+     kernel); the tiny predictors on the card against the CPU; then
+     `DenseFusionOccPredictor` (by `model.type`) for one step and one
+     request. `[occupancy]` lines: s/it, data wait, a bare step's and a
+     request's CUDA-event ms, peak memory, the losses, the metric's keys;
+ 16. grounding TTA: `tools/test.py --tta` on phase 13's checkpoint and
+     tree (50 ordered views, the default tta_cfg: scale 1 with and
+     without a horizontal flip, two copies stacked into one forward);
+     every kernel call of its first batch held against its plain version;
+     its time beside phase 13's test without TTA, the merged
+     predictions' keys;
+ 17. the baseline grounder: the flagship's model config with
+     `type='SparseFeatureFusion3DGrounder'` and no preshape block at full
+     width, flax's fresh weights: from launch counts of 0 three float32
+     requests on `flagship_batch` (B=2, 100k points, 20 views) and one
+     AdamW step; every kernel call of the first request and of the step
+     held against its plain version; no ball query (that is the
+     preshape's); request ms beside phase 5's flagship requests.
 Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
 `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
@@ -134,8 +160,11 @@ device kernels on the main path, the wrapper's calls times the kernels
 a call launches — two for the ball query; the entries named
 `<kernel>:runner` are phase 12's, their launches those of the runner's
 first run and their times those of its first step's calls, and
-`<kernel>:realdata` phase 13's and `<kernel>:detection` phase 14's in
-the same way); the last line is
+`<kernel>:realdata` phase 13's, `<kernel>:detection` phase 14's,
+`<kernel>:tta` phase 16's (its first batch's calls) and
+`<kernel>:baseline` phase 17's (launches: three requests and the step;
+times: the first request's and the step's calls) in the same way); the
+last line is
 {"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1095,8 +1124,16 @@ def run() -> int:
     try:
         realdata = data_path_phases(smi, data_root)
         detection = detection_phases(smi, data_root, realdata['names'])
+        # 15. occupancy through the CLIs
+        occupancy = occupancy_phases(smi)
+        # 16. grounding TTA on phase 13's checkpoint and tree
+        tta = tta_phases(smi, data_root, realdata)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
+        shutil.rmtree(REALDATA_WORK, ignore_errors=True)
+
+    # 17. the baseline grounder
+    baseline = baseline_phases(smi, predict['req_ms'])
 
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
@@ -1136,18 +1173,22 @@ def run() -> int:
     kernels.append(summarize('row_gather', probe_rows['row_gather'], 0, 0))
     for phase, out, names in (('runner', runner, RUNNER_KERNELS),
                               ('realdata', realdata, RUNNER_KERNELS),
-                              ('detection', detection, DETECTION_KERNELS)):
+                              ('detection', detection, DETECTION_KERNELS),
+                              ('tta', tta, PREDICT_KERNELS),
+                              ('baseline', baseline, BASELINE_KERNELS)):
         for name in names:
             entry = summarize(name, out['rows'][name], out['counts'][name],
                               out['per_step'][name])
             entry['name'] = f'{name}:{phase}'
             kernels.append(entry)
-    for e in kernels[-len(DETECTION_KERNELS):]:
-        log(f'[detection] kernels line: {e["name"]} {e["wrapper_calls"]} '
-            f'calls in the run ({e["launches"]} launches), '
-            f'{e["calls_checked"]} in the first step summing {e["ms"]:.3f} '
-            f'ms (plain {e["plain_ms"]:.3f} ms, bound {e["bound_ms"]:.4f} '
-            f'ms), max abs err {e["max_abs_err"]:.3g}')
+    for e in kernels:
+        phase = e['name'].partition(':')[2]
+        if phase in ('detection', 'tta', 'baseline'):
+            log(f'[{phase}] kernels line: {e["name"]} {e["wrapper_calls"]} '
+                f'calls in the run ({e["launches"]} launches), '
+                f'{e["calls_checked"]} checked summing {e["ms"]:.3f} ms '
+                f'(plain {e["plain_ms"]:.3f} ms, bound {e["bound_ms"]:.4f} '
+                f'ms), max abs err {e["max_abs_err"]:.3g}')
     log(f'[kernel] timings the spin could not hide host time from: '
         f'{NOT_HIDDEN}')
     detail = {'device': smi, 'torch': torch.__version__,
@@ -1159,6 +1200,10 @@ def run() -> int:
               'realdata_step_calls': realdata['rows'],
               'detection': detection['summary'],
               'detection_step_calls': detection['rows'],
+              'occupancy': occupancy, 'tta': tta['summary'],
+              'tta_batch_calls': tta['rows'],
+              'baseline': baseline['summary'],
+              'baseline_calls': baseline['rows'],
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -1716,6 +1761,9 @@ def runner_phases(bf16_summary):
 
 
 FIXTURES = 'tests/torch_port_images'
+# phase 13's work dir: its checkpoint is phase 16's
+REALDATA_WORK = Path(__file__).resolve().parent / 'build' / \
+    'chip_smoke_realdata'
 MATTERPORT_SCAN = 'matterport3d/1mp3d_0000/region0'
 REALDATA_CLASSES = ('cabinet', 'bed', 'chair', 'table')
 N_SCAN_VIEWS = 50
@@ -1936,7 +1984,7 @@ def data_path_phases(smi, data_root: Path):
         f'(decoder library built in {build_s:.1f} s); host decode of one '
         f'640x480 JPEG {decode_ms["jpeg"]:.2f} ms, one 640x480 16-bit PNG '
         f'{decode_ms["png"]:.2f} ms ({smi})')
-    work = repo / 'build' / 'chip_smoke_realdata'
+    work = REALDATA_WORK
     shutil.rmtree(work, ignore_errors=True)
     ema_checks = []
     ema_weights = runner_mod.Runner._ema_weights
@@ -2044,13 +2092,12 @@ def data_path_phases(smi, data_root: Path):
     finally:
         runner_mod.Runner._ema_weights = ema_weights
     torch.cuda.empty_cache()
-    shutil.rmtree(work, ignore_errors=True)
     summary = dict(decode_ms=decode_ms, host_stage_ms=stages,
                    collate_ms=collate_ms, wall_s=wall, timing=timing,
                    peak_gib=peak, losses=losses, val_results=results,
                    per_step=per_step, test_s=test_s)
     return dict(rows=rows, counts=counts, per_step=per_step,
-                summary=summary, names=names)
+                summary=summary, names=names, checkpoint=path)
 
 
 DETECTION_CONFIG = 'configs/detection/embodied-det3d-resnet50.py'
@@ -2252,6 +2299,405 @@ def detection_phases(smi, data_root: Path, names: dict):
                    losses=losses, val_results=results, nms_ms=nms_ms,
                    test_nms_ms=test_nms, test_s=test_s, per_step=per_step,
                    counts={k: counts[k] for k in DETECTION_KERNELS})
+    return dict(rows=rows, counts=counts, per_step=per_step,
+                summary=summary)
+
+OCC_CONFIG = 'configs/occupancy/embodied-occ.py'
+OCC_DATASET = dict(type='SyntheticOccupancyDataset', n_points=100_000,
+                   n_views=20, img_size=480, n_voxels=(40, 40, 16),
+                   num_classes=81, n_occupied=2048)
+
+
+def occupancy_argv(work: Path, length: int, mtype: str = None,
+                   checkpoint: str = None):
+    """tools/train.py's arguments for phase 15 (tools/test.py's with
+    `checkpoint`): the occupancy config as it is, with loaders at full
+    scale (the config has none): B=2, `length` train samples, 2 val
+    samples, the prefetch thread; `mtype` swaps the model's type."""
+    def loader(ds, shuffle):
+        return dict(batch_size=2, num_workers=0, dataset=ds,
+                    sampler=dict(type='DefaultSampler', shuffle=shuffle))
+    opts = [f'val_dataloader='
+            f'{loader(dict(OCC_DATASET, length=2, seed=7, test_mode=True), False)!r}']
+    if not checkpoint:
+        opts += [f'train_dataloader='
+                 f'{loader(dict(OCC_DATASET, length=length), True)!r}',
+                 'train_cfg.max_epochs=1', 'train_cfg.val_interval=1',
+                 'log_interval=1']
+    if mtype:
+        opts.append(f'model.type={mtype!r}')
+    root = Path(__file__).resolve().parent
+    return ([str(root / OCC_CONFIG)] + ([checkpoint] if checkpoint else [])
+            + ['--work-dir', str(work), '--cfg-options', *opts])
+
+
+def cuda_ms(fn, reps: int):
+    """(CUDA-event ms, host ms) of each of `reps` calls of `fn`."""
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    return dev_ms, host_ms
+
+
+def occ_small_input_check() -> None:
+    """The tiny occupancy predictors (the smoke config's sizes) on the
+    card against the CPU, from the same fresh weights and batch: logits at
+    every scale within 1e-4 · (1 + max|x|)."""
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.occ import (
+        DenseFusionOccPredictor, EmbodiedOccPredictor)
+    kw = dict(n_voxels=(16, 16, 8), voxel_range=(0, 0, 0, 5.0, 5.0, 2.5),
+              num_classes=6, img_base_channels=4, neck_channels=16)
+    rng = np.random.RandomState(2)
+    B, V, H, W, N = 2, 4, 96, 96, 1024
+    proj = np.tile(np.array([[96, 0, W / 2, 0], [0, 96, H / 2, 0],
+                             [0, 0, 1, 0], [0, 0, 0, 1]], np.float32),
+                   (B, V, 1, 1))
+    batch = {'imgs': rng.randn(B, V, H, W, 3).astype(np.float32),
+             'points': rng.uniform(0, 5, (B, N, 3)).astype(np.float32),
+             'points_mask': np.ones((B, N), bool), 'proj_mats': proj,
+             'views_mask': np.ones((B, V), bool)}
+    for cls in (EmbodiedOccPredictor, DenseFusionOccPredictor):
+        cpu = flax_init_(cls(**kw, device='cpu'),
+                         torch.Generator().manual_seed(0))
+        card = cls(**kw, device='cuda')
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            want = cpu.logits(batch_to_device(batch, 'cpu'))
+            got = card.logits(batch_to_device(batch, 'cuda'))
+        errs = []
+        for g, w in zip(got, want):
+            errs.append(float((g.cpu() - w).abs().max()))
+            require(errs[-1] <= 1e-4 * (1 + float(w.abs().max())),
+                    f'{cls.__name__}: card and CPU logits differ by '
+                    f'{errs[-1]}')
+        log(f'[occupancy] small input, {cls.__name__}: card vs CPU logits '
+            f'max abs err by scale {[f"{e:.3g}" for e in errs]}')
+
+
+def occupancy_phases(smi):
+    """Phase 15: the occupancy config at full width through the train and
+    test CLIs, then DenseFusion for one step and one request."""
+    from proxytransformation_torch.engine import runner as runner_mod
+    from proxytransformation_torch.engine.checkpoint import (
+        latest_checkpoint, load_checkpoint)
+    from proxytransformation_torch.models.occ import (
+        DenseFusionOccPredictor, EmbodiedOccPredictor)
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.tools import test as test_cli
+    from proxytransformation_torch.tools import train as train_cli
+    repo = Path(__file__).resolve().parent
+    work = repo / 'build' / 'chip_smoke_occupancy'
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    occ_small_input_check()
+    first = {}
+    with capturing_first_step(first):
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_cli.main(occupancy_argv(work, 4))
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    model = runner.model
+    require(type(model) is EmbodiedOccPredictor
+            and model.n_voxels == (40, 40, 16) and model.num_classes == 81
+            and model.neck_3d.out_0.conv.weight.shape[0] == 128,
+            'phase 15 did not build the full occupancy config')
+    batch = first['batch']
+    require(tuple(batch['imgs'].shape[:4]) == (2, 20, 480, 480)
+            and tuple(batch['gt_occupancy'].shape[:2]) == (2, 20_000),
+            f'first batch: imgs {tuple(batch["imgs"].shape)}')
+    require(not any(counts.values()),
+            f'a kernel of csrc/ launched on the occupancy path: {counts}')
+    require(not any(first['calls'].values()),
+            'a kernel wrapper was called on the occupancy path')
+    losses = runner.train_log
+    require(len(losses) == 2 and all(
+        np.isfinite(v) for r in losses for v in r.values()),
+        f'occupancy losses: {losses}')
+    results = json.loads((work / 'val_results.json').read_text())
+    require({'mIoU', 'IoU_geo'} <= set(results)
+            and all(np.isfinite(v) for v in results.values()),
+            f'val results: {sorted(results)}')
+    timing = dict(runner.train_timing)
+    path = latest_checkpoint(str(work))
+    payload = load_checkpoint(path)
+    require((payload['epoch'], payload['step']) == (1, 2),
+            f'checkpoint {path}: epoch {payload["epoch"]}')
+    require_same(runner_state(runner),
+                 {k: payload[k] for k in ('model', 'optimizer', 'generator',
+                                          'step')}, 'occupancy checkpoint')
+    bare = runner_mod.make_train_step(model, runner.optimizer,
+                                      runner.schedule)
+    step_ms, step_host_ms = cuda_ms(lambda: bare(batch, runner.generator), 2)
+    with torch.no_grad():
+        req_ms, req_host_ms = cuda_ms(lambda: model(batch), 3)
+        occ = model(batch)['occupancy']
+    require(tuple(occ.shape) == (2, 40, 40, 16) and int(occ.min()) >= 0
+            and int(occ.max()) < 81, f'occupancy {tuple(occ.shape)}')
+    log(f'[occupancy] {OCC_CONFIG} (40x40x16 voxels, 81 classes, ResNet-50 '
+        f'base 16, neck 128, float32, B=2, 20 views at 480x480, 100k '
+        f'points, 2048 occupied voxels): 2 steps, a checkpoint and val in '
+        f'{wall:.1f} s; s/it {timing["iter_s"]:.3f}, data_wait_s '
+        f'{timing["data_wait_s"]:.4f}, first_wait_s '
+        f'{timing["first_wait_s"]:.3f} (loader: prefetch thread); peak '
+        f'memory {peak:.2f} GiB; no kernel of csrc/ launched ({smi})')
+    log('[occupancy] bare train step on the first batch: '
+        + ', '.join(f'{h:.1f} ms ({d:.1f} ms of CUDA events)'
+                    for h, d in zip(step_host_ms, step_ms))
+        + '; request (B=2): '
+        + ', '.join(f'{h:.1f} ms ({d:.1f} ms of CUDA events)'
+                    for h, d in zip(req_host_ms, req_ms)))
+    log('[occupancy] losses: ' + '; '.join(
+        f'step {r["iter"]} ' + ' '.join(
+            f'{k} {r[k]:.5f}' for k in ('loss_occ_0', 'loss_occ_1',
+                                        'loss_occ_2', 'grad_norm'))
+        for r in losses) + f'; OccupancyMetric: {len(results)} keys, mIoU '
+        f'{results["mIoU"]:.5f}, IoU_geo {results["IoU_geo"]:.5f} and '
+        f'iou_cls_c for {len(results) - 2} classes present')
+    del runner, model, bare, first, batch, occ
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tested = test_cli.main(occupancy_argv(work, 4, checkpoint=path))
+    test_s = time.perf_counter() - t0
+    require({'mIoU', 'IoU_geo'} <= set(tested), f'test: {sorted(tested)}')
+    log(f'[occupancy] tools/test.py on {Path(path).name}: mIoU '
+        f'{tested["mIoU"]:.5f} (val after training {results["mIoU"]:.5f}), '
+        f'IoU_geo {tested["IoU_geo"]:.5f} in {test_s:.1f} s')
+    shutil.rmtree(work, ignore_errors=True)
+
+    # DenseFusion: one step and one request
+    first = {}
+    with capturing_first_step(first):
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_cli.main(occupancy_argv(
+            work, 2, 'DenseFusionOccPredictor'))
+        dense_wall = time.perf_counter() - t0
+        dense_counts = _cuda.launch_counts()
+        dense_peak = torch.cuda.max_memory_allocated() / 2**30
+    require(type(runner.model) is DenseFusionOccPredictor
+            and len(runner.train_log) == 1
+            and all(np.isfinite(v) for v in runner.train_log[0].values()),
+            f'DenseFusion: {runner.train_log}')
+    require(not any(dense_counts.values()),
+            f'a kernel of csrc/ launched by DenseFusion: {dense_counts}')
+    dense_results = json.loads((work / 'val_results.json').read_text())
+    with torch.no_grad():
+        dense_req_ms, dense_req_host = cuda_ms(
+            lambda: runner.model(first['batch']), 1)
+    log(f'[occupancy] DenseFusionOccPredictor: one step, a checkpoint and '
+        f'val in {dense_wall:.1f} s, loss '
+        f'{runner.train_log[0]["total_loss"]:.5f}; a request (B=2) '
+        f'{dense_req_host[0]:.1f} ms ({dense_req_ms[0]:.1f} ms of CUDA '
+        f'events); peak memory {dense_peak:.2f} GiB; mIoU '
+        f'{dense_results["mIoU"]:.5f}; phase 15 in '
+        f'{time.perf_counter() - t_phase:.1f} s ({smi})')
+    del runner, first
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(wall_s=wall, timing=timing, peak_gib=peak, losses=losses,
+                val_results=results, bare_step_ms=step_ms,
+                bare_step_host_ms=step_host_ms, request_ms=req_ms,
+                request_host_ms=req_host_ms, test_s=test_s,
+                test_results=tested, dense_wall_s=dense_wall,
+                dense_request_ms=dense_req_ms, dense_peak_gib=dense_peak,
+                dense_results=dense_results)
+
+
+@contextmanager
+def capturing_first_predict(first):
+    """While open, the Runner's first prediction records the kernel calls
+    it launches into `first['calls']`, and every merge of augmented
+    copies appends its copies' count and result keys to `first['merges']`."""
+    from proxytransformation_torch.engine import runner as runner_mod
+    predict = runner_mod.Runner._predict
+    merge = runner_mod.merge_aug_bboxes_3d
+
+    def capturing_predict(self, batch, bs, aug_metas):
+        if 'calls' in first:
+            return predict(self, batch, bs, aug_metas)
+        out = []
+        first['calls'] = capture_kernel_calls(
+            lambda: out.append(predict(self, batch, bs, aug_metas)))
+        return out[0]
+
+    def recording_merge(results, metas, *a):
+        merged = merge(results, metas, *a)
+        first.setdefault('merges', []).append((len(results), sorted(merged)))
+        return merged
+
+    runner_mod.Runner._predict = capturing_predict
+    runner_mod.merge_aug_bboxes_3d = recording_merge
+    try:
+        yield
+    finally:
+        runner_mod.Runner._predict = predict
+        runner_mod.merge_aug_bboxes_3d = merge
+
+
+def tta_phases(smi, data_root: Path, realdata):
+    """Phase 16: tools/test.py --tta on phase 13's checkpoint and tree:
+    two copies of each 50-view scene in one forward, merged; the first
+    batch's kernel calls checked."""
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.tools import test as test_cli
+    repo = Path(__file__).resolve().parent
+    argv = realdata_argv(repo / FLAGSHIP_CONFIG, REALDATA_WORK, data_root,
+                         realdata['names'], checkpoint=realdata['checkpoint'])
+    argv.insert(2, '--tta')
+    first = {}
+    with capturing_first_predict(first):
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        test_cli.main(argv)
+        test_s = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    dump = json.loads((REALDATA_WORK / 'test_results.json').read_text())
+    merges = first.get('merges', [])
+    require(len(dump) == 2 and len(merges) == 2
+            and all(n == 2 for n, _ in merges),
+            f'TTA: {len(dump)} results, merges {merges}')
+    per_batch = {k: len(first['calls'].get(k, ())) for k in PREDICT_KERNELS}
+    for name in PREDICT_KERNELS:
+        require(counts[name] > 0, f'{name}: not launched by the TTA test')
+        require(per_batch[name] > 0, f'{name}: not in TTA\'s first batch')
+    for name in (*TRAIN_ONLY, *BF16_KERNELS, *BF16_TRAIN_ONLY):
+        require(counts[name] == 0, f'{name}: launched by the TTA test')
+    with torch.no_grad():
+        rows = check_calls(first['calls'], PREDICT_KERNELS,
+                           'TTA\'s first batch')
+    plain_s = realdata['summary']['test_s']
+    log(f'[tta] tools/test.py --tta on {Path(realdata["checkpoint"]).name}: '
+        f'{len(dump)} scenes at 50 views, two copies each (scale 1, with '
+        f'and without a horizontal flip) stacked into one B=2 forward, in '
+        f'{test_s:.1f} s; phase 13\'s test without TTA {plain_s:.1f} s; '
+        f'peak memory {peak:.2f} GiB; merged predictions\' keys '
+        f'{merges[0][1]}; kernel calls of the first batch {per_batch} '
+        f'({smi})')
+    del first
+    torch.cuda.empty_cache()
+    summary = dict(test_s=test_s, plain_test_s=plain_s, peak_gib=peak,
+                   merges=merges, per_batch=per_batch,
+                   counts={k: counts[k] for k in PREDICT_KERNELS})
+    return dict(rows=rows, counts=counts, per_step=per_batch,
+                summary=summary)
+
+
+BASELINE_KERNELS = ('lookup_pmz', 'lookup_center', 'sparse_conv',
+                    'sparse_conv_dfeats', 'sparse_conv_dw')
+
+
+def baseline_phases(smi, flagship_req_ms):
+    """Phase 17: the baseline grounder at full width, flax's fresh
+    weights: from launch counts of 0 three float32 requests and one AdamW
+    step; the first request's and the step's kernel calls checked."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.engine.runner import build_model_from_cfg
+    from proxytransformation_torch.engine.train import (
+        build_lr_schedule, build_optimizer, make_train_step)
+    from proxytransformation_torch.models.detector import (
+        SparseFeatureFusion3DGrounder, batch_to_device)
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.utils.config import Config
+    repo = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    cfg = dict(Config.fromfile(str(repo / FLAGSHIP_CONFIG))['model'],
+               type='SparseFeatureFusion3DGrounder')
+    del cfg['preshape']
+    model = build_model_from_cfg(cfg, device='cuda')
+    require(type(model) is SparseFeatureFusion3DGrounder
+            and not hasattr(model, 'preshape'), 'not the baseline')
+    flax_init_(model, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    dev = torch.device('cuda')
+    batches = [batch_to_device(flagship_batch(seed=r), dev) for r in range(3)]
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    req_ms, req_host_ms, first = [], [], {}
+    for r, batch in enumerate(batches):
+        out = {}
+        fn = lambda: out.update(model(batch))  # noqa: E731
+        if r == 0:
+            first['request'] = capture_kernel_calls(fn)
+            req_ms.append(float('nan'))
+            req_host_ms.append(float('nan'))
+        else:
+            d, h = cuda_ms(fn, 1)
+            req_ms += d
+            req_host_ms += h
+        for k in ('bboxes_3d', 'scores_3d'):
+            require(bool(torch.isfinite(out[k]).all()), f'non-finite {k}')
+        require(bool(out['query_mask'].any()), 'no valid query')
+    req_peak = torch.cuda.max_memory_allocated() / 2**30
+    model.train()
+    step = make_train_step(model, build_optimizer(model),
+                           build_lr_schedule(5e-4, steps_per_epoch=1))
+    step_batch = batch_to_device(flagship_batch(seed=0, with_targets=True),
+                                 dev)
+    metrics = {}
+    t0 = time.perf_counter()
+    first['step'] = capture_kernel_calls(
+        lambda: metrics.update(step(
+            step_batch, torch.Generator(device=dev).manual_seed(0))))
+    step_s = time.perf_counter() - t0
+    model.eval()
+    counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(np.isfinite(float(v)) for v in metrics.values()),
+            f'baseline step: {metrics}')
+    require(counts['ball_query'] == 0, 'the baseline launched a ball query')
+    per_request = {k: len(first['request'].get(k, ()))
+                   for k in BASELINE_KERNELS}
+    per_step = {k: len(first['step'].get(k, ())) for k in BASELINE_KERNELS}
+    for name in BASELINE_KERNELS:
+        require(counts[name] > 0, f'{name}: not launched by the baseline')
+        require(per_step[name] > 0, f'{name}: not in the baseline\'s step')
+    for name in ('lookup_pmz', 'lookup_center', 'sparse_conv'):
+        require(per_request[name] > 0, f'{name}: not in a baseline request')
+    calls = {k: first['request'].get(k, []) + first['step'].get(k, [])
+             for k in BASELINE_KERNELS}
+    del first
+    with torch.no_grad():
+        rows = check_calls(calls, BASELINE_KERNELS,
+                           'the baseline\'s first request and step')
+    log(f'[baseline] SparseFeatureFusion3DGrounder (the flagship config '
+        f'without its preshape, {n_params} parameters, float32): requests '
+        f'(B=2, 100k points, 20 views) 2 and 3: '
+        + ', '.join(f'{h:.1f} ms ({d:.1f} ms of CUDA events)'
+                    for h, d in zip(req_host_ms[1:], req_ms[1:]))
+        + f' (request 1 captured); phase 5\'s flagship requests: '
+        + ', '.join(f'{d:.1f}' for d in flagship_req_ms)
+        + f' ms of CUDA events; one AdamW step {step_s * 1e3:.1f} ms '
+        f'(captured), total loss {float(metrics["total_loss"]):.5f}; peak '
+        f'memory {req_peak:.2f} GiB in requests, {peak:.2f} GiB with the '
+        f'step; kernel calls a request {per_request}, a step {per_step}; '
+        f'phase 17 in {time.perf_counter() - t_phase:.1f} s ({smi})')
+    del model, step, batches, step_batch, calls
+    torch.cuda.empty_cache()
+    summary = dict(request_ms=req_ms, request_host_ms=req_host_ms,
+                   flagship_request_ms=flagship_req_ms, step_s=step_s,
+                   request_peak_gib=req_peak, peak_gib=peak,
+                   per_request=per_request, per_step=per_step,
+                   losses={k: float(v) for k, v in metrics.items()},
+                   counts={k: counts[k] for k in BASELINE_KERNELS})
     return dict(rows=rows, counts=counts, per_step=per_step,
                 summary=summary)
 

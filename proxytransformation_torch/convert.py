@@ -3,9 +3,10 @@
 `state_dict_from_jax` is the inverse of the JAX package's
 `converter/torch_weights.py::convert_detector`: it turns a
 `{'params', 'batch_stats'}` tree of arrays back into tensors under the
-upstream key names, for every submodule of the grounder's predict path
-and of the detector (`Embodied3DDetector`: backbone, backbone_3d and the
-FCAF3D bbox_head).
+upstream key names, for every submodule of the grounder's predict path,
+of the detector (`Embodied3DDetector`: backbone, backbone_3d and the
+FCAF3D bbox_head) and of the occupancy models (backbone, feat_proj, the
+ImVoxel neck_3d, the occupancy bbox_head and DenseFusion's point_proj).
 It reads plain nested dicts of arrays; nothing here imports JAX.
 """
 from __future__ import annotations
@@ -196,6 +197,30 @@ def _resnet(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
                  st['downsample_bn'])
 
 
+def _conv3d(w: _Writer, key: str, p: Tree) -> None:
+    """flax 3D conv (kx, ky, kz, C_in, C_out) → nn.Conv3d (C_out, C_in,
+    kx, ky, kz)."""
+    w.put(key + '.weight', np.transpose(np.asarray(p['kernel']),
+                                        (4, 3, 0, 1, 2)))
+    if 'bias' in p:
+        w.put(key + '.bias', p['bias'])
+
+
+def _imvoxel_neck(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
+    for name in sorted(p):
+        if name.startswith('lat_'):
+            _conv3d(w, pre + name, p[name])
+        else:       # down_i, down_ib, out_i: conv, BatchNorm, ReLU
+            _conv3d(w, f'{pre}{name}.conv', p[name]['Conv_0'])
+            w.bn(f'{pre}{name}.norm', p[name]['BatchNorm_0'],
+                 s[name]['BatchNorm_0'])
+
+
+def _occ_head(w: _Writer, p: Tree, pre: str) -> None:
+    for name in sorted(p):
+        _conv3d(w, pre + name, p[name])
+
+
 def _text_encoder(w: _Writer, p: Tree, pre: str) -> None:
     pre = pre + 'text_model.'
     w.put(pre + 'embeddings.token_embedding.weight',
@@ -215,9 +240,9 @@ def _text_encoder(w: _Writer, p: Tree, pre: str) -> None:
 
 def state_dict_from_jax(variables: Mapping[str, Tree]
                         ) -> Dict[str, torch.Tensor]:
-    """`{'params', 'batch_stats'}` of the JAX grounder or detector
-    (arrays) → the port's state_dict; submodules absent from the tree are
-    skipped."""
+    """`{'params', 'batch_stats'}` of the JAX grounder, detector or
+    occupancy model (arrays) → the port's state_dict; submodules absent
+    from the tree are skipped."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
     w = _Writer()
@@ -232,13 +257,20 @@ def state_dict_from_jax(variables: Mapping[str, Tree]
     if 'backbone_3d' in params:
         _backbone_3d(w, params['backbone_3d'], stats.get('backbone_3d', {}),
                      'backbone_3d.')
-    if 'neck_3d' in params:
+    for name in ('feat_proj', 'point_proj'):
+        if name in params:
+            w.linear(name, params[name])
+    if 'neck_3d' in params and 'down_0' in params['neck_3d']:
+        _imvoxel_neck(w, params['neck_3d'], stats['neck_3d'], 'neck_3d.')
+    elif 'neck_3d' in params:
         _neck(w, params['neck_3d'], stats['neck_3d'], 'neck_3d.')
     if 'decoder' in params:
         _decoder(w, params['decoder'], stats['decoder'], 'decoder.')
     if 'bbox_head' in params and 'conv_center' in params['bbox_head']:
         _fcaf3d_head(w, params['bbox_head'], stats['bbox_head'],
                      'bbox_head.')
+    elif 'bbox_head' in params and 'occ_0' in params['bbox_head']:
+        _occ_head(w, params['bbox_head'], 'bbox_head.')
     elif 'bbox_head' in params:
         _head(w, params['bbox_head'], 'bbox_head.')
     return w.sd

@@ -2,8 +2,8 @@
 benchmarks.
 
 The port's own copy of proxytransformation_tpu/data/synthetic.py::
-surface_scene_points / surface_scene_batch / SyntheticGroundingDataset
-(same numpy draws, so the same seed gives the same clouds and samples in
+surface_scene_points / surface_scene_batch / SyntheticGroundingDataset /
+SyntheticOccupancyDataset (same numpy draws, so the same seed gives the same clouds and samples in
 both packages).
 """
 from __future__ import annotations
@@ -186,3 +186,32 @@ class SyntheticGroundingDataset:
                 'is_unique': bool(idx % 4 == 0),
             },
         }
+
+
+@DATASETS.register_module()
+class SyntheticOccupancyDataset(SyntheticGroundingDataset):
+    """Occupancy samples: the grounding scene plus `n_occupied` sparse
+    (x, y, z, label) targets on an `n_voxels` grid (labels 1 to
+    num_classes - 1; the reference's annotations have this format,
+    occ_loss.py:7-36), drawn as the JAX package draws them."""
+
+    def __init__(self, n_voxels=(16, 16, 8), num_classes: int = 6,
+                 n_occupied: int = 64, **kw):
+        super().__init__(**kw)
+        self.n_voxels = tuple(n_voxels)
+        self.num_classes = num_classes
+        self.n_occupied = n_occupied
+
+    def __getitem__(self, idx: int) -> dict:
+        sample = super().__getitem__(idx)
+        rng = np.random.RandomState(self.seed * 999983 + idx)
+        X, Y, Z = self.n_voxels
+        occ = np.stack([
+            rng.randint(0, X, self.n_occupied),
+            rng.randint(0, Y, self.n_occupied),
+            rng.randint(0, Z, self.n_occupied),
+            rng.randint(1, self.num_classes, self.n_occupied),
+        ], -1).astype(np.float32)
+        sample['gt_occupancy'] = occ
+        sample['eval_ann_info']['gt_occupancy'] = occ
+        return sample

@@ -1,12 +1,14 @@
 """Runner: config → dataset, model and optimizer → train / val / test loops.
 
 Counterpart of proxytransformation_tpu/engine/runner.py (mmengine's
-Runner in the reference) for the grounding and detection tasks:
-`Runner.from_cfg(cfg)` builds everything from a python-file config,
-`train()` runs the epoch loop over `engine.train.make_train_step`,
+Runner in the reference) for the grounding, detection and occupancy
+tasks: `Runner.from_cfg(cfg)` builds everything from a python-file
+config, `train()` runs the epoch loop over `engine.train.make_train_step`,
 `val()` / `test()` run predict and the task's metric (the grounding
-metric; for the detector the batched 3D NMS of the config's `test_cfg`,
-then `IndoorDetMetric`). Fresh weights follow flax's initialisers
+metric, with test-time augmentation on request; for the detector the
+batched 3D NMS of the config's `test_cfg`, then `IndoorDetMetric`; for
+the occupancy models `OccupancyMetric` against the dense gt at full
+resolution). Fresh weights follow flax's initialisers
 (`models/init.py`), seeded from the config. A checkpoint each epoch
 with rotation, auto-resume and fast resume (the loader's order is a
 function of its seed and epoch, so the consumed batches of an epoch are
@@ -20,8 +22,9 @@ gamma, the decoder's lr multiplier) comes from the config, and so does
 the EMA hook (`custom_hooks`: `ExpMomentumEMA`, advanced after each
 optimizer step, carried in the checkpoint and swapped in for val and
 test). What the port cannot honour raises rather than being dropped:
-occupancy, the baseline grounder, other text towers, TTA, other hooks
-and `--amp` on the detector.
+other text towers, other hooks, `--amp` on the detector and the
+occupancy models, TTA outside grounding, and any model-config key the
+builders do not take.
 """
 from __future__ import annotations
 
@@ -39,12 +42,17 @@ from ..data.loader import DataLoader
 from ..data.preprocessor import Det3DDataPreprocessor
 from ..data import dataset, synthetic  # noqa: F401  (register datasets)
 from ..device import resolve_device
-from ..eval import grounding_metric, indoor_eval  # noqa: F401  (metrics)
-from ..models.detector import (SparseFeatureFusion3DGrounderPreshape,
+from ..eval import (grounding_metric, indoor_eval,  # noqa: F401  (metrics)
+                    occupancy_metric)
+from ..models.detector import (SparseFeatureFusion3DGrounder,
+                               SparseFeatureFusion3DGrounderPreshape,
                                batch_to_device)
 from ..models.embodied_det3d import Embodied3DDetector
 from ..models.init import flax_init_
 from ..models.misc import ExpMomentumEMA
+from ..models.occ import (DenseFusionOccPredictor, EmbodiedOccPredictor,
+                          occ_multiscale_supervision)
+from ..models.tta import merge_aug_bboxes_3d
 from ..ops.nms3d import multiclass_nms
 from ..utils.registry import DATASETS, METRICS
 from ..utils.vis_backend import build_vis_backends
@@ -71,12 +79,10 @@ _MODEL_TASKS = {
     'EmbodiedOccPredictor': 'occupancy',
     'DenseFusionOccPredictor': 'occupancy',
 }
-_NOT_PORTED = {
-    'occupancy': 'occupancy is ROADMAP item 13',
-}
 # the val metric of each task when the config names none
 _DEFAULT_METRIC = {'grounding': 'GroundingMetric',
-                   'detection': 'IndoorDetMetric'}
+                   'detection': 'IndoorDetMetric',
+                   'occupancy': 'OccupancyMetric'}
 # keys of the EMA hook the port honours (`priority` orders hooks, and the
 # port has no other)
 _EMA_HOOK_KEYS = {'type', 'ema_type', 'momentum', 'gamma', 'priority'}
@@ -159,14 +165,7 @@ def _model_task(model_cfg: Dict[str, Any]) -> str:
     if mtype not in _MODEL_TASKS:
         raise KeyError(f'unknown model type {mtype!r}; known: '
                        f'{sorted(_MODEL_TASKS)}')
-    task = _MODEL_TASKS[mtype]
-    if task in _NOT_PORTED:
-        raise NotImplementedError(f'{mtype}: {_NOT_PORTED[task]}')
-    if mtype == 'SparseFeatureFusion3DGrounder':
-        raise NotImplementedError(
-            'SparseFeatureFusion3DGrounder (the baseline without the '
-            'preshape) is ROADMAP item 14')
-    return task
+    return _MODEL_TASKS[mtype]
 
 
 def _check_fixed(cfg: Dict[str, Any], fixed: Dict[tuple, Any]) -> None:
@@ -249,15 +248,78 @@ def _build_detection_model(model_cfg: Dict[str, Any],
     return Embodied3DDetector(**kw, device=device)
 
 
+# the occupancy models' keywords (the JAX package's `_build_occ_model`,
+# engine/runner.py:86-111)
+_OCC_FLAT_KEYS = ('n_voxels', 'voxel_range', 'num_classes')
+_OCC_NESTED_KEYS = {
+    'backbone': {'base_channels': 'img_base_channels', 'depth': 'img_depth'},
+    'neck_3d': {'out_channels': 'neck_channels'},
+    'bbox_head': {'use_semantic': 'use_semantic'},
+}
+_OCC_FIXED = {
+    ('backbone', 'type'): 'ResNet',
+    ('neck_3d', 'type'): 'IndoorImVoxelNeck',
+    ('bbox_head', 'type'): 'ImVoxelOccHead',
+}
+_OCC_MODELS = {'EmbodiedOccPredictor': EmbodiedOccPredictor,
+               'DenseFusionOccPredictor': DenseFusionOccPredictor}
+
+
+def _build_occ_model(model_cfg: Dict[str, Any], device=None):
+    """`EmbodiedOccPredictor` / `DenseFusionOccPredictor` of an occupancy
+    config (configs/occupancy/*.py), reading what the JAX package's
+    `_build_occ_model` reads (which drops any other key). Every key must
+    reach the model or hold its one fixed value; `bbox_head.num_classes`
+    must agree with `num_classes`; anything else raises."""
+    cfg = dict(model_cfg)
+    if 'compute_dtype' in cfg or 'remat_painting' in cfg:
+        raise NotImplementedError(
+            f'{cfg["type"]} runs in float32 only: the JAX package\'s '
+            'occupancy models have no bfloat16 mode (--amp sets '
+            'compute_dtype)')
+    kw: Dict[str, Any] = {k: cfg[k] for k in _OCC_FLAT_KEYS if k in cfg}
+    unknown = []
+    for sub, table in _OCC_NESTED_KEYS.items():
+        for k, v in cfg.get(sub, {}).items():
+            if k in table:
+                kw[table[k]] = v
+            elif (sub, k) not in _OCC_FIXED and (sub, k) != ('bbox_head',
+                                                             'num_classes'):
+                unknown.append(f'{sub}.{k}')
+    unknown += [k for k in cfg if k not in {
+        *_OCC_FLAT_KEYS, *_OCC_NESTED_KEYS, 'type', 'data_preprocessor'}]
+    if unknown:
+        raise ValueError(f'model config keys the port does not take: '
+                         f'{sorted(unknown)}')
+    _check_fixed(cfg, _OCC_FIXED)
+    head = cfg.get('bbox_head', {})
+    if 'num_classes' in head and kw.setdefault(
+            'num_classes', head['num_classes']) != head['num_classes']:
+        raise ValueError(f'bbox_head.num_classes={head["num_classes"]!r} '
+                         f'differs from model.num_classes='
+                         f'{kw["num_classes"]!r}')
+    return _OCC_MODELS[cfg['type']](**kw, device=device)
+
+
 def build_model_from_cfg(model_cfg: Dict[str, Any], device=None):
-    """The grounder or the detector of a reference-style nested model
-    config (the JAX package's keyword mapping, engine/runner.py:54-181).
-    Every key must reach the model or hold the one value the port has
-    fixed; another key or value raises, so that no knob is dropped
-    silently (the JAX package's own `--amp` once was,
-    engine/runner.py:140-143)."""
-    if _model_task(model_cfg) == 'detection':
+    """The grounder (the flagship or the baseline), the detector or an
+    occupancy model of a reference-style nested model config (the JAX
+    package's keyword mapping, engine/runner.py:54-181). Every key must
+    reach the model or hold the one value the port has fixed; another key
+    or value raises, so that no knob is dropped silently (the JAX
+    package's own `--amp` once was, engine/runner.py:140-143). The
+    baseline `SparseFeatureFusion3DGrounder` is built as itself (the JAX
+    Runner builds the preshape grounder for it) and takes no `preshape`
+    block."""
+    task = _model_task(model_cfg)
+    if task == 'detection':
         return _build_detection_model(model_cfg, device)
+    if task == 'occupancy':
+        return _build_occ_model(model_cfg, device)
+    baseline = model_cfg.get('type') == 'SparseFeatureFusion3DGrounder'
+    if baseline and 'preshape' in model_cfg:
+        raise ValueError('model.preshape: SparseFeatureFusion3DGrounder is '
+                         'the baseline without the preshape module')
     cfg = dict(model_cfg)
     kw: Dict[str, Any] = {k: cfg[k] for k in _FLAT_KEYS if k in cfg}
     if 'voxel_extent' in kw:
@@ -289,7 +351,9 @@ def build_model_from_cfg(model_cfg: Dict[str, Any], device=None):
         if list(neck['in_channels']) != derived:
             raise ValueError(f'neck_3d.in_channels {neck["in_channels"]} '
                              f'differ from the derived {derived}')
-    return SparseFeatureFusion3DGrounderPreshape(**kw, device=device)
+    cls = (SparseFeatureFusion3DGrounder if baseline
+           else SparseFeatureFusion3DGrounderPreshape)
+    return cls(**kw, device=device)
 
 
 def ema_from_hooks(hooks) -> Optional[ExpMomentumEMA]:
@@ -369,7 +433,8 @@ class Runner:
         self.model = build_model_from_cfg(cfg['model'], self.device)
         pp_cfg = dict(cfg['model'].get('data_preprocessor', {}))
         pp_cfg.pop('type', None)
-        pp_cfg.setdefault('n_points', self.model.n_points)
+        pp_cfg.setdefault('n_points', getattr(self.model, 'n_points',
+                                              100_000))
         pp_cfg.setdefault('max_text_len',
                           getattr(self.model, 'max_text_len', 256))
         self.n_views = cfg.get('n_views', 20)
@@ -605,11 +670,122 @@ class Runner:
         return self.model
 
     # ------------------------------------------------------------------
+    def _tta_metas(self):
+        """The augmented copies of `tta_cfg`, as MultiScaleFlipAug3D
+        enumerates them (reference test_time_aug.py:13-119; the JAX
+        Runner's `_tta_metas`): each scale of `pts_scale_ratio`, without
+        and (with `flip`) with each flip direction."""
+        tta_cfg = self.cfg.get('tta_cfg', {})
+        scales = tta_cfg.get('pts_scale_ratio', [1.0])
+        if isinstance(scales, (int, float)):
+            scales = [scales]
+        flip = tta_cfg.get('flip', True)
+        directions = tta_cfg.get('flip_direction', ['horizontal'])
+        if isinstance(directions, str):
+            directions = [directions]
+        metas = []
+        for s in scales:
+            for do_flip in ([False, True] if flip else [False]):
+                for d in (directions if do_flip else ['horizontal']):
+                    metas.append({
+                        'pcd_scale_factor': float(s),
+                        'pcd_horizontal_flip': do_flip and d == 'horizontal',
+                        'pcd_vertical_flip': do_flip and d == 'vertical',
+                    })
+        return metas
+
+    @staticmethod
+    def _apply_tta_aug(batch, meta):
+        """An augmented copy of a collated (numpy) batch: the points
+        flipped and scaled, and the flags and scale the painting's inverse
+        replay reads (the reference's aug_test, sparse_featfusion_grounder_
+        preshape.py:1031-1074)."""
+        out = dict(batch)
+        pts = np.array(batch['points'], np.float32, copy=True)
+        if meta['pcd_horizontal_flip']:
+            pts[..., 0] *= -1
+        if meta['pcd_vertical_flip']:
+            pts[..., 1] *= -1
+        s = meta.get('pcd_scale_factor', 1.0)
+        if s != 1.0:
+            pts[..., :3] *= s
+        out['points'] = pts
+        B = pts.shape[0]
+        out['pcd_flip_x'] = np.full((B, ), meta['pcd_horizontal_flip'])
+        out['pcd_flip_y'] = np.full((B, ), meta['pcd_vertical_flip'])
+        base = np.asarray(batch.get('pcd_scale_factor',
+                                    np.ones((B, 1), np.float32)), np.float32)
+        out['pcd_scale_factor'] = base * s
+        return out
+
+    @classmethod
+    def _stack_tta_batches(cls, batch, aug_metas):
+        """Every augmented copy stacked along the batch axis, so one
+        forward predicts them all; host lists stay those of the batch."""
+        augs = [cls._apply_tta_aug(batch, m) for m in aug_metas]
+        return {k: (np.concatenate([a[k] for a in augs], axis=0)
+                    if isinstance(v, np.ndarray) and v.ndim > 0 else v)
+                for k, v in augs[0].items()}
+
+    def _predict(self, batch, bs: int, aug_metas):
+        """The model's outputs for one padded batch and its host part: a
+        list with one entry per augmented copy (one entry without TTA),
+        numpy but for the detector's, which stay on the device for its
+        NMS."""
+        if len(aug_metas) > 1:
+            dev_batch, host = self._split_batch(
+                self._stack_tta_batches(batch, aug_metas))
+            out = {k: v.cpu().numpy() for k, v in self.model(dev_batch).items()}
+            return [{k: v[i * bs:(i + 1) * bs] for k, v in out.items()}
+                    for i in range(len(aug_metas))], host
+        meta = aug_metas[0]
+        dev_batch, host = self._split_batch(
+            batch if meta is None else self._apply_tta_aug(batch, meta))
+        out = self.model(dev_batch)
+        if self.task == 'detection':
+            return [out], host
+        return [{k: v.cpu().numpy() for k, v in out.items()}], host
+
+    def _occupancy_samples(self, out, anns):
+        """Each scene's predicted labels beside its dense gt at full
+        resolution (ratio 1) from the sparse `gt_occupancy` of its
+        `eval_ann_info` (the JAX Runner's val, engine/runner.py:594-607)."""
+        occ = out['occupancy']
+        samples = []
+        for b, ann in enumerate(anns):
+            gt = torch.as_tensor(np.asarray(ann['gt_occupancy'], np.float32)
+                                 .reshape(-1, 4))
+            dense = occ_multiscale_supervision(
+                gt, torch.ones(len(gt), dtype=torch.bool), 1,
+                tuple(occ[b].shape))
+            samples.append({'pred_occupancy': occ[b],
+                            'gt_occupancy_dense': dense.numpy()})
+        return samples
+
+    def _grounding_preds(self, outs, aug_metas, n):
+        """Per scene {'bboxes_3d', 'scores_3d', 'target_scores_3d'}; with
+        TTA the copies merged by `merge_aug_bboxes_3d`."""
+        preds = []
+        for b in range(n):
+            if aug_metas[0] is None:
+                boxes, scores = outs[0]['bboxes_3d'][b], outs[0]['scores_3d'][b]
+            else:
+                merged = merge_aug_bboxes_3d(
+                    [{'bboxes_3d': o['bboxes_3d'][b],
+                      'scores_3d': o['scores_3d'][b]} for o in outs],
+                    aug_metas)
+                boxes, scores = merged['bboxes_3d'], merged['scores_3d']
+            preds.append({'bboxes_3d': boxes, 'scores_3d': scores,
+                          'target_scores_3d': scores})
+        return preds
+
     def val(self, resume: Optional[str] = None, init_state: bool = True,
             tta: bool = False):
-        if tta:
-            raise NotImplementedError('test-time augmentation (models/'
-                                      'tta.py) is ROADMAP item 14')
+        """Predict over the val (else test) loader and score with the
+        task's metric; `tta` predicts the augmented copies of `tta_cfg`
+        in one forward and merges them (grounding only)."""
+        if tta and self.task != 'grounding':
+            raise NotImplementedError('TTA is a grounding-path feature')
         loader_cfg = self.cfg.get('val_dataloader') \
             or self.cfg.get('test_dataloader')
         loader = self._build_loader(loader_cfg, train=False)
@@ -633,22 +809,24 @@ class Runner:
                     'val() is scoring freshly-initialized random weights '
                     '(no checkpoint given) — pass resume=CKPT or call '
                     'after train() for a meaningful metric')
+        aug_metas = self._tta_metas() if tta else [None]
         with self._ema_weights():
             for batch in loader:
                 batch, _ = self._pad_batch(batch, bs)
-                dev_batch, host = self._split_batch(batch)
-                out = self.model(dev_batch)
+                outs, host = self._predict(batch, bs, aug_metas)
+                anns = host['eval_ann_info']
                 if self.task == 'detection':
-                    preds = self._detections(out)
+                    samples = [{'eval_ann_info': ann, 'pred_instances_3d': p}
+                               for ann, p in zip(anns,
+                                                 self._detections(outs[0]))]
+                elif self.task == 'occupancy':
+                    samples = self._occupancy_samples(outs[0], anns)
                 else:
-                    out = {k: v.cpu().numpy() for k, v in out.items()}
-                    preds = [{'bboxes_3d': out['bboxes_3d'][b],
-                              'scores_3d': out['scores_3d'][b],
-                              'target_scores_3d': out['scores_3d'][b]}
-                             for b in range(len(out['bboxes_3d']))]
-                for ann, pred in zip(host['eval_ann_info'], preds):
-                    metric.process(None, [{'eval_ann_info': ann,
-                                           'pred_instances_3d': pred}])
+                    samples = [{'eval_ann_info': ann, 'pred_instances_3d': p}
+                               for ann, p in zip(anns, self._grounding_preds(
+                                   outs, aug_metas, len(anns)))]
+                for sample in samples:
+                    metric.process(None, [sample])
         results = metric.evaluate()
         logger.info('val results: %s',
                     {k: round(v, 4) for k, v in results.items()})

@@ -1,11 +1,12 @@
-"""Losses of the FCAF3D detection head.
+"""Losses of the FCAF3D detection head and of the occupancy head.
 
-Counterpart of proxytransformation_tpu/models/det_losses.py (its box and
-centerness losses; the occupancy losses of that file come with the
-occupancy models): `rotated_iou_3d_loss` (1 - exact IoU of oriented
-boxes, differentiable through `ops/box3d_overlap.py`'s vertex solve),
-`axis_aligned_iou_loss` and `binary_cross_entropy_with_logits` (mmdet's
-CrossEntropyLoss with use_sigmoid=True).
+Counterpart of proxytransformation_tpu/models/det_losses.py:
+`rotated_iou_3d_loss` (1 - exact IoU of oriented boxes, differentiable
+through `ops/box3d_overlap.py`'s vertex solve), `axis_aligned_iou_loss`,
+`binary_cross_entropy_with_logits` (mmdet's CrossEntropyLoss with
+use_sigmoid=True), the occupancy head's scene-class affinity losses
+`geo_scal_loss` and `sem_scal_loss` (reference occ_loss.py:39-141) and
+the preshape offsets' `gaussian_kernel_loss`.
 
 Where the JAX package clips with `jnp.clip` / `jnp.maximum`, this file
 takes `torch.maximum` / `torch.minimum`: both split the gradient in half
@@ -84,3 +85,71 @@ def binary_cross_entropy_with_logits(pred, target, weight=None,
     if weight is not None:
         loss = loss * weight
     return _average(torch.sum(loss), avg_factor, 1.0)
+
+
+def gaussian_kernel_loss(offsets: torch.Tensor, sigma: float = 1.0,
+                         mask=None) -> torch.Tensor:
+    """Mean of 1 - exp(-|offset|² / 2σ²) over the (masked) offsets
+    (reference gaussian_offset_loss.py:1-35)."""
+    d2 = torch.sum(offsets * offsets, -1)
+    loss = 1.0 - torch.exp(-d2 / (2 * sigma ** 2))
+    if mask is None:
+        return torch.mean(loss)
+    m = mask.to(loss.dtype)
+    return torch.sum(loss * m) / _max(torch.sum(m), 1.0)
+
+
+def _neg_log_clip(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """-log(clip(x, eps, 1)), with jnp.clip's gradient at the bounds."""
+    return -torch.log(_min(_max(x, eps), 1.0))
+
+
+def geo_scal_loss(pred_logits: torch.Tensor, gt: torch.Tensor,
+                  empty_label: int, mask=None) -> torch.Tensor:
+    """Geometric scene-class affinity: -log of the precision, recall and
+    specificity of occupied (any class but `empty_label`) against empty,
+    over the voxels of `mask` (default gt >= 0). pred_logits (..., C)."""
+    probs = torch.softmax(pred_logits, -1)
+    empty = probs[..., empty_label]
+    nonempty = 1.0 - empty
+    is_occ = ((gt != empty_label) & (gt >= 0)).to(probs.dtype)
+    if mask is None:
+        mask = gt >= 0
+    m = mask.to(probs.dtype)
+    occ = is_occ * m
+    free = (1.0 - is_occ) * m
+    eps = 1e-6
+    precision = torch.sum(nonempty * occ) / _max(torch.sum(nonempty * m), eps)
+    recall = torch.sum(nonempty * occ) / _max(torch.sum(occ), eps)
+    spec = torch.sum(empty * free) / _max(torch.sum(free), eps)
+    return (_neg_log_clip(precision, eps) + _neg_log_clip(recall, eps)
+            + _neg_log_clip(spec, eps))
+
+
+def sem_scal_loss(pred_logits: torch.Tensor, gt: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """Semantic scene-class affinity: per class, -log of the precision,
+    recall and specificity of its softmax probability against its gt
+    voxels, averaged over the classes present in the masked gt. The JAX
+    package loops over the C classes; here one pass over a (V, C) layout
+    computes every class at once (the sums are taken in another order, so
+    the result agrees to float32 rounding, not bit for bit)."""
+    C = pred_logits.shape[-1]
+    probs = torch.softmax(pred_logits, -1).reshape(-1, C)
+    if mask is None:
+        mask = gt >= 0
+    m = mask.reshape(-1, 1).to(probs.dtype)
+    classes = torch.arange(C, device=gt.device)
+    t = (gt.reshape(-1, 1) == classes).to(probs.dtype) * m
+    eps = 1e-6
+    pt = torch.sum(probs * t, 0)
+    t_sum = torch.sum(t, 0)
+    precision = pt / _max(torch.sum(probs * m, 0), eps)
+    recall = pt / _max(t_sum, eps)
+    spec = (torch.sum((1 - probs) * (m - t), 0)
+            / _max(torch.sum(m - t, 0), eps))
+    per_class = (_neg_log_clip(precision, eps) + _neg_log_clip(recall, eps)
+                 + _neg_log_clip(spec, eps))
+    has = t_sum > 0
+    total = torch.sum(torch.where(has, per_class, torch.zeros_like(per_class)))
+    return total / _max(torch.sum(has.to(probs.dtype)), 1.0)

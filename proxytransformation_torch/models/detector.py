@@ -1,7 +1,10 @@
-"""End-to-end ego-centric 3D visual grounder (the flagship).
+"""End-to-end ego-centric 3D visual grounder (the flagship), and the
+baseline without the preshape.
 
 Counterpart of proxytransformation_tpu/models/detector.py::
-SparseFeatureFusion3DGrounderPreshape, in float32 or, with
+SparseFeatureFusion3DGrounderPreshape and ::SparseFeatureFusion3DGrounder
+(the baseline voxelizes the raw points: no ProxyTransformation module,
+and no `preshape.*` parameters), in float32 or, with
 `compute_dtype='bfloat16'`, in the reference's bfloat16 mode: `forward`
 is predict (eval mode, no gradient), `loss` the train-mode losses
 (mode='loss'):
@@ -73,6 +76,9 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     'clip' is ported.
     """
 
+    # the baseline subclass builds no preshape module
+    use_preshape = True
+
     def __init__(self, num_queries: int = 256, voxel_size: float = 0.01,
                  use_xyz_feat: bool = True,
                  max_text_len: int = 256, n_points: int = 100_000,
@@ -119,12 +125,14 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                                                 layers=text_layers,
                                                 heads=text_heads)
             self.text_feat_map = linear(text_width, embed_dims)
-            self.preshape = ProxyTransformationNormReverse(
-                embed_dim=embed_dims, num_heads=num_heads,
-                grid_size=grid_size, text_blocks=text_blocks,
-                img_blocks=img_blocks, dynamic_drop_radio=dynamic_drop_radio,
-                num_sub=num_sub, input_dim=img_base_channels * 32,
-                img_spacial_dim=img_spacial_dim, dtype=cdt)
+            if self.use_preshape:
+                self.preshape = ProxyTransformationNormReverse(
+                    embed_dim=embed_dims, num_heads=num_heads,
+                    grid_size=grid_size, text_blocks=text_blocks,
+                    img_blocks=img_blocks,
+                    dynamic_drop_radio=dynamic_drop_radio, num_sub=num_sub,
+                    input_dim=img_base_channels * 32,
+                    img_spacial_dim=img_spacial_dim, dtype=cdt)
             self.backbone_3d = MinkResNet(backbone3d_depth, 3,
                                           sparse_capacities, cdt,
                                           self.remat)
@@ -160,9 +168,12 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
         img_feats = [f.reshape((B, V) + f.shape[1:])
                      for f in self.backbone(imgs.reshape(B * V, H, W, 3))]
         xyz = batch['points'][..., :3]
-        points, points_mask = self.preshape(
-            xyz, batch['points_mask'], text_feats, batch['text_mask'],
-            img_feats[-1], train, generator)
+        if self.use_preshape:
+            points, points_mask = self.preshape(
+                xyz, batch['points_mask'], text_feats, batch['text_mask'],
+                img_feats[-1], train, generator)
+        else:
+            points, points_mask = xyz, batch['points_mask']
         if self.use_xyz_feat:
             feats = points
         else:
@@ -267,6 +278,14 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                 hidden, all_boxes, text_feats, text_mask,
                 batch['gt_bboxes'], batch['gt_masks'],
                 batch['positive_maps'], query_mask)
+
+
+class SparseFeatureFusion3DGrounder(SparseFeatureFusion3DGrounderPreshape):
+    """The baseline grounder (reference sparse_featfusion_grounder.py:
+    31-767): the flagship without the preshape module. The preshape's
+    keywords are accepted and unused."""
+
+    use_preshape = False
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

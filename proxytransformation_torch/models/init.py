@@ -1,13 +1,14 @@
 """Fresh weights drawn as the JAX package's flax modules draw them.
 
-`flax_init_(model, generator)` sets every parameter of the grounder or
-the detector by the initialiser its JAX twin declares (the draws differ:
+`flax_init_(model, generator)` sets every parameter of the grounder, the
+detector or an occupancy model by the initialiser its JAX twin declares (the draws differ:
 another generator; the laws and constants are the same):
 
 - Dense and Conv kernels (`Linear`, `Conv1x1`, the 2D ResNet's convs,
-  the attention's in-projection, the FCAF3D head's `conv_center` /
-  `conv_reg`): lecun normal, a normal truncated at two standard
-  deviations with variance 1 / fan_in; their biases zero;
+  the occupancy models' 3D convs, the attention's in-projection, the
+  FCAF3D head's `conv_center` / `conv_reg`): lecun normal, a normal
+  truncated at two standard deviations with variance 1 / fan_in; their
+  biases zero;
 - sparse conv and generative transpose kernels: variance scaling 2.0 by
   fan_out (K³·C_out), truncated normal (models/sparse_resnet.py:28,
   sparse_neck.py:61);
@@ -76,11 +77,11 @@ def _draw(mod: nn.Module, mod_name: str, leaf: str, p: torch.Tensor,
     """The initial value of parameter `leaf` of module `mod`."""
     shape = p.shape
     zeros, ones = torch.zeros(shape), torch.ones(shape)
-    if leaf == 'bias' and isinstance(mod, (nn.Linear, Conv1x1)):
+    if leaf == 'bias' and isinstance(mod, (nn.Linear, Conv1x1, nn.Conv3d)):
         return zeros
     if isinstance(mod, (nn.Linear, Conv1x1)):
         return _variance_scaling(shape, 1.0, shape[1], gen)  # (out, in, ..)
-    if isinstance(mod, _Conv2d):
+    if isinstance(mod, (_Conv2d, nn.Conv3d)):
         return _variance_scaling(shape, 1.0, math.prod(shape[1:]), gen)
     if leaf == 'in_proj_weight':
         return _variance_scaling(shape, 1.0, shape[1], gen)

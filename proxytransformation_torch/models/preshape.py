@@ -15,9 +15,10 @@ transform heads' flax BatchNorms use batch statistics and update their
 running ones; every proxy block drops attention weights, its projection
 and its MLP activations with rate 0.2 and its residual branches with a
 per-sample DropPath of rate linspace(0, 0.2, blocks)[i]. The draws come
-from the `generator` handed to `forward`. FPS keeps its deterministic
-start, as the reference's train step passes no 'fps' rng
-(engine/train.py:121).
+from the `generator` handed to `forward`. FPS starts at the first valid
+centre unless `forward` is handed an `fps_generator` in train mode (the
+JAX package's 'fps' rng, reference models/preshape.py:338-361); the train
+step passes none, as the JAX package's does (engine/train.py:121).
 
 `dtype` bfloat16 (reference models/preshape.py:73-268) runs the point
 MLPs' first layers, the image pooling and the proxy blocks' dense layers
@@ -359,8 +360,9 @@ class ProxyTransformationNormReverse(nn.Module):
                                   self.radius, mask)
         return new_centers, cluster, idx
 
-    def _dynamic_dropout(self, cluster, center, idx):
-        """Drop the emptiest clusters, then FPS-selected ones."""
+    def _dynamic_dropout(self, cluster, center, idx, fps_generator=None):
+        """Drop the emptiest clusters, then FPS-selected ones (FPS from a
+        random start drawn from `fps_generator`, when one is given)."""
         B, M, K, _ = cluster.shape
         pad_counts = torch.sum(idx == -1, dim=2)
         temp_keep = M - int(M * self.empty_drop)
@@ -372,7 +374,8 @@ class ProxyTransformationNormReverse(nn.Module):
         num_keep = int(M * (1 - self.dynamic_drop_radio))
         num_drop = temp_keep - num_keep
         # FPS selects the DROPPED clusters (reference :393)
-        _, fps_drop = sample_farthest_points(center1.detach(), num_drop)
+        _, fps_drop = sample_farthest_points(center1.detach(), num_drop,
+                                             generator=fps_generator)
         keep_mask = torch.ones((B, temp_keep), dtype=torch.bool,
                                device=center.device)
         keep_mask.scatter_(1, fps_drop.long(), False)
@@ -391,15 +394,17 @@ class ProxyTransformationNormReverse(nn.Module):
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor,
                 text_feats: torch.Tensor, text_mask: torch.Tensor,
                 img_feat: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                fps_generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """points (B, N, 3), points_mask (B, N), text_feats (B, L, C),
         text_mask (B, L), img_feat (B, V, H, W, C_img) the deepest image
-        level → (new_points (B, N, 3), new_mask (B, N))."""
+        level → (new_points (B, N, 3), new_mask (B, N)). `fps_generator`
+        draws the dynamic dropout's FPS start in train mode only."""
         center, cluster, idx = self._deformable_cluster(points, points_mask,
                                                         train)
         cluster, center, idx, drop_idx = self._dynamic_dropout(
-            cluster, center, idx)
+            cluster, center, idx, fps_generator if train else None)
         b, m, k, _ = cluster.shape
         point_proxy = self.simple_encoder(center, cluster, train)
 

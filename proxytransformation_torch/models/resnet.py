@@ -91,12 +91,15 @@ class ResNet(nn.Module):
                 inpl = planes * 4
             self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, n_stages: int = 4) -> List[torch.Tensor]:
+        """The outputs of the first `n_stages` stages (a caller that reads
+        only the first stage skips the rest, as XLA drops what no output
+        reads)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous()
         x = torch.relu(_bn(self.conv1(x), self.bn1))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
-        for i in range(4):
+        for i in range(n_stages):
             for block in getattr(self, f'layer{i + 1}'):
                 x = checkpoint_block(block, x) if self.remat else block(x)
             outs.append(x.permute(0, 2, 3, 1))

@@ -1,10 +1,11 @@
-"""Farthest point sampling with the deterministic start.
+"""Farthest point sampling.
 
-Counterpart of proxytransformation_tpu/ops/fps.py::sample_farthest_points
-with `rng=None`: start at the first valid point, then repeatedly pick the
-point farthest from the selected set (first index on ties, like argmax
-in both frameworks). The Gumbel random start is train-only and is not
-ported.
+Counterpart of proxytransformation_tpu/ops/fps.py::sample_farthest_points:
+start at the first valid point (the JAX package's `rng=None`) or, given a
+`generator`, at a point drawn uniformly from the valid ones (its `rng`,
+pytorch3d's random_start_point; the draws differ, the law is the same),
+then repeatedly pick the point farthest from the selected set (first
+index on ties, like argmax in both frameworks).
 """
 from __future__ import annotations
 
@@ -15,10 +16,21 @@ import torch
 from .common import masked_gather
 
 
-def fps_idx(points: torch.Tensor, mask: torch.Tensor, K: int) -> torch.Tensor:
-    """(B, K) int32 indices of the farthest-point sample."""
+def random_start(mask: torch.Tensor, generator: torch.Generator
+                 ) -> torch.Tensor:
+    """(B,) start indices uniform over each row's valid points."""
+    u = torch.rand(mask.shape, generator=generator, device=mask.device)
+    return torch.argmax(torch.where(mask, u, torch.full_like(u, -1.0)), dim=1)
+
+
+def fps_idx(points: torch.Tensor, mask: torch.Tensor, K: int,
+            start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, K) int32 indices of the farthest-point sample from `start`
+    ((B,) indices; default the first valid point)."""
     B, P, _ = points.shape
-    start = torch.argmax(mask.to(torch.int32), dim=1)
+    if start is None:
+        start = torch.argmax(mask.to(torch.int32), dim=1)
+    start = start.long()
     out = torch.full((B, K), -1, dtype=torch.int64, device=points.device)
     out[:, 0] = start
     inf = torch.tensor(float('inf'), device=points.device)
@@ -35,11 +47,14 @@ def fps_idx(points: torch.Tensor, mask: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def sample_farthest_points(points: torch.Tensor, K: int,
-                           mask: Optional[torch.Tensor] = None
+                           mask: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns sampled (B, K, 3) points and their (B, K) int32 indices."""
+    """Returns sampled (B, K, 3) points and their (B, K) int32 indices;
+    with `generator` the start is drawn from it."""
     if mask is None:
         mask = torch.ones(points.shape[:2], dtype=torch.bool,
                           device=points.device)
-    idx = fps_idx(points.float(), mask, K)
+    start = None if generator is None else random_start(mask, generator)
+    idx = fps_idx(points.float(), mask, K, start)
     return masked_gather(points, idx), idx

@@ -1,9 +1,12 @@
 """Test CLI (the port's twin of tools/test.py): the test split through
 the Runner, with the config's test loader and evaluator (a format_only
-evaluator writes `test_results.json` to the work dir).
+evaluator writes `test_results.json` to the work dir); `--tta` predicts
+the augmented copies of the config's `tta_cfg` and merges them
+(grounding configs only).
 
     python -m proxytransformation_torch.tools.test CONFIG [CHECKPOINT]
-        [--work-dir DIR] [--device cpu|cuda] [--cfg-options k=v ...]
+        [--work-dir DIR] [--tta] [--device cpu|cuda]
+        [--cfg-options k=v ...]
 """
 from __future__ import annotations
 
@@ -16,12 +19,13 @@ from .train import work_dir_of
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
-    parser = argparse.ArgumentParser(description='Test a grounder')
+    parser = argparse.ArgumentParser(
+        description='Test a grounder, a detector or an occupancy model')
     parser.add_argument('config')
     parser.add_argument('checkpoint', nargs='?', default=None)
     parser.add_argument('--work-dir')
     parser.add_argument('--tta', action='store_true',
-                        help='test-time augmentation (not ported: raises)')
+                        help='test-time augmentation (grounding only)')
     parser.add_argument('--device', default=None,
                         help='torch device; default: the card')
     parser.add_argument('--cfg-options', nargs='+', default=[])

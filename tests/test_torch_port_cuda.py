@@ -856,3 +856,59 @@ def test_runner_tiny_config_card_vs_cpu(gen, tmp_path, monkeypatch):
     for k in ('loss_cls', 'loss_bbox', 'd0.loss_cls', 'd0.loss_bbox',
               'total_loss', 'grad_norm'):
         assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) + 1e-6, k
+
+
+# --------------------------------------------------------------------------
+# occupancy: the bilinear painting and the tiny Runner, card vs CPU
+# --------------------------------------------------------------------------
+def test_bilinear_painting_card_vs_cpu(gen):
+    """`batch_point_sample(aligned=True)` on the card against the CPU on
+    the same inputs: within 1e-6 · (1 + max|x|)."""
+    from proxytransformation_torch.models.point_fusion import (
+        batch_point_sample)
+    rng = np.random.RandomState(3)
+    B, V, Hf, Wf, C, N, H, W = 2, 5, 30, 40, 16, 5000, 120, 160
+    feats = rng.randn(B, V, Hf, Wf, C).astype(np.float32)
+    pts = rng.uniform([-2, -2, -0.5], [2, 2, 3], (B, N, 3)).astype(np.float32)
+    proj = np.tile(np.array([[90, 0, W / 2, 0], [0, 90, H / 2, 0],
+                             [0, 0, 1, 0], [0, 0, 0, 1]], np.float32),
+                   (B, V, 1, 1))
+    proj[:, :, 0, 3] = rng.uniform(-20, 20, (B, V))
+    views = rng.rand(B, V) > 0.2
+    args = [torch.from_numpy(a) for a in (feats, pts, proj)]
+    want = batch_point_sample(*args, (H, W), views_mask=torch.from_numpy(
+        views), aligned=True)
+    got = batch_point_sample(*[a.cuda() for a in args], (H, W),
+                             views_mask=torch.from_numpy(views).cuda(),
+                             aligned=True)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-6 * (1 + float(want.abs().max())), err
+    assert bool((want != 0).any(-1).float().mean() > 0.3)
+
+
+@pytest.mark.parametrize('mtype', ['EmbodiedOccPredictor',
+                                   'DenseFusionOccPredictor'])
+def test_tiny_occupancy_runner_card_vs_cpu(gen, tmp_path, mtype):
+    """configs/occupancy/synthetic_smoke.py (one step, val) through the
+    Runner on the card and on the CPU from the same seeded fresh weights:
+    the first step's losses within 1e-5 relative; then val on the card
+    with the CPU run's trained weights gives the CPU's results."""
+    from proxytransformation_torch.engine.runner import Runner
+    from proxytransformation_torch.utils.config import Config
+    runners = {}
+    for device in ('cpu', 'cuda'):
+        cfg = Config.fromfile('configs/occupancy/synthetic_smoke.py')
+        cfg.merge_from_dict(Config.parse_cfg_options([
+            'train_dataloader.dataset.length=2', f'model.type={mtype!r}']))
+        runners[device] = Runner(cfg, str(tmp_path / device), device=device)
+        runners[device].train()
+    cpu, card = runners['cpu'], runners['cuda']
+    for k, v in cpu.train_log[0].items():
+        if k.startswith('loss_') or k == 'total_loss':
+            assert abs(card.train_log[0][k] - v) <= 1e-5 * abs(v), k
+    card.model.load_state_dict(cpu.model.state_dict())
+    want = cpu.val(init_state=False)
+    got = card.val(init_state=False)
+    assert set(got) == set(want) and 'mIoU' in got
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-3, (k, got[k], v)

@@ -186,12 +186,29 @@ def test_port_imports_no_jax_or_missing_packages():
     assert seen == set(OPTIONAL)
 
 
+# the modules of the occupancy, TTA and baseline slice
+SLICE_MODULES = ('ops/voxelize.py', 'models/occ.py', 'models/tta.py',
+                 'eval/occupancy_metric.py', 'converter/occupancy.py')
+
+
+@pytest.mark.parametrize('module', SLICE_MODULES)
+def test_slice_modules_are_guarded(module):
+    """Each module is among the files the static guard above walks, and
+    imports none of the forbidden packages."""
+    path = ROOT / 'proxytransformation_torch' / module
+    assert path in set((ROOT / 'proxytransformation_torch').rglob('*.py'))
+    assert not {mod for mod, _ in _imports(path)} & FORBIDDEN
+
+
 def test_port_runtime_loads_no_forbidden_module():
     # the data path too: a JPEG and a PNG view through the host decoder
     code = ('import sys, proxytransformation_torch.tools.train, '
             'proxytransformation_torch.tools.test, '
             'proxytransformation_torch.tools.eval, '
-            'proxytransformation_torch.tools.make_image_fixtures; '
+            'proxytransformation_torch.tools.make_image_fixtures, '
+            'proxytransformation_torch.converter.occupancy, '
+            'proxytransformation_torch.models.occ, '
+            'proxytransformation_torch.models.tta; '
             'from proxytransformation_torch.data import image_io; '
             'image_io.imread("tests/torch_port_images/view0_640x480.jpg"); '
             'image_io.imread("tests/torch_port_images/depth0_640x480.png", '

@@ -7,7 +7,8 @@ checkpoints and resume.
   with remat each checkpointed block runs its forward twice.
 - The model builder and the Runner raise on what the port cannot honour
   rather than dropping it; the detection configs build the detector, and
-  its builder raises on a key it does not take and on `--amp`.
+  its builder raises on a key it does not take and on `--amp`; TTA
+  raises outside grounding and runs on a grounding config.
 - Checkpoints: rotation, `latest_checkpoint`, a warm start that copies
   only parameters of matching name and shape (also from an upstream
   `.pth` through `load_from`). A run resumed from a mid-epoch checkpoint
@@ -119,9 +120,11 @@ def test_use_xyz_feat_false_voxelizes_the_colour():
     ({'t_type': 'roberta'}, NotImplementedError, 'item 14'),
     # the detector's builder takes none of the grounder's keys
     ({'type': 'Embodied3DDetector'}, ValueError, "'preshape'"),
-    ({'type': 'EmbodiedOccPredictor'}, NotImplementedError, 'item 13'),
-    ({'type': 'SparseFeatureFusion3DGrounder'}, NotImplementedError,
-     'item 14'),
+    # the occupancy builder takes none of the grounder's keys either
+    ({'type': 'EmbodiedOccPredictor'}, ValueError, "'preshape'"),
+    # the baseline grounder takes no preshape block
+    ({'type': 'SparseFeatureFusion3DGrounder'}, ValueError,
+     'model.preshape'),
     ({'type': 'SomethingElse'}, KeyError, 'unknown model type'),
     ({'use_preshape': False}, ValueError, 'use_preshape'),
     ({'backbone_3d': {'depth': 14, 'in_channels': 6}}, NotImplementedError,
@@ -206,8 +209,14 @@ def test_detection_builder_raises_on_what_it_cannot_honour(change, error,
 
 
 def test_tta_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match='item 14'):
-        Runner(smoke_cfg(), str(tmp_path), device='cpu').test(tta=True)
+    """TTA raises outside grounding (the occupancy config), and on the
+    grounding config scores the merged copies."""
+    occ = Config.fromfile(str(ROOT / 'configs/occupancy/synthetic_smoke.py'))
+    with pytest.raises(NotImplementedError, match='grounding-path'):
+        Runner(occ, str(tmp_path), device='cpu').test(tta=True)
+    results = Runner(smoke_cfg('val_dataloader.dataset.length=2'),
+                     str(tmp_path), device='cpu').test(tta=True)
+    assert 'Overall@0.25' in results
 
 
 # --------------------------------------------------------------------------
