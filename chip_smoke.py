@@ -144,7 +144,23 @@ Phases (any failure exits non-zero before the final line):
      requests on `flagship_batch` (B=2, 100k points, 20 views) and one
      AdamW step; every kernel call of the first request and of the step
      held against its plain version; no ball query (that is the
-     preshape's); request ms beside phase 5's flagship requests.
+     preshape's); request ms beside phase 5's flagship requests;
+ 18. the text towers, MinkResNet-50 and the brick stages (float32, TF32
+     off): (a) the flagship's model config with t_type='roberta-base'
+     (768 x 12 layers, vocabulary 50265, 514 positions), flax's fresh
+     weights, from launch counts of 0 three requests on `flagship_batch`
+     (two timed with their peak memory, the third's kernel calls
+     checked), its text stage's device ms beside phase 5's CLIP tower
+     (`[roberta]`); (b) every tower family at its published size alone
+     on B=2, L=32 ids within its vocabulary: shape, finiteness, CUDA-
+     event ms, the base sizes against the same weights on the CPU within
+     1e-4 · (1 + max) (`[towers]`); (c) MinkResNet-50 with the instance-
+     norm and the batch-norm stem beside MinkResNet-34 on the flagship's
+     voxelized points (`[mink50]`) and (d) MinkResNet-34 with brick
+     stages (0,) and (0, 1) beside the cell format (the stage outputs
+     within tests/test_brick.py's 1e-3; `[brick]`), each forward timed
+     twice and captured once, every kernel call of the depth-50 and the
+     brick forwards checked (the 8C-wide brick convs: 512 and 1024).
 Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
 `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
@@ -163,8 +179,11 @@ first run and their times those of its first step's calls, and
 `<kernel>:realdata` phase 13's, `<kernel>:detection` phase 14's,
 `<kernel>:tta` phase 16's (its first batch's calls) and
 `<kernel>:baseline` phase 17's (launches: three requests and the step;
-times: the first request's and the step's calls) in the same way); the
-last line is
+times: the first request's and the step's calls), `<kernel>:roberta`
+phase 18a's (launches: three requests; times: the third's calls),
+`<kernel>:mink50` and `<kernel>:brick` phase 18c's and 18d's (launches:
+the two depth-50 or the two brick models' three forwards each; times:
+one forward of each) in the same way); the last line is
 {"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1135,6 +1154,10 @@ def run() -> int:
     # 17. the baseline grounder
     baseline = baseline_phases(smi, predict['req_ms'])
 
+    # 18. the text towers, MinkResNet-50 and the brick stages
+    slice13 = slice13_phases(smi, predict['req_ms'],
+                             predict['stages']['text_encoder'])
+
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
         {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
@@ -1175,15 +1198,20 @@ def run() -> int:
                               ('realdata', realdata, RUNNER_KERNELS),
                               ('detection', detection, DETECTION_KERNELS),
                               ('tta', tta, PREDICT_KERNELS),
-                              ('baseline', baseline, BASELINE_KERNELS)):
+                              ('baseline', baseline, BASELINE_KERNELS),
+                              ('roberta', slice13['roberta'],
+                               PREDICT_KERNELS),
+                              ('mink50', slice13['mink50'], MINK_KERNELS),
+                              ('brick', slice13['brick'], MINK_KERNELS)):
         for name in names:
             entry = summarize(name, out['rows'][name], out['counts'][name],
-                              out['per_step'][name])
+                              out['per_step'].get(name, 0))
             entry['name'] = f'{name}:{phase}'
             kernels.append(entry)
     for e in kernels:
         phase = e['name'].partition(':')[2]
-        if phase in ('detection', 'tta', 'baseline'):
+        if phase in ('detection', 'tta', 'baseline', 'roberta', 'mink50',
+                     'brick'):
             log(f'[{phase}] kernels line: {e["name"]} {e["wrapper_calls"]} '
                 f'calls in the run ({e["launches"]} launches), '
                 f'{e["calls_checked"]} checked summing {e["ms"]:.3f} ms '
@@ -1204,6 +1232,13 @@ def run() -> int:
               'tta_batch_calls': tta['rows'],
               'baseline': baseline['summary'],
               'baseline_calls': baseline['rows'],
+              'roberta': slice13['roberta']['summary'],
+              'roberta_calls': slice13['roberta']['rows'],
+              'towers': slice13['towers'],
+              'mink50': slice13['mink50']['summary'],
+              'mink50_calls': slice13['mink50']['rows'],
+              'brick': slice13['brick']['summary'],
+              'brick_calls': slice13['brick']['rows'],
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -2700,6 +2735,296 @@ def baseline_phases(smi, flagship_req_ms):
                    counts={k: counts[k] for k in BASELINE_KERNELS})
     return dict(rows=rows, counts=counts, per_step=per_step,
                 summary=summary)
+
+
+# --------------------------------------------------------------------------
+# 18. the text towers, MinkResNet-50 and the brick stages
+# --------------------------------------------------------------------------
+MINK_KERNELS = ('lookup_pmz', 'sparse_conv')
+# base sizes held card against CPU; the large ones run on the card only
+TOWERS_CPU = ('bert-base-uncased', 'roberta-base', 'facebook/flava-full',
+              't5-base', 'deberta-base', 'clip-vit-base-patch32',
+              'eva02-l-14-336')
+TOWERS_CARD = ('t5-large', 'deberta-large', 'vit-h-14', 'vit-bigg-14')
+BRICK_RTOL = BRICK_ATOL = 1e-3   # tests/test_brick.py's
+
+
+def roberta_phase(flagship_req_ms, flagship_text_ms):
+    """18a: the flagship model config with t_type='roberta-base' (768
+    wide, 12 layers, vocabulary 50265, 514 positions), flax's fresh
+    weights: from launch counts of 0 three float32 requests on
+    `flagship_batch`, two timed (and their peak memory), the third
+    captured and its kernel calls checked."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.engine.runner import build_model_from_cfg
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.text_variants import (
+        RobertaTextEncoder)
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.utils.config import Config
+    repo = Path(__file__).resolve().parent
+    cfg = dict(Config.fromfile(str(repo / FLAGSHIP_CONFIG))['model'],
+               t_type='roberta-base')
+    model = build_model_from_cfg(cfg, device='cuda')
+    enc = model.text_encoder
+    require(isinstance(enc, RobertaTextEncoder) and enc.width == 768
+            and len(enc.encoder.layer) == 12 and enc.vocab_size == 50265
+            and enc.embeddings.position_embeddings.num_embeddings == 514,
+            'not the roberta-base tower')
+    flax_init_(model, torch.Generator().manual_seed(0))
+    dev = torch.device('cuda')
+    host = [flagship_batch(seed=r) for r in range(3)]
+    for b in host:
+        model.check_text_ids(b['input_ids'])
+    batches = [batch_to_device(b, dev) for b in host]
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first, req_ms, peak = {}, [], None
+    for r, batch in enumerate(batches):
+        out = {}
+        fn = lambda: out.update(model(batch))  # noqa: E731
+        if r < 2:
+            req_ms += cuda_ms(fn, 1)[0]
+        else:   # the last request captured, after the peak of the others
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            first = capture_kernel_calls(fn)
+        for k in ('bboxes_3d', 'scores_3d'):
+            require(bool(torch.isfinite(out[k]).all()), f'non-finite {k}')
+        require(out['bboxes_3d'].shape[-1] == 9 and
+                bool(out['query_mask'].any()), 'roberta request output')
+    counts = _cuda.launch_counts()
+    per_request = {k: len(first.get(k, ())) for k in PREDICT_KERNELS}
+    for name in PREDICT_KERNELS:
+        require(per_request[name] > 0 and counts[name] == 3 * per_request[
+            name], f'{name}: {counts[name]} launches in three roberta '
+            f'requests, {per_request[name]} a request')
+    with torch.no_grad():
+        rows = check_calls(first, PREDICT_KERNELS,
+                           'the roberta grounder\'s third request')
+    stages = stage_breakdown(model, batches[-1])
+    log(f'[roberta] flagship config with t_type=roberta-base (768 x 12 '
+        f'layers, vocabulary 50265, 514 positions), flax fresh weights: '
+        f'requests 1 and 2 ' + ', '.join(f'{d:.1f}' for d in req_ms)
+        + ' ms of CUDA events (request 3 captured); phase 5\'s CLIP '
+        'flagship requests ' + ', '.join(f'{d:.1f}' for d in flagship_req_ms)
+        + f' ms; text tower {stages["text_encoder"]:.2f} ms of a '
+        f'{stages["request"]:.1f} ms request (phase 5\'s CLIP tower '
+        f'{flagship_text_ms:.2f} ms); peak memory {peak:.2f} GiB; kernel '
+        f'calls a request {per_request}')
+    del model, batches, first
+    torch.cuda.empty_cache()
+    summary = dict(request_ms=req_ms, flagship_request_ms=flagship_req_ms,
+                   stage_ms=stages, flagship_text_ms=flagship_text_ms,
+                   peak_gib=peak, per_request=per_request)
+    return dict(rows=rows, counts=counts, per_step={}, summary=summary)
+
+
+def tower_phase():
+    """18b: every tower family at its published size alone, B=2, L=32 ids
+    within its vocabulary (one padded row): shape, finiteness and CUDA-
+    event ms; the base sizes also against the same weights on the CPU."""
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.layers import random_init_
+    from proxytransformation_torch.models.text_variants import (
+        build_text_encoder)
+    rng = np.random.RandomState(0)
+    mask = np.ones((2, 32), bool)
+    mask[1, 24:] = False
+    out = {}
+    for t_type in (*TOWERS_CPU, *TOWERS_CARD):
+        t0 = time.perf_counter()
+        on_cpu = t_type in TOWERS_CPU
+        if on_cpu:
+            cpu, width = build_text_encoder(t_type)
+            flax_init_(cpu, torch.Generator().manual_seed(0))
+            card, _ = build_text_encoder(t_type)
+            card.load_state_dict(cpu.state_dict())
+            card.to('cuda')
+        else:
+            with torch.device('cuda'):
+                card, width = build_text_encoder(t_type)
+            random_init_(card, torch.Generator(device='cuda').manual_seed(0))
+        ids = rng.randint(0, card.vocab_size, (2, 32)).astype(np.int32)
+        card.check_ids(ids)
+        ids_d = torch.from_numpy(ids).cuda()
+        mask_d = torch.from_numpy(mask).cuda()
+        with torch.no_grad():
+            got = card(ids_d, mask_d)
+            ms = cuda_ms(lambda: card(ids_d, mask_d), 3)[0]
+            require(got.shape == (2, 32, width) and
+                    bool(torch.isfinite(got).all()), f'{t_type} output')
+            err = tol = None
+            if on_cpu:
+                want = cpu(torch.from_numpy(ids), torch.from_numpy(mask))
+                err = float((got.cpu() - want).abs().max())
+                tol = 1e-4 * (1 + float(want.abs().max()))
+                require(err <= tol, f'{t_type}: card vs CPU {err} > {tol}')
+        n_params = sum(p.numel() for p in card.parameters())
+        out[t_type] = dict(width=width, params=n_params, ms=ms,
+                           card_vs_cpu=err, tol=tol)
+        log(f'[towers] {t_type}: {type(card).__name__} width {width}, '
+            f'{n_params} parameters, (2, 32) -> {tuple(got.shape)} finite, '
+            + ', '.join(f'{m:.2f}' for m in ms) + ' ms of CUDA events'
+            + ('' if err is None else
+               f'; card vs CPU max abs err {err:.3g} (tol {tol:.3g})')
+            + f' ({time.perf_counter() - t0:.1f} s)')
+        del card
+        if on_cpu:
+            del cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def flagship_level0():
+    """The flagship's points (B=2, 100k, surface scenes) voxelized as the
+    grounder does, xyz features, on the card."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.ops.sparse import voxelize_points
+    b = flagship_batch(seed=0)
+    pts = torch.from_numpy(b['points'][..., :3]).cuda()
+    mask = torch.from_numpy(b['points_mask']).cuda()
+    return voxelize_points(pts, mask, pts, 0.01, 100_000, (1280, 1280, 512))
+
+
+def backbone_runs(models, level0, label):
+    """Each model's forward from launch counts of 0: timed twice, then
+    captured once (every kernel call kept). {model: captured calls},
+    {model: launch counts of its three forwards}, {model: CUDA-event ms},
+    {model: peak GiB of the timed forwards above the memory held before
+    them}, {model: stage levels}."""
+    from proxytransformation_torch.ops import _cuda
+    calls, counts, ms, peak, outs = {}, {}, {}, {}, {}
+    for name, model in models.items():
+        _cuda.reset_launch_counts()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms[name] = cuda_ms(lambda: model(level0), 2)[0]
+            peak[name] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            got = {}
+            calls[name] = capture_kernel_calls(
+                lambda: got.update(out=model(level0)))
+        counts[name] = _cuda.launch_counts()
+        outs[name] = got['out'][0]
+        require(counts[name]['ball_query'] == 0,
+                f'{label} {name}: a ball query')
+        for k in MINK_KERNELS:
+            n = len(calls[name].get(k, ()))
+            require(n > 0 and counts[name][k] == 3 * n,
+                    f'{label} {name}: {counts[name][k]} {k} launches in '
+                    f'three forwards, {n} a forward')
+        for lvl in outs[name]:
+            require(bool(torch.isfinite(lvl.feats).all()),
+                    f'{label} {name}: non-finite features')
+    return calls, counts, ms, peak, outs
+
+
+def checked_path(names, calls, counts, where):
+    """(rows, launches) of the named models' kernel calls."""
+    joined = {k: [c for n in names for c in calls[n].get(k, [])]
+              for k in MINK_KERNELS}
+    with torch.no_grad():
+        rows = check_calls(joined, MINK_KERNELS, where)
+    return rows, {k: sum(counts[n][k] for n in names) for k in MINK_KERNELS}
+
+
+def mink50_phase():
+    """18c: MinkResNet-50 at full width with the instance-norm and the
+    batch-norm stem, MinkResNet-34 beside them, on the flagship's points;
+    every kernel call of the depth-50 forwards checked."""
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.sparse_resnet import MinkResNet
+    level0 = flagship_level0()
+    models = {}
+    for name, depth, norm in (('MinkResNet-50 instance stem', 50,
+                               'instance'),
+                              ('MinkResNet-50 BN stem', 50, 'batch'),
+                              ('MinkResNet-34', 34, 'instance')):
+        m = MinkResNet(depth, 3, norm=norm)
+        flax_init_(m, torch.Generator().manual_seed(0))
+        models[name] = m.cuda().eval()
+    calls, counts, ms, peak, outs = backbone_runs(models, level0, 'mink50')
+    mink50 = [k for k in models if '50' in k]
+    rows, launches = checked_path(mink50, calls, counts,
+                                  'the two MinkResNet-50 forwards')
+    widths = [int(o.feats.shape[-1]) for o in outs[mink50[0]]]
+    require(widths == [256, 512, 1024, 2048], f'MinkResNet-50 widths '
+            f'{widths}')
+    per = {n: {k: len(calls[n].get(k, ())) for k in MINK_KERNELS}
+           for n in models}
+    log('[mink50] on the flagship\'s points (B=2, 100k, '
+        f'{int(level0.mask.sum())} voxels at 1 cm), eval, flax fresh '
+        'weights: ' + '; '.join(
+            f'{n} ' + ', '.join(f'{m:.1f}' for m in ms[n])
+            + f' ms of CUDA events, its peak {peak[n]:.2f} GiB' for n in models)
+        + f'; stage widths {widths}; stage voxels '
+        f'{[int(o.mask.sum()) for o in outs[mink50[0]]]}; kernel calls a '
+        f'forward {per}')
+    del models, calls, outs
+    torch.cuda.empty_cache()
+    summary = dict(ms=ms, peak_gib=peak, per_forward=per,
+                   voxels=int(level0.mask.sum()))
+    return dict(rows=rows, counts=launches, per_step={}, summary=summary)
+
+
+def brick_phase():
+    """18d: MinkResNet-34 with brick_stages=(0,) and (0, 1) beside the
+    cell format on the flagship's points (the same weights): the stage
+    outputs against the cell format's within tests/test_brick.py's
+    tolerance, every kernel call of the brick forwards checked (the 8C
+    convs: 512 and 1024 wide)."""
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.sparse_resnet import MinkResNet
+    level0 = flagship_level0()
+    cell = MinkResNet(34, 3)
+    flax_init_(cell, torch.Generator().manual_seed(0))
+    models = {'cell': cell.cuda().eval()}
+    for stages in ((0, ), (0, 1)):
+        m = MinkResNet(34, 3, brick_stages=stages).cuda().eval()
+        m.load_state_dict(cell.state_dict())
+        require(m.brick_stages == stages, f'brick stages {m.brick_stages}')
+        models[f'brick {stages}'] = m
+    calls, counts, ms, peak, outs = backbone_runs(models, level0, 'brick')
+    bricks = [n for n in models if n != 'cell']
+    errs = {}
+    for name in bricks:
+        errs[name] = []
+        for i, (b, c) in enumerate(zip(outs[name], outs['cell'])):
+            require(torch.equal(b.keys, c.keys), f'{name} stage {i} keys')
+            err = float((b.feats - c.feats).abs().max())
+            tol = BRICK_ATOL + BRICK_RTOL * float(c.feats.abs().max())
+            require(err <= tol, f'{name} stage {i}: {err} > {tol}')
+            errs[name].append(err)
+    rows, launches = checked_path(bricks, calls, counts,
+                                  'the two brick forwards')
+    widths = sorted({r['key'][2] for r in rows['sparse_conv']})
+    require(512 in widths and 1024 in widths,
+            f'no 8C-wide brick conv among C_in {widths}')
+    per = {n: {k: len(calls[n].get(k, ())) for k in MINK_KERNELS}
+           for n in models}
+    log('[brick] MinkResNet-34 on the flagship\'s points, eval, the same '
+        'weights: ' + '; '.join(
+            f'{n} ' + ', '.join(f'{m:.1f}' for m in ms[n])
+            + f' ms of CUDA events, its peak {peak[n]:.2f} GiB' for n in models)
+        + f'; stage max abs err against the cell format {errs} (tol '
+        f'{BRICK_ATOL} + {BRICK_RTOL} * max); conv input widths '
+        f'{widths}; kernel calls a forward {per}')
+    del models, calls, outs
+    torch.cuda.empty_cache()
+    summary = dict(ms=ms, peak_gib=peak, errs=errs, per_forward=per)
+    return dict(rows=rows, counts=launches, per_step={}, summary=summary)
+
+
+def slice13_phases(smi, flagship_req_ms, flagship_text_ms):
+    """Phase 18 (a-d)."""
+    t_phase = time.perf_counter()
+    roberta = roberta_phase(flagship_req_ms, flagship_text_ms)
+    towers = tower_phase()
+    mink50 = mink50_phase()
+    brick = brick_phase()
+    log(f'[phase 18] in {time.perf_counter() - t_phase:.1f} s ({smi})')
+    return dict(roberta=roberta, towers=towers, mink50=mink50, brick=brick)
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

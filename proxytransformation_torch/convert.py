@@ -6,13 +6,18 @@
 upstream key names, for every submodule of the grounder's predict path,
 of the detector (`Embodied3DDetector`: backbone, backbone_3d and the
 FCAF3D bbox_head) and of the occupancy models (backbone, feat_proj, the
-ImVoxel neck_3d, the occupancy bbox_head and DenseFusion's point_proj).
-It reads plain nested dicts of arrays; nothing here imports JAX.
+ImVoxel neck_3d, the occupancy bbox_head and DenseFusion's point_proj),
+with the text tower of any t_type (the inverses of the JAX package's
+`convert_hf_clip_text`, `convert_hf_bert_text`, `convert_hf_t5_encoder`,
+`convert_open_clip_text` and `convert_hf_deberta`) and any MinkResNet
+(bottleneck blocks, the batch-norm stem; brick stages share the cell
+format's tree). It reads plain nested dicts of arrays; nothing here
+imports JAX.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -238,18 +243,117 @@ def _text_encoder(w: _Writer, p: Tree, pre: str) -> None:
     w.ln(pre + 'final_layer_norm', p['final_layer_norm'])
 
 
-def state_dict_from_jax(variables: Mapping[str, Tree]
+def _bert_tower(w: _Writer, p: Tree, pre: str) -> None:
+    """Inverse of `convert_hf_bert_text` (BERT, Roberta, FLAVA)."""
+    e = pre + 'embeddings.'
+    w.put(e + 'word_embeddings.weight', p['word_embeddings']['embedding'])
+    w.put(e + 'position_embeddings.weight', p['position_embeddings'])
+    w.put(e + 'token_type_embeddings.weight', p['token_type_embeddings'])
+    w.ln(e + 'LayerNorm', p['embeddings_norm'])
+    for i in range(_count(p, r'layer_(\d+)')):
+        lp, dst = p[f'layer_{i}'], f'{pre}encoder.layer.{i}.'
+        for name in ('query', 'key', 'value'):
+            w.linear(f'{dst}attention.self.{name}', lp['attention'][name])
+        w.linear(dst + 'attention.output.dense', lp['attention']['output'])
+        w.ln(dst + 'attention.output.LayerNorm', lp['attention_norm'])
+        w.linear(dst + 'intermediate.dense', lp['intermediate'])
+        w.linear(dst + 'output.dense', lp['output'])
+        w.ln(dst + 'output.LayerNorm', lp['output_norm'])
+
+
+def _t5_tower(w: _Writer, p: Tree, pre: str) -> None:
+    """Inverse of `convert_hf_t5_encoder`."""
+    w.put(pre + 'shared.weight', p['shared']['embedding'])
+    w.put(pre + 'encoder.block.0.layer.0.SelfAttention.'
+          'relative_attention_bias.weight', p['relative_attention_bias'])
+    for i in range(_count(p, r'layer_(\d+)')):
+        lp, dst = p[f'layer_{i}'], f'{pre}encoder.block.{i}.layer.'
+        for name in ('q', 'k', 'v', 'o'):
+            w.linear(f'{dst}0.SelfAttention.{name}', lp[name])
+        w.put(dst + '0.layer_norm.weight', lp['pre_attn_norm']['scale'])
+        w.linear(dst + '1.DenseReluDense.wi', lp['wi'])
+        w.linear(dst + '1.DenseReluDense.wo', lp['wo'])
+        w.put(dst + '1.layer_norm.weight', lp['pre_ff_norm']['scale'])
+    w.put(pre + 'encoder.final_layer_norm.weight', p['final_norm']['scale'])
+
+
+def _open_clip_tower(w: _Writer, p: Tree, pre: str) -> None:
+    """Inverse of `convert_open_clip_text` (the bare layout)."""
+    w.put(pre + 'token_embedding.weight', p['token_embedding']['embedding'])
+    w.put(pre + 'positional_embedding', p['positional_embedding'])
+    for i in range(_count(p, r'resblock_(\d+)')):
+        lp, dst = p[f'resblock_{i}'], f'{pre}transformer.resblocks.{i}.'
+        w.ln(dst + 'ln_1', lp['ln_1'])
+        w.ln(dst + 'ln_2', lp['ln_2'])
+        qkv = [lp['attn'][n] for n in ('q_proj', 'k_proj', 'v_proj')]
+        w.put(dst + 'attn.in_proj_weight', np.concatenate(
+            [np.asarray(a['kernel']).T for a in qkv]))
+        w.put(dst + 'attn.in_proj_bias', np.concatenate(
+            [np.asarray(a['bias']) for a in qkv]))
+        w.linear(dst + 'attn.out_proj', lp['attn']['out_proj'])
+        w.linear(dst + 'mlp.c_fc', lp['c_fc'])
+        w.linear(dst + 'mlp.c_proj', lp['c_proj'])
+    w.ln(pre + 'ln_final', p['ln_final'])
+
+
+def _deberta_tower(w: _Writer, p: Tree, pre: str, heads: int) -> None:
+    """Inverse of `convert_hf_deberta`: q/k/v interleaved per head into
+    `in_proj` (head h's rows [3·h·hd, 3·(h+1)·hd) are its q, k, v)."""
+    emb = np.asarray(p['word_embeddings']['embedding'])
+    C = emb.shape[1]
+    if heads is None:
+        heads = {768: 12, 1024: 16, 1536: 24}.get(C)
+    if heads is None:
+        raise ValueError(f'DeBERTa width {C}: pass deberta_heads')
+    w.put(pre + 'embeddings.word_embeddings.weight', emb)
+    w.ln(pre + 'embeddings.LayerNorm', p['embeddings_norm'])
+    w.put(pre + 'encoder.rel_embeddings.weight', p['rel_embeddings'])
+    for i in range(_count(p, r'layer_(\d+)')):
+        lp, dst = p[f'layer_{i}'], f'{pre}encoder.layer.{i}.'
+        a = lp['attention']
+        qkv = np.stack([np.asarray(a[n]['kernel']).T.reshape(heads, -1, C)
+                        for n in ('q_proj', 'k_proj', 'v_proj')], axis=1)
+        w.put(dst + 'attention.self.in_proj.weight', qkv.reshape(3 * C, C))
+        w.put(dst + 'attention.self.q_bias', a['q_bias'])
+        w.put(dst + 'attention.self.v_bias', a['v_bias'])
+        w.linear(dst + 'attention.self.pos_proj', a['pos_proj'])
+        w.linear(dst + 'attention.self.pos_q_proj', a['pos_q_proj'])
+        w.linear(dst + 'attention.output.dense', a['output'])
+        w.ln(dst + 'attention.output.LayerNorm', lp['attention_norm'])
+        w.linear(dst + 'intermediate.dense', lp['intermediate'])
+        w.linear(dst + 'output.dense', lp['output'])
+        w.ln(dst + 'output.LayerNorm', lp['output_norm'])
+
+
+def _text_tower(w: _Writer, p: Tree, pre: str,
+                deberta_heads: Optional[int]) -> None:
+    """The text tower of any t_type, told apart by its tree."""
+    if 'rel_embeddings' in p:
+        _deberta_tower(w, p, pre, deberta_heads)
+    elif 'shared' in p:
+        _t5_tower(w, p, pre)
+    elif 'positional_embedding' in p:
+        _open_clip_tower(w, p, pre)
+    elif 'word_embeddings' in p:
+        _bert_tower(w, p, pre)
+    else:
+        _text_encoder(w, p, pre)
+
+
+def state_dict_from_jax(variables: Mapping[str, Tree],
+                        deberta_heads: Optional[int] = None
                         ) -> Dict[str, torch.Tensor]:
     """`{'params', 'batch_stats'}` of the JAX grounder, detector or
     occupancy model (arrays) → the port's state_dict; submodules absent
-    from the tree are skipped."""
+    from the tree are skipped. A DeBERTa text tower of a width other than
+    768, 1024 or 1536 needs its head count (`deberta_heads`)."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
     w = _Writer()
     if 'backbone' in params:
         _resnet(w, params['backbone'], stats['backbone'], 'backbone.')
     if 'text_encoder' in params:
-        _text_encoder(w, params['text_encoder'], 'text_encoder.')
+        _text_tower(w, params['text_encoder'], 'text_encoder.', deberta_heads)
     if 'text_feat_map' in params:
         w.linear('text_feat_map', params['text_feat_map'])
     if 'preshape' in params:

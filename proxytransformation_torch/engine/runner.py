@@ -505,6 +505,9 @@ class Runner:
     def _split_batch(self, batch) -> Tuple[Dict[str, torch.Tensor], Dict]:
         device = {k: v for k, v in batch.items() if k in _DEVICE_KEYS}
         host = {k: v for k, v in batch.items() if k not in _DEVICE_KEYS}
+        check = getattr(self.model, 'check_text_ids', None)
+        if check is not None and 'input_ids' in device:
+            check(device['input_ids'])   # on the host, before the card
         return batch_to_device(device, self.device), host
 
     @staticmethod

@@ -44,8 +44,9 @@ from .point_fusion import apply_inverse_aug, batch_point_sample
 from .preshape import ProxyTransformationNormReverse
 from .resnet import ResNet
 from .sparse_neck import MinkNeck
-from .sparse_resnet import MinkResNet
+from .sparse_resnet import MinkResNet, check_backbone3d_depth
 from .text_encoder import CLIPTextEncoder
+from .text_variants import build_text_encoder
 
 
 _COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -72,8 +73,14 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     statistics alone). `remat_painting` does the same for the 2D→3D
     painting (reference detector.py:202-204); None follows `remat`.
     `use_xyz_feat=False` voxelizes the point channels after xyz (colour)
-    as features instead of xyz. `t_type` names the text tower: only
-    'clip' is ported.
+    as features instead of xyz. `t_type` names the text tower: 'clip'
+    builds the CLIP tower of `text_width`, `text_layers` and `text_heads`;
+    any other `text_variants.build_text_encoder` accepts (Roberta, BERT,
+    FLAVA, T5, DeBERTa, open_clip, the HF-CLIP sizes) builds that tower
+    at its published size, and `text_feat_map` reads its width. The tower
+    is frozen (no gradient, no update). MinkResNet depths 50 and 101 are
+    refused: the neck takes the 64/128/256/512 channels of the basic
+    stages (as in the JAX package, which cannot build them either).
     """
 
     # the baseline subclass builds no preshape module
@@ -102,10 +109,7 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f'compute_dtype must be one of '
                              f'{sorted(_COMPUTE_DTYPES)}, got {compute_dtype!r}')
-        if t_type != 'clip':
-            raise NotImplementedError(
-                f't_type={t_type!r}: only the CLIP text tower is ported; '
-                'the other towers are ROADMAP item 14')
+        check_backbone3d_depth(backbone3d_depth)
         cdt = _COMPUTE_DTYPES[compute_dtype]
         dev = resolve_device(device)
         self.compute_dtype = compute_dtype
@@ -121,9 +125,12 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
         with torch.device(dev):
             self.backbone = ResNet(img_depth, img_base_channels, cdt,
                                    self.remat)
-            self.text_encoder = CLIPTextEncoder(width=text_width,
-                                                layers=text_layers,
-                                                heads=text_heads)
+            if t_type == 'clip':
+                self.text_encoder = CLIPTextEncoder(width=text_width,
+                                                    layers=text_layers,
+                                                    heads=text_heads)
+            else:
+                self.text_encoder, text_width = build_text_encoder(t_type)
             self.text_feat_map = linear(text_width, embed_dims)
             if self.use_preshape:
                 self.preshape = ProxyTransformationNormReverse(
@@ -150,6 +157,13 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.text_feat_map.weight.device
+
+    def check_text_ids(self, input_ids) -> None:
+        """Raise when a host array of token ids has an id the text tower
+        has no embedding for, or more tokens than its positions (call it
+        before the batch goes to the card: an embedding there would
+        assert; the tower checks CPU tensors itself)."""
+        self.text_encoder.check_ids(input_ids)
 
     def random_init_(self, seed: int) -> 'SparseFeatureFusion3DGrounderPreshape':
         """Seeded random weights (see `layers.random_init_`)."""

@@ -31,7 +31,7 @@ from ..ops.sparse import voxelize_points
 from .fcaf3d_head import FCAF3DHead
 from .point_fusion import apply_inverse_aug, batch_point_sample
 from .resnet import ResNet
-from .sparse_resnet import MinkResNet
+from .sparse_resnet import MinkResNet, check_backbone3d_depth
 
 
 class Embodied3DDetector(nn.Module):
@@ -53,6 +53,7 @@ class Embodied3DDetector(nn.Module):
                  pts_center_threshold: int = 18, rot_param: str = 'euler',
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
+        check_backbone3d_depth(backbone3d_depth)
         self.voxel_size = voxel_size
         self.n_points = n_points
         self.voxel_extent = tuple(voxel_extent)

@@ -23,8 +23,13 @@ another generator; the laws and constants are the same):
 - the preshape: its proxy biases 0.02 · a normal truncated to [-2, 2]
   (preshape.py:48-51, 199-201), its pooling's positional embedding
   N(0, 1/c) (:141-142);
-- the text tower: token embedding N(0, 1/width) (flax `nn.Embed`),
-  position embedding normal(0.01) (text_encoder.py:88-89).
+- the text towers: token embeddings N(0, 1/width) (flax `nn.Embed`);
+  the CLIP and open_clip position embeddings normal(0.01)
+  (text_encoder.py:88-89, text_variants.py:364-366); BERT's and
+  Roberta's position and token-type embeddings, T5's relative attention
+  bias and DeBERTa's `rel_embeddings` normal(0.02) (text_variants.py:
+  95-106, 190-192, 320-322); DeBERTa's `q_bias` / `v_bias` zero and
+  T5's RMSNorm scales ones (:232-233, :127).
 
 A parameter no rule covers raises. `layers.random_init_` (N(0, 0.02²)
 everywhere) stays for the parity tests.
@@ -45,6 +50,11 @@ from .preshape import AttentionPool2d, ProxyAttention
 from .resnet import _Conv2d
 from .sparse_neck import _ConvCls, _Transpose
 from .sparse_resnet import SparseConv
+from .text_variants import OpenCLIPTextEncoder, T5RMSNorm
+
+# the text towers' parameters flax draws from normal(0.02)
+_NORMAL_002 = ('position_embeddings', 'token_type_embeddings',
+               'relative_attention_bias', 'rel_embeddings')
 
 # the standard deviation of a standard normal truncated to [-2, 2]
 # (flax's variance_scaling divides by it)
@@ -105,7 +115,15 @@ def _draw(mod: nn.Module, mod_name: str, leaf: str, p: torch.Tensor,
     if isinstance(mod, nn.Embedding):
         if mod_name.endswith('position_embedding'):
             return _normal(shape, 0.01, gen)
+        if mod_name.endswith(_NORMAL_002):
+            return _normal(shape, 0.02, gen)
         return _normal(shape, math.sqrt(1.0 / shape[1]), gen)
+    if isinstance(mod, T5RMSNorm):
+        return ones
+    if isinstance(mod, OpenCLIPTextEncoder):      # positional_embedding
+        return _normal(shape, 0.01, gen)
+    if leaf in ('q_bias', 'v_bias'):              # DeBERTa
+        return zeros
     if isinstance(mod, AttentionPool2d):
         return _normal(shape, 1.0, gen) / shape[-1] ** 0.5
     if isinstance(mod, ProxyAttention):

@@ -23,6 +23,45 @@ from .layers import linear
 from .norms import layer_norm
 
 
+class TokenChecks:
+    """The host-side checks of a text tower's inputs (`vocab_size`,
+    `max_length` (None: any length) and `t_type` are set by the tower):
+    `check_ids` takes a host array, before a batch goes to the card; the
+    tower's forward checks a CPU tensor itself and only the length of a
+    CUDA one (a value check there would wait for the card)."""
+
+    vocab_size: int
+    max_length: Optional[int] = None
+    t_type: str = ''
+
+    def check_length(self, length: int) -> None:
+        if self.max_length is not None and length > self.max_length:
+            raise ValueError(
+                f't_type={self.t_type!r}: {length} tokens, but the tower '
+                f'takes at most {self.max_length} positions')
+
+    def check_ids(self, input_ids) -> None:
+        """Raise when a host array (numpy or a CPU tensor) of ids is
+        longer than the tower's positions or holds an id outside
+        [0, vocab_size)."""
+        ids = np.asarray(input_ids)
+        self.check_length(ids.shape[-1])
+        if ids.size == 0:
+            return
+        lo, hi = int(ids.min()), int(ids.max())
+        if lo < 0 or hi >= self.vocab_size:
+            bad = hi if hi >= self.vocab_size else lo
+            raise ValueError(
+                f't_type={self.t_type!r}: token id {bad} (largest {hi}) is '
+                f'outside the tower\'s vocabulary of {self.vocab_size}')
+
+    def _check_input(self, input_ids: torch.Tensor) -> None:
+        if input_ids.device.type == 'cpu':
+            self.check_ids(input_ids.numpy())
+        else:
+            self.check_length(input_ids.shape[-1])
+
+
 class _Attention(nn.Module):
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -94,17 +133,22 @@ class _TextModel(nn.Module):
         self.final_layer_norm = layer_norm(width)
 
 
-class CLIPTextEncoder(nn.Module):
+class CLIPTextEncoder(TokenChecks, nn.Module):
     """(B, L) token ids + (B, L) attention mask → (B, L, width)."""
 
     def __init__(self, vocab_size: int = 49408, width: int = 768,
-                 layers: int = 12, heads: int = 12, max_positions: int = 77):
+                 layers: int = 12, heads: int = 12, max_positions: int = 77,
+                 t_type: str = 'clip'):
         super().__init__()
+        self.vocab_size, self.width, self.heads = vocab_size, width, heads
+        self.max_length = max_positions
+        self.t_type = t_type
         self.text_model = _TextModel(vocab_size, width, layers, heads,
                                      max_positions)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
+        self._check_input(input_ids)
         tm = self.text_model
         L = input_ids.shape[1]
         x = (tm.embeddings.token_embedding(input_ids.long())

@@ -912,3 +912,123 @@ def test_tiny_occupancy_runner_card_vs_cpu(gen, tmp_path, mtype):
     assert set(got) == set(want) and 'mIoU' in got
     for k, v in want.items():
         assert abs(got[k] - v) <= 1e-3, (k, got[k], v)
+
+
+# --------------------------------------------------------------------------
+# the text towers, the bottleneck's and the brick stages' convs
+# --------------------------------------------------------------------------
+BASE_TOWERS = ('bert-base-uncased', 'roberta-base', 'facebook/flava-full',
+               't5-base', 'deberta-base', 'clip-vit-base-patch32',
+               'eva02-l-14-336')
+
+
+@pytest.mark.parametrize('t_type', BASE_TOWERS)
+def test_text_tower_card_vs_cpu(gen, t_type):
+    """A base-size tower on the card against the same weights on the CPU,
+    within 1e-4 · (1 + max|cpu|), one padded row."""
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.text_variants import (
+        build_text_encoder)
+    cpu, _ = build_text_encoder(t_type)
+    flax_init_(cpu, torch.Generator().manual_seed(0))
+    card, _ = build_text_encoder(t_type)
+    card.load_state_dict(cpu.state_dict())
+    card.to('cuda')
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, min(cpu.vocab_size, 30000), (2, 32)).astype(np.int32)
+    mask = np.ones((2, 32), bool)
+    mask[1, 20:] = False
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(ids), torch.from_numpy(mask))
+        got = card(torch.from_numpy(ids).cuda(),
+                   torch.from_numpy(mask).cuda()).cpu()
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * (1 + float(want.abs().max())), err
+
+
+def _level(gen, B, n, span, cap, extent=(512, 512, 512)):
+    pts = torch.rand(B, n, 3, device='cuda', generator=gen) * span
+    mask = torch.ones(B, n, dtype=torch.bool, device='cuda')
+    mask[-1, n * 3 // 4:] = False
+    return sp.voxelize_points(pts, mask, pts, 0.01, cap, extent)
+
+
+@pytest.mark.parametrize('C', [64, 128])
+def test_brick_conv_at_8c_widths(gen, C):
+    """Pack, the brick conv at C_in = C_out = 8C (512, 1024), unpack: each
+    kernel call against its plain version, and the whole against the
+    cell conv."""
+    from proxytransformation_torch.ops import brick
+    lvl = _level(gen, 2, 20000, 1.0, 20000)
+    feats = torch.randn(2, 20000, C, device='cuda', generator=gen)
+    feats = torch.where(lvl.mask[..., None], feats, 0.0)
+    w = torch.randn(27, C, C, device='cuda', generator=gen) / (27 * C) ** 0.5
+    blvl, pmap, unb8, _ = brick.build_brick_level(lvl, 20000)
+    bnbr = sp.build_neighbor_map(blvl, blvl, 3, 1)
+    bf = brick.brick_pack(feats, pmap, unb8, blvl.mask, lvl.mask)
+    wb = brick.brick_expand(w)
+    assert wb.shape == (27, 8 * C, 8 * C)
+    bo = sp.sparse_conv(bf, bnbr, wb, blvl.mask, self_map=True)
+    plain = sp.sparse_conv_apply(bf, bnbr, wb, blvl.mask)
+    tol = 1e-4 * (1 + float(plain.abs().max()))
+    assert float((bo - plain).abs().max()) <= tol
+    out = brick.brick_unpack(bo, pmap, unb8, blvl.mask, lvl.mask)
+    cell = sp.sparse_conv_apply(feats, sp.build_neighbor_map(lvl, lvl, 3, 1),
+                                w, lvl.mask)
+    assert float((out - cell).abs().max()) <= 1e-4 * (
+        1 + float(cell.abs().max()))
+    assert torch.equal(brick.brick_unpack(bf, pmap, unb8, blvl.mask,
+                                          lvl.mask), feats)
+
+
+@pytest.mark.parametrize('C', [64, 128])
+def test_brick_conv_bf16_at_8c_widths(gen, C):
+    """The bf16 form at the brick widths (8C = 512 and 1024 in and out,
+    `bf16_tile_launch`'s column blocks 2 and 4): pack, conv and unpack
+    against the plain bf16 conv, float32 out within the float32
+    tolerance, bf16 out within one bf16 ulp."""
+    from proxytransformation_torch.ops import brick
+    lvl = _level(gen, 2, 20000, 1.0, 20000)
+    feats = torch.randn(2, 20000, C, device='cuda', generator=gen)
+    feats = torch.where(lvl.mask[..., None], feats, 0.0).to(torch.bfloat16)
+    w = torch.randn(27, C, C, device='cuda', generator=gen) / (27 * C) ** 0.5
+    blvl, pmap, unb8, _ = brick.build_brick_level(lvl, 20000)
+    bnbr = sp.build_neighbor_map(blvl, blvl, 3, 1)
+    bf = brick.brick_pack(feats, pmap, unb8, blvl.mask, lvl.mask)
+    assert bf.dtype == torch.bfloat16
+    wb = brick.brick_expand(w)
+    cut = sp.bf16_tile_launch(2, blvl.capacity, 8 * C, 8 * C,
+                              _cuda.sm_count(bf.device))
+    assert cut.col_blocks == 8 * C // 256
+    _close(sp.sparse_conv_bf16_cuda(bf, bnbr, wb, blvl.mask.contiguous(),
+                                    out_dtype=torch.float32),
+           sp.sparse_conv_apply_bf16(bf.float(), bnbr, wb, blvl.mask))
+    bo = sp.sparse_conv(bf, bnbr, wb, blvl.mask, self_map=True)
+    _close_bf16(bo, sp.sparse_conv_apply_bf16(bf, bnbr, wb, blvl.mask))
+    assert torch.equal(brick.brick_unpack(bf, pmap, unb8, blvl.mask,
+                                          lvl.mask), feats)
+
+
+def test_bottleneck_convs_on_card(gen):
+    """MinkResNet-50's eval forward on the card against its CPU plain
+    path on the same weights and level: every stage within 1e-4 ·
+    (1 + max)."""
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.sparse_resnet import MinkResNet
+    caps = (20000, 20000, 12000, 6000, 3000, 1500)
+    cpu = MinkResNet(50, 3, caps, norm='batch')
+    flax_init_(cpu, torch.Generator().manual_seed(0))
+    card = MinkResNet(50, 3, caps, norm='batch').cuda()
+    card.load_state_dict(cpu.state_dict())
+    lvl = _level(gen, 2, 20000, 2.0, caps[0])
+    cpu_lvl = sp.SparseLevel(*(getattr(lvl, f).cpu() for f in (
+        'keys', 'coords', 'feats', 'mask', 'origin')), lvl.extent,
+        lvl.stride, lvl.voxel_size)
+    with torch.no_grad():
+        got, _, _ = card(lvl)
+        want, _, _ = cpu(cpu_lvl)
+    for g, w in zip(got, want):
+        assert torch.equal(g.keys.cpu(), w.keys)
+        err = float((g.feats.cpu() - w.feats).abs().max())
+        assert err <= 1e-4 * (1 + float(w.feats.abs().max())), err

@@ -8,9 +8,10 @@ its import hygiene.
   and `python -m` reaches each CLI's `main`; without a card and without
   `--device cpu` the Runner and the CLIs raise.
 - Import hygiene: the port and chip_smoke.py import no jax, flax,
-  proxytransformation_tpu, regex, cv2, orbax or optax, and wandb and
-  transformers only inside the optional branches the JAX package guards;
-  loading the CLIs loads none of them.
+  proxytransformation_tpu, regex, cv2, orbax, optax or open_clip, and
+  wandb and transformers only inside the optional branches the JAX
+  package guards (the text towers import neither transformers nor
+  open_clip); loading the CLIs loads none of them.
 """
 import ast
 import os
@@ -136,7 +137,7 @@ def test_entry_points_need_a_card_or_device_cpu(tmp_path):
 # import hygiene
 # --------------------------------------------------------------------------
 FORBIDDEN = {'jax', 'flax', 'proxytransformation_tpu', 'regex', 'cv2',
-             'orbax', 'optax', 'PIL', 'imageio'}
+             'orbax', 'optax', 'PIL', 'imageio', 'open_clip'}
 # the fixture writer's OpenCV reference: imported in its `main` only, and
 # no module of the runtime imports it
 FIXTURE_TOOL = ('proxytransformation_torch/tools/make_image_fixtures.py',
@@ -200,6 +201,23 @@ def test_slice_modules_are_guarded(module):
     assert not {mod for mod, _ in _imports(path)} & FORBIDDEN
 
 
+# the modules of the text-tower, MinkResNet and parity slice: the towers
+# hold upstream checkpoints' layouts without their packages
+SLICE13_MODULES = ('models/text_variants.py', 'ops/brick.py',
+                   'models/sparse_resnet.py', 'converter/parity.py',
+                   'convert.py', 'models/init.py')
+
+
+@pytest.mark.parametrize('module', SLICE13_MODULES)
+def test_slice13_modules_import_no_upstream_package(module):
+    """Each module is walked by the static guard, and imports neither the
+    JAX side nor transformers or open_clip, at any scope."""
+    path = ROOT / 'proxytransformation_torch' / module
+    assert path in set((ROOT / 'proxytransformation_torch').rglob('*.py'))
+    mods = {mod for mod, _ in _imports(path)}
+    assert not mods & (FORBIDDEN | {'transformers', 'open_clip'}), mods
+
+
 def test_port_runtime_loads_no_forbidden_module():
     # the data path too: a JPEG and a PNG view through the host decoder
     code = ('import sys, proxytransformation_torch.tools.train, '
@@ -208,7 +226,10 @@ def test_port_runtime_loads_no_forbidden_module():
             'proxytransformation_torch.tools.make_image_fixtures, '
             'proxytransformation_torch.converter.occupancy, '
             'proxytransformation_torch.models.occ, '
-            'proxytransformation_torch.models.tta; '
+            'proxytransformation_torch.models.tta, '
+            'proxytransformation_torch.models.text_variants, '
+            'proxytransformation_torch.converter.parity, '
+            'proxytransformation_torch.ops.brick; '
             'from proxytransformation_torch.data import image_io; '
             'image_io.imread("tests/torch_port_images/view0_640x480.jpg"); '
             'image_io.imread("tests/torch_port_images/depth0_640x480.png", '

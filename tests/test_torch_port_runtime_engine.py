@@ -117,7 +117,11 @@ def test_use_xyz_feat_false_voxelizes_the_colour():
 
 
 @pytest.mark.parametrize('change,error,match', [
-    ({'t_type': 'roberta'}, NotImplementedError, 'item 14'),
+    # every t_type of the JAX package's dispatch builds; others raise
+    ({'t_type': 'word2vec'}, ValueError, 'unknown t_type'),
+    # the neck takes the basic MinkResNet's widths only
+    ({'backbone_3d': {'depth': 50, 'in_channels': 3}}, ValueError,
+     '64/128/256/512'),
     # the detector's builder takes none of the grounder's keys
     ({'type': 'Embodied3DDetector'}, ValueError, "'preshape'"),
     # the occupancy builder takes none of the grounder's keys either
