@@ -160,7 +160,23 @@ Phases (any failure exits non-zero before the final line):
      stages (0,) and (0, 1) beside the cell format (the stage outputs
      within tests/test_brick.py's 1e-3; `[brick]`), each forward timed
      twice and captured once, every kernel call of the depth-50 and the
-     brick forwards checked (the 8C-wide brick convs: 512 and 1024).
+     brick forwards checked (the 8C-wide brick convs: 512 and 1024);
+ 19. data parallelism (`[dp]`), every rank a process of
+     `python -m torch.distributed.run`: (a) the float32 flagship step at
+     global B=4 on one process twice (the card's run-to-run distance),
+     then on two gloo ranks sharing the card, B=2 each, from the same
+     weights and global dropout draws (`python3 chip_smoke.py --dp-step
+     DIR` is the rank): losses, grad_norm and the largest parameter
+     difference to the one-process step, both ranks' parameters equal,
+     every kernel call of rank 0's step checked; (b) the flagship config
+     through `tools/train.py --launcher pytorch --amp` on the two ranks
+     at host batch 4 (an epoch of 2 steps, val, a checkpoint, `--resume
+     auto` for a second), then `tools/test.py --launcher pytorch` with
+     val_results.json equal to one process's; (c) one NCCL rank through
+     the train CLI; (d) s/it beside one process, the gradient
+     all-reduce's bytes and ms, the norm collectives' count and ms, each
+     rank's peak memory. Gloo stages through the host and the ranks share
+     one card: not NCCL across cards.
 Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
 `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
@@ -183,7 +199,8 @@ times: the first request's and the step's calls), `<kernel>:roberta`
 phase 18a's (launches: three requests; times: the third's calls),
 `<kernel>:mink50` and `<kernel>:brick` phase 18c's and 18d's (launches:
 the two depth-50 or the two brick models' three forwards each; times:
-one forward of each) in the same way); the last line is
+one forward of each), `<kernel>:dp` phase 19a's (launches and times:
+rank 0's first data-parallel step) in the same way); the last line is
 {"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1158,6 +1175,9 @@ def run() -> int:
     slice13 = slice13_phases(smi, predict['req_ms'],
                              predict['stages']['text_encoder'])
 
+    # 19. data parallelism: ranks in processes of their own
+    dp = dp_phases(smi)
+
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
         {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
@@ -1202,7 +1222,8 @@ def run() -> int:
                               ('roberta', slice13['roberta'],
                                PREDICT_KERNELS),
                               ('mink50', slice13['mink50'], MINK_KERNELS),
-                              ('brick', slice13['brick'], MINK_KERNELS)):
+                              ('brick', slice13['brick'], MINK_KERNELS),
+                              ('dp', dp, DP_KERNELS)):
         for name in names:
             entry = summarize(name, out['rows'][name], out['counts'][name],
                               out['per_step'].get(name, 0))
@@ -1211,7 +1232,7 @@ def run() -> int:
     for e in kernels:
         phase = e['name'].partition(':')[2]
         if phase in ('detection', 'tta', 'baseline', 'roberta', 'mink50',
-                     'brick'):
+                     'brick', 'dp'):
             log(f'[{phase}] kernels line: {e["name"]} {e["wrapper_calls"]} '
                 f'calls in the run ({e["launches"]} launches), '
                 f'{e["calls_checked"]} checked summing {e["ms"]:.3f} ms '
@@ -1239,6 +1260,7 @@ def run() -> int:
               'mink50_calls': slice13['mink50']['rows'],
               'brick': slice13['brick']['summary'],
               'brick_calls': slice13['brick']['rows'],
+              'dp': dp['summary'], 'dp_step_calls': dp['rows'],
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -1589,23 +1611,25 @@ RUNNER_KERNELS = (*PREDICT_KERNELS, *TRAIN_ONLY, *BF16_KERNELS,
 
 
 def runner_argv(work: Path, max_epochs: int, workers: int,
-                resume: bool = False):
+                resume: bool = False, batch_size: int = 2,
+                flags=(), options=()):
     """The train CLI's arguments for phase 12: the flagship config with
-    --amp, its datasets swapped for full-scale synthetic ones."""
+    --amp, its datasets swapped for full-scale synthetic ones (two steps
+    an epoch at `batch_size`); phase 19 adds its `flags` and `options`."""
     ds = dict(type='SyntheticGroundingDataset', n_points=100_000,
               n_views=20, img_size=480)
     root = Path(__file__).resolve().parent
     return ([str(root / FLAGSHIP_CONFIG), '--amp', '--work-dir', str(work)]
-            + (['--resume', 'auto'] if resume else [])
+            + (['--resume', 'auto'] if resume else []) + list(flags)
             + ['--cfg-options',
-               f'train_dataloader.dataset={dict(ds, length=4)!r}',
+               f'train_dataloader.dataset={dict(ds, length=2 * batch_size)!r}',
                'val_dataloader.dataset='
                f'{dict(ds, length=2, test_mode=True)!r}',
-               'train_dataloader.batch_size=2',
+               f'train_dataloader.batch_size={batch_size}',
                f'train_dataloader.num_workers={workers}',
                'val_dataloader.num_workers=0',
                f'train_cfg.max_epochs={max_epochs}', 'train_cfg.val_interval=1',
-               'log_interval=1'])
+               'log_interval=1', *options])
 
 
 def require_same(got, want, what):
@@ -3027,6 +3051,435 @@ def slice13_phases(smi, flagship_req_ms, flagship_text_ms):
     return dict(roberta=roberta, towers=towers, mink50=mink50, brick=brick)
 
 
+# --------------------------------------------------------------------------
+# 19. data parallelism
+# --------------------------------------------------------------------------
+DP_KERNELS = (*PREDICT_KERNELS, *TRAIN_ONLY)
+DP_WORK = Path(__file__).resolve().parent / 'build' / 'chip_smoke_dp'
+DP_B = 4                  # the global batch: 2 a rank on 2 ranks
+DP_TIMEOUT_S = 600        # the process groups' and each launch's bound
+GLOO = ('env_cfg.dist_cfg.backend=gloo',
+        f'env_cfg.dist_cfg.timeout={DP_TIMEOUT_S}')
+
+
+def dp_model(dev):
+    """The flagship grounder at full width, float32, seeded weights."""
+    from proxytransformation_torch.models.detector import (
+        SparseFeatureFusion3DGrounderPreshape)
+    return SparseFeatureFusion3DGrounderPreshape(device=dev).random_init_(0)
+
+
+def dp_batch(ctx=None):
+    """The global B=4 flagship batch with targets, or a rank's rows."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    batch = flagship_batch(B=DP_B, seed=0, with_targets=True)
+    if ctx is None:
+        return batch
+    b = DP_B // ctx.world
+    return {k: v[ctx.rank * b:(ctx.rank + 1) * b] for k, v in batch.items()}
+
+
+def dp_train_step(model):
+    from proxytransformation_torch.engine.train import (
+        BASE_LR, build_lr_schedule, build_optimizer, make_train_step)
+    return make_train_step(model, build_optimizer(model),
+                           build_lr_schedule(BASE_LR, steps_per_epoch=1))
+
+
+def timed_step(step, batch, seed):
+    """One step with dropout seed `seed`: (metrics, CUDA-event ms, host
+    ms)."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = step(batch, gen)
+    end.record()
+    torch.cuda.synchronize()
+    m = {k: float(v) for k, v in metrics.items()}
+    require(all(np.isfinite(v) for v in m.values()), f'step metrics {m}')
+    return m, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+@contextmanager
+def stage_capture(model, store):
+    """While open, `store` gets the first call's preshape offsets (before
+    the tanh: the last stage before a discrete choice, the second ball
+    query) and level-0 voxel keys."""
+    from proxytransformation_torch.models import detector as det_mod
+    voxelize = det_mod.voxelize_points
+
+    def rec(*a, **kw):
+        out = voxelize(*a, **kw)
+        store.setdefault('keys', out.keys.detach().cpu())
+        return out
+
+    def keep(module, args, out):
+        store.setdefault('offsets', out.detach().cpu())
+
+    hook = model.preshape.get_offsets.register_forward_hook(keep)
+    det_mod.voxelize_points = rec
+    try:
+        yield
+    finally:
+        det_mod.voxelize_points = voxelize
+        hook.remove()
+
+
+def trainable_flat(model):
+    """Every trained parameter, flat, in parameter order."""
+    from proxytransformation_torch.engine.train import param_label
+    return torch.cat([p.detach().reshape(-1)
+                      for n, p in model.named_parameters()
+                      if param_label(n) != 'frozen'])
+
+
+def dp_reference():
+    """19a's one process: the float32 step at global B=4 twice from the
+    same weights (the card's run-to-run distance), then a third step for
+    its time; the first run's parameters go to the ranks."""
+    from proxytransformation_torch.models.detector import batch_to_device
+    dev = torch.device('cuda')
+    torch.cuda.reset_peak_memory_stats()
+    model = dp_model(dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = batch_to_device(dp_batch(), dev)
+    runs, stages = [], [{}, {}]
+    for r in range(2):
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        step = dp_train_step(model)
+        with stage_capture(model, stages[r]):
+            m, ms, host = timed_step(step, batch, 0)
+        runs.append(dict(metrics=m, ms=ms, host_ms=host,
+                         params=trainable_flat(model).cpu()))
+    m3, ms3, host3 = timed_step(step, batch, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    DP_WORK.mkdir(parents=True, exist_ok=True)
+    torch.save(runs[0]['params'], DP_WORK / 'reference_params.pt')
+    torch.save(stages[0], DP_WORK / 'reference_stages.pt')
+    self_dist = float((runs[0]['params'] - runs[1]['params']).abs().max())
+    self_stages = compare_stages(stages[1], stages[0])
+    del model, init, batch, step
+    torch.cuda.empty_cache()
+    return dict(metrics=[r['metrics'] for r in runs], self_dist=self_dist,
+                self_stages=self_stages,
+                step_ms=[r['ms'] for r in runs] + [ms3],
+                host_ms=[r['host_ms'] for r in runs] + [host3],
+                peak_gib=peak, n_params=int(runs[0]['params'].numel()))
+
+
+def compare_stages(got, want, rows=slice(None)):
+    """The largest offset difference and the count of differing level-0
+    voxel keys of `got` against `want`'s `rows`."""
+    return dict(
+        offsets_max_abs=float((got['offsets'] - want['offsets'][rows])
+                              .abs().max()),
+        offsets_max=float(want['offsets'][rows].abs().max()),
+        keys_differing=int((got['keys'] != want['keys'][rows]).sum()),
+        keys=int(got['keys'].numel()))
+
+
+def dp_step_worker(work: Path) -> int:
+    """19a's rank (`python -m torch.distributed.run --nproc_per_node 2
+    chip_smoke.py --dp-step WORK`): gloo, both ranks on cuda:0; rank 0's
+    state broadcast, one float32 step on the rank's half of the global
+    batch (rank 0's kernel calls captured and checked), its parameters
+    against the one-process run's and the other rank's, then a timed step
+    and one with the collectives timed alone."""
+    from proxytransformation_torch.device import full_float32
+    from proxytransformation_torch.parallel import dist as pdist
+    ctx = pdist.env_context()
+    torch.cuda.set_device(0)
+    pdist.init_process_group(ctx, 'gloo', 'env://', DP_TIMEOUT_S)
+    try:
+        with full_float32():
+            out = dp_step_rank(ctx, work)
+    finally:
+        pdist.destroy_process_group()
+    (work / f'rank{ctx.rank}.json').write_text(json.dumps(out))
+    return 0
+
+
+def dp_step_rank(ctx, work: Path) -> dict:
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.parallel import dist as pdist
+    dev = torch.device('cuda')
+    probe = torch.full((3, ), float(ctx.rank + 1), device=dev)
+    torch.distributed.all_reduce(probe)
+    require(torch.equal(probe.cpu(), torch.full((3, ), 3.0)),
+            f'gloo all-reduce on the card: {probe}')
+    model = dp_model(dev)
+    pdist.broadcast_state(model)
+    batch = batch_to_device(dp_batch(ctx), dev)
+    step = dp_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    pdist.reset_stats()
+    first, stages = {}, {}
+    with stage_capture(model, stages):
+        if ctx.is_main:
+            calls = capture_kernel_calls(
+                lambda: first.update(out=timed_step(step, batch, 0)))
+        else:
+            first['out'] = timed_step(step, batch, 0)
+    b = DP_B // ctx.world
+    stage_diff = compare_stages(
+        stages, torch.load(work / 'reference_stages.pt'),
+        slice(ctx.rank * b, (ctx.rank + 1) * b))
+    counts = _cuda.launch_counts()
+    m1, ms1, host1 = first['out']
+    collectives = dict(pdist.STATS)
+    params = trainable_flat(model)
+    ref = torch.load(work / 'reference_params.pt').to(dev)
+    max_diff = float((params - ref).abs().max())
+    del ref
+    theirs = params.clone()
+    pdist.broadcast_tensors([theirs])
+    ranks_equal = bool(torch.equal(theirs, params))
+    del theirs, params
+    out = dict(rank=ctx.rank, metrics=m1, step_ms=[ms1], host_ms=[host1],
+               max_param_diff=max_diff, ranks_equal=ranks_equal,
+               stages=stage_diff,
+               counts={k: counts[k] for k in DP_KERNELS},
+               first_step_collectives=collectives)
+    if ctx.is_main:
+        out['per_step'] = {k: len(calls.get(k, ())) for k in DP_KERNELS}
+        with torch.no_grad():
+            out['rows'] = check_calls(calls, DP_KERNELS,
+                                      'rank 0\'s data-parallel step')
+        del calls
+    torch.cuda.empty_cache()
+    m2, ms2, host2 = timed_step(step, batch, 1)
+    pdist.reset_stats()
+    pdist.TIMING['sync'] = True
+    m3, ms3, host3 = timed_step(step, batch, 2)
+    pdist.TIMING['sync'] = False
+    out.update(step_ms=[ms1, ms2, ms3], host_ms=[host1, host2, host3],
+               later_metrics=[m2, m3], timed_collectives=dict(pdist.STATS),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def torchrun(nproc: int, args, label: str, timeout: float = DP_TIMEOUT_S):
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    nproc args` from the repository root, in a session of its own (killed
+    whole on timeout); its output goes to chiprun_out/dp_<label>.log.
+    Returns (stderr, seconds)."""
+    import os
+    import signal
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           f'--nproc_per_node={nproc}', *map(str, args)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    seconds = time.perf_counter() - t0
+    LOG_PATH.parent.mkdir(exist_ok=True)
+    (LOG_PATH.parent / f'dp_{label}.log').write_text(out + '\n' + err)
+    require(proc.returncode == 0,
+            f'{label}: exit {proc.returncode} after {seconds:.0f} s; '
+            f'stderr tail: {err[-2000:]}')
+    return err, seconds
+
+
+def scalars(work: Path):
+    return [json.loads(line) for line in
+            (work / 'scalars.jsonl').read_text().splitlines()
+            if 'sec_per_iter' in line]
+
+
+def dp_test_argv(ckpt: Path, work: Path, flags=(), options=()):
+    """tools/test.py's arguments on `ckpt`: the flagship config with phase
+    12's synthetic val set as its test set."""
+    ds = dict(type='SyntheticGroundingDataset', n_points=100_000,
+              n_views=20, img_size=480, length=2, test_mode=True)
+    root = Path(__file__).resolve().parent
+    return [str(root / FLAGSHIP_CONFIG), str(ckpt), '--work-dir', str(work),
+            *flags, '--cfg-options', f'test_dataloader.dataset={ds!r}',
+            'test_dataloader.num_workers=0', *options]
+
+
+def dp_phases(smi):
+    """Phase 19: data parallelism. (a) the float32 step at global B=4 on
+    one process twice, then on two gloo ranks sharing the card, every
+    kernel call of rank 0's step checked; (b) the flagship config through
+    `tools.train --launcher pytorch --amp` on the two ranks (an epoch of
+    2 steps, val, a checkpoint, `--resume auto` for one more), then
+    `tools.test --launcher pytorch` against one process's; (c) NCCL at
+    world size 1 through the train CLI; (d) their times."""
+    from proxytransformation_torch.tools import test as test_cli
+    t_phase = time.perf_counter()
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    DP_WORK.mkdir(parents=True)
+    torch.cuda.empty_cache()
+
+    # (a) step parity
+    ref = dp_reference()
+    log(f'[dp] one process, float32, global B={DP_B}, the same weights '
+        f'twice: total_loss {ref["metrics"][0]["total_loss"]:.6f} / '
+        f'{ref["metrics"][1]["total_loss"]:.6f}, grad_norm '
+        f'{ref["metrics"][0]["grad_norm"]:.6f} / '
+        f'{ref["metrics"][1]["grad_norm"]:.6f}; largest parameter difference '
+        f'after the step between the two runs {ref["self_dist"]:.3g} '
+        f'({ref["n_params"]} trained parameters); step '
+        + ', '.join(f'{ms:.1f}' for ms in ref['step_ms'])
+        + f' ms of CUDA events; peak {ref["peak_gib"]:.2f} GiB ({smi})')
+    _, step_s = torchrun(2, [Path(__file__).resolve(), '--dp-step', DP_WORK],
+                         'step')
+    ranks = [json.loads((DP_WORK / f'rank{r}.json').read_text())
+             for r in range(2)]
+    r0 = ranks[0]
+    for r in ranks:
+        require(r['ranks_equal'], f'rank {r["rank"]}: parameters differ '
+                                  'from rank 0\'s after the step')
+        require(r['metrics'] == r0['metrics'], 'the ranks report different '
+                                               'metrics')
+    for name in DP_KERNELS:
+        require(r0['counts'][name] > 0 and r0['per_step'][name] > 0,
+                f'{name}: not launched by rank 0\'s data-parallel step')
+    one = ref['metrics'][0]
+    sd = [r['stages'] for r in ranks]
+    log(f'[dp] the first step\'s stages against one process\'s rows: '
+        f'preshape offsets (before the second ball query, the first '
+        f'discrete choice) max abs diff {max(d["offsets_max_abs"] for d in sd):.3g}'
+        f' of max {max(d["offsets_max"] for d in sd):.3g}; level-0 voxel keys '
+        f'differing {sum(d["keys_differing"] for d in sd)} of '
+        f'{sum(d["keys"] for d in sd)}; one process against itself: offsets '
+        f'{ref["self_stages"]["offsets_max_abs"]:.3g}, keys differing '
+        f'{ref["self_stages"]["keys_differing"]}')
+    log(f'[dp] two gloo ranks on cuda:0, B=2 each, the same weights and '
+        f'global dropout draws: total_loss {r0["metrics"]["total_loss"]:.6f}'
+        f' (one process {one["total_loss"]:.6f}), grad_norm '
+        f'{r0["metrics"]["grad_norm"]:.6f} ({one["grad_norm"]:.6f}), '
+        + ', '.join(f'{k} {v:.6f} ({one[k]:.6f})'
+                    for k, v in r0['metrics'].items()
+                    if k not in ('total_loss', 'grad_norm'))
+        + f'; largest parameter difference to the one-process step '
+        f'{r0["max_param_diff"]:.3g} (rank 1: {ranks[1]["max_param_diff"]:.3g})'
+        f' beside the one-process run\'s distance to itself '
+        f'{ref["self_dist"]:.3g}; both ranks hold the same parameters; '
+        f'kernel calls of rank 0\'s step {r0["per_step"]} ({step_s:.1f} s '
+        'with the launch)')
+    # the same function in another summation order: Adam's first step
+    # moves an entry whose gradient is at rounding level by ±lr either way
+    from proxytransformation_torch.engine.train import BASE_LR
+    require(r0['max_param_diff'] <= 2.2 * BASE_LR + 10 * ref['self_dist'],
+            'the data-parallel step is farther from the one-process step '
+            'than Adam\'s first move and the card\'s run-to-run distance '
+            'allow')
+    # up to the first discrete choice the ranks compute the one-process
+    # values to float32 rounding (the global norms' sums in another order)
+    for d in sd:
+        require(d['offsets_max_abs'] <= 1e-4 * (1 + d['offsets_max']),
+                f'preshape offsets on 2 ranks differ from one process: {d}')
+
+    # (b) the Runner on two ranks, then the test CLI on two and on one
+    work = DP_WORK / 'runner'
+    flags = ('--launcher', 'pytorch', '--device', 'cuda:0')
+    err, train_s = torchrun(2, ['-m', 'proxytransformation_torch.tools.train',
+                                *runner_argv(work, 1, 0, batch_size=DP_B,
+                                             flags=flags, options=GLOO)],
+                            'runner')
+    epoch1 = scalars(work)
+    require(len(epoch1) == 2 and (work / 'ckpt_00000002').is_dir()
+            and (work / 'val_results.json').is_file(),
+            f'the 2-rank runner: {epoch1}, {sorted(p.name for p in work.iterdir())}')
+    require(err.count('saved checkpoint') == 1, 'rank 0 alone saves')
+    err, resume_s = torchrun(2, ['-m', 'proxytransformation_torch.tools.train',
+                                 *runner_argv(work, 2, 0, resume=True,
+                                              batch_size=DP_B, flags=flags,
+                                              options=GLOO)], 'resume')
+    epoch2 = scalars(work)[len(epoch1):]
+    require('resuming from' in err and len(epoch2) == 2
+            and (work / 'ckpt_00000004').is_dir(),
+            f'the 2-rank resume: {epoch2}')
+    ckpt = work / 'ckpt_00000004'
+    _, test_s = torchrun(2, ['-m', 'proxytransformation_torch.tools.test',
+                             *dp_test_argv(ckpt, DP_WORK / 'test_dp', flags,
+                                           GLOO)], 'test')
+    t0 = time.perf_counter()
+    test_cli.main(dp_test_argv(ckpt, DP_WORK / 'test_one', ('--device',
+                                                             'cuda')))
+    one_test_s = time.perf_counter() - t0
+    dp_results, one_results = (
+        {name: json.loads((DP_WORK / d / name).read_text())
+         for name in ('val_results.json', 'test_results.json')}
+        for d in ('test_dp', 'test_one'))
+    # the config's test evaluator dumps each sample's top-20 boxes in the
+    # loader's order (format_only): the gather's order and every box
+    require(dp_results == one_results and len(
+        dp_results['test_results.json']) == 2,
+            f'the 2-rank test {dp_results} != one process {one_results}')
+    log(f'[dp] tools.train --launcher pytorch --amp (remat) on 2 gloo ranks, '
+        f'host batch {DP_B}: epoch 1 ({len(epoch1)} steps, val on both '
+        f'ranks, a checkpoint from rank 0) in {train_s:.1f} s, --resume auto '
+        f'epoch 2 in {resume_s:.1f} s, losses '
+        + ', '.join(f'{r["total_loss"]:.5f}' for r in epoch1 + epoch2)
+        + f'; tools.test --launcher pytorch on ckpt_00000004 in '
+        f'{test_s:.1f} s: val_results.json '
+        f'{dp_results["val_results.json"]} and test_results.json (the config\'s '
+        f'format_only dump: 2 samples, their top-20 boxes and scores in loader '
+        f'order) equal to one process\'s ({one_test_s:.1f} s)')
+
+    # (c) NCCL at world size 1
+    nccl = DP_WORK / 'nccl'
+    _, nccl_s = torchrun(1, ['-m', 'proxytransformation_torch.tools.train',
+                             *runner_argv(nccl, 1, 0, batch_size=DP_B,
+                                          flags=('--launcher', 'pytorch'),
+                                          options=(
+                                              'train_cfg.val_interval=2',
+                                              'env_cfg.dist_cfg.timeout='
+                                              f'{DP_TIMEOUT_S}'))], 'nccl')
+    nccl_log = scalars(nccl)
+    require(len(nccl_log) == 2 and (nccl / 'ckpt_00000002').is_dir(),
+            f'the NCCL run: {nccl_log}')
+    log(f'[dp] tools.train --launcher pytorch, default backend nccl, world '
+        f'size 1, --amp, host batch {DP_B}: 2 steps and a checkpoint in '
+        f'{nccl_s:.1f} s, losses '
+        + ', '.join(f'{r["total_loss"]:.5f}' for r in nccl_log))
+
+    # (d) times
+    st = r0['timed_collectives']
+    log(f'[dp] times ({smi}; gloo stages every collective through the host '
+        'and both ranks share one card: this is not NCCL across cards): '
+        f's/it of the 2-rank runner {epoch1[-1]["sec_per_iter"]:.3f} (epoch '
+        f'1), {epoch2[-1]["sec_per_iter"]:.3f} (epoch 2) beside one process '
+        f'(NCCL, world size 1) {nccl_log[-1]["sec_per_iter"]:.3f} at global '
+        f'B={DP_B}; the float32 step on 2 ranks '
+        + ', '.join(f'{ms:.1f}' for ms in r0['step_ms'])
+        + ' ms of CUDA events (rank 0; steps 1-3, the first captured, the '
+        'third with the collectives synchronized) beside one process '
+        + ', '.join(f'{ms:.1f}' for ms in ref['step_ms'])
+        + f' ms; gradient all-reduce {st["grad_bytes"] / 1e6:.1f} MB and '
+        f'{st["grad_s"] * 1e3:.1f} ms a step; norm collectives '
+        f'{st["norm_calls"]} a step in {st["norm_s"] * 1e3:.1f} ms; other '
+        f'collectives {st["other_calls"]} in {st["other_s"] * 1e3:.1f} ms; '
+        'peak ' + ', '.join(f'rank {r["rank"]} {r["peak_gib"]:.2f} GiB'
+                            for r in ranks)
+        + f' (one process at B={DP_B}: {ref["peak_gib"]:.2f} GiB)')
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    log(f'[phase 19] in {time.perf_counter() - t_phase:.1f} s ({smi})')
+    summary = dict(reference=ref, ranks=[{k: v for k, v in r.items()
+                                          if k != 'rows'} for r in ranks],
+                   runner_epochs=[epoch1, epoch2], nccl=nccl_log,
+                   test_results=dp_results['val_results.json'],
+                   seconds=dict(step=step_s, train=train_s, resume=resume_s,
+                                test=test_s, one_test=one_test_s,
+                                nccl=nccl_s))
+    return dict(rows=r0['rows'], counts=r0['counts'],
+                per_step=r0['per_step'], summary=summary)
+
+
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',
           'decoder')
 
@@ -3104,4 +3557,6 @@ def small_input_check() -> None:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dp-step']:
+        sys.exit(dp_step_worker(Path(sys.argv[2])))
     sys.exit(main())

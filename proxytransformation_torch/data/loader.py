@@ -9,12 +9,20 @@ num_workers=0 runs one background prefetch thread; num_workers>0 fans
 batches out to a process pool in the spawn context, with `prefetch`
 batches in flight, consumed in order. Spawn, not fork: the parent holds
 a CUDA context, which a forked child cannot use.
+
+Under data parallelism (`parallel/`) a node's loader is its shard
+(`num_shards` nodes, `shard_id` this one), and `rank_slice=(r, n)` makes
+local rank r of n load and collate only its contiguous slice
+[r·b, (r+1)·b) of every batch, b = batch_size / n: what the JAX
+package's `shard_batch` puts on device r. `deal=(i, n)` keeps every n-th
+batch from the i-th (val's round-robin over ranks); `positions()` gives
+their places in the loader's order.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterator
+from typing import Callable, Iterator, List, Tuple
 
 import numpy as np
 
@@ -40,7 +48,17 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, collate_fn: Callable,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 2, num_shards: int = 1, shard_id: int = 0,
-                 num_workers: int = 0):
+                 num_workers: int = 0, rank_slice: Tuple[int, int] = (0, 1),
+                 deal: Tuple[int, int] = (0, 1)):
+        if rank_slice[1] > 1 and (batch_size % rank_slice[1]
+                                  or not drop_last):
+            raise ValueError(
+                f'batch_size={batch_size} is not divisible by the '
+                f'{rank_slice[1]} ranks of a node (LOCAL_WORLD_SIZE='
+                f'{rank_slice[1]}): each rank takes an equal slice of every '
+                'batch' if drop_last else
+                'rank slices need drop_last: a partial batch has no equal '
+                'slices')
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -51,6 +69,8 @@ class DataLoader:
         self.num_shards = num_shards
         self.shard_id = shard_id
         self.num_workers = num_workers
+        self.rank_slice = rank_slice
+        self.deal = deal
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -69,12 +89,20 @@ class DataLoader:
             idx = idx[:n_batches * self.batch_size]
         return idx
 
-    def __len__(self) -> int:
+    def _n_batches(self) -> int:
         n = len(self._indices())
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
 
-    def __iter__(self) -> Iterator:
+    def positions(self) -> List[int]:
+        """The loader-order places of the batches this loader yields."""
+        first, step = self.deal
+        return list(range(first, self._n_batches(), step))
+
+    def __len__(self) -> int:
+        return len(self.positions())
+
+    def _batches(self) -> List[np.ndarray]:
         idx = self._indices()
         batches = [
             idx[i:i + self.batch_size]
@@ -82,6 +110,12 @@ class DataLoader:
         ]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        r, n = self.rank_slice
+        b = self.batch_size // n
+        return [batches[i][r * b:(r + 1) * b] for i in self.positions()]
+
+    def __iter__(self) -> Iterator:
+        batches = self._batches()
 
         if self.num_workers > 0:
             yield from self._iter_procs(batches)

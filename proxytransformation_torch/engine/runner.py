@@ -15,9 +15,19 @@ function of its seed and epoch, so the consumed batches of an epoch are
 skipped, as the reference's FastResumeIterBasedTrainLoop does,
 runner/loops.py:19-84).
 
-The runner runs on one device: `device=None` is the card (raising
+Each process runs on one device: `device=None` is the card (raising
 without one, `device.resolve_device`); pass `device='cpu'` for the
-plain PyTorch path. The recipe (lr, weight decay, clip norm, milestones,
+plain PyTorch path. Inside a process group (`parallel/`, the CLIs'
+`--launcher pytorch`) the runner is data-parallel as the JAX Runner's
+mesh is: the train loader is sharded by node and each rank loads its
+slice of the node's batch (the ranks must divide it: the JAX Runner
+would fit its mesh to fewer devices, the port raises), rank 0's fresh
+state is broadcast, the step computes the global batch's norms, loss
+normalisers, draws and gradients (`engine/train.py`), val deals the
+loader's batches to the ranks in turn and gathers the predictions back
+in loader order for rank 0's metric, and rank 0 alone writes
+checkpoints, logs, scalars and result files (a barrier after each).
+Occupancy under data parallelism raises. The recipe (lr, weight decay, clip norm, milestones,
 gamma, the decoder's lr multiplier) comes from the config, and so does
 the EMA hook (`custom_hooks`: `ExpMomentumEMA`, advanced after each
 optimizer step, carried in the checkpoint and swapped in for val and
@@ -54,6 +64,7 @@ from ..models.occ import (DenseFusionOccPredictor, EmbodiedOccPredictor,
                           occ_multiscale_supervision)
 from ..models.tta import merge_aug_bboxes_3d
 from ..ops.nms3d import multiclass_nms
+from ..parallel.dist import barrier, broadcast_state, context
 from ..utils.registry import DATASETS, METRICS
 from ..utils.vis_backend import build_vis_backends
 from .checkpoint import (latest_checkpoint, load_checkpoint,
@@ -420,6 +431,16 @@ class Runner:
 
     def __init__(self, cfg, work_dir: Optional[str] = None, device=None):
         self.cfg = cfg
+        self.dist = context()
+        self.task = _model_task(cfg['model'])
+        if self.task == 'occupancy' and self.dist.world > 1:
+            raise NotImplementedError(
+                f'{cfg["model"].get("type")} under data parallelism (world '
+                f'size {self.dist.world}): its batch-coupled reductions, the '
+                'ImVoxel neck\'s train-mode BatchNorm statistics '
+                '(models/occ.py, `norm.flax`) and the batch mean of each '
+                'scale\'s loss (ImVoxelOccHead.loss), are not ported to '
+                'data parallelism yet')
         self.device = resolve_device(device)
         self.ema = ema_from_hooks(cfg.get('custom_hooks'))
         # name → float32 EMA copy of each parameter (buffers are not
@@ -428,8 +449,10 @@ class Runner:
         self.work_dir = work_dir or cfg.get('work_dir', './work_dir')
         os.makedirs(self.work_dir, exist_ok=True)
         logging.basicConfig(level=logging.INFO)
+        # rank 0 logs; the other ranks say only what goes wrong
+        logger.setLevel(logging.INFO if self.dist.is_main
+                        else logging.WARNING)
 
-        self.task = _model_task(cfg['model'])
         self.model = build_model_from_cfg(cfg['model'], self.device)
         pp_cfg = dict(cfg['model'].get('data_preprocessor', {}))
         pp_cfg.pop('type', None)
@@ -449,7 +472,8 @@ class Runner:
         self.generator = None
         self.global_step = 0
         self._steps_per_epoch = 1
-        self.vis_backends = build_vis_backends(cfg, self.work_dir)
+        self.vis_backends = (build_vis_backends(cfg, self.work_dir)
+                             if self.dist.is_main else [])
 
     def _log_scalars(self, scalars, step=None):
         for be in self.vis_backends:
@@ -493,14 +517,25 @@ class Runner:
         collate = (self.preprocessor
                    if n_views is None or n_views == self.preprocessor.n_views
                    else self._make_preprocessor(n_views))
-        # one host: one shard
+        ctx = self.dist
+        # the config's workers are the node's: split over its ranks
+        workers = loader_cfg.get('num_workers', 0)
+        if workers:
+            workers = max(1, workers // ctx.local_world)
+        # train: a shard a node and a slice of each batch a rank; val and
+        # test: the whole loader, its batches dealt to the ranks in turn
         return DataLoader(dataset,
                           batch_size=loader_cfg.get('batch_size', 1),
                           collate_fn=collate,
                           shuffle=train and loader_cfg.get(
                               'sampler', {}).get('shuffle', True),
                           drop_last=train,
-                          num_workers=loader_cfg.get('num_workers', 0))
+                          num_shards=ctx.nodes if train else 1,
+                          shard_id=ctx.node if train else 0,
+                          rank_slice=((ctx.local_rank, ctx.local_world)
+                                      if train else (0, 1)),
+                          deal=(0, 1) if train else (ctx.rank, ctx.world),
+                          num_workers=workers)
 
     def _split_batch(self, batch) -> Tuple[Dict[str, torch.Tensor], Dict]:
         device = {k: v for k, v in batch.items() if k in _DEVICE_KEYS}
@@ -535,8 +570,9 @@ class Runner:
     def _init_state(self):
         """Seeded weights by flax's initialisers (drawn on the CPU, so
         every device starts from the same ones), the EMA copy of them, the
-        config's optimizer and schedule, the dropout generator (seed + 1)
-        and the `load_from` warm start."""
+        config's optimizer and schedule, the dropout generator (seed + 1,
+        alike on every rank) and the `load_from` warm start; then rank 0's
+        parameters, buffers and EMA copy on every rank."""
         seed = self.cfg.get('seed', 0)
         flax_init_(self.model, torch.Generator().manual_seed(seed))
         # the EMA starts from the seeded weights, before the warm start, as
@@ -566,6 +602,19 @@ class Runner:
             n = warm_start_params(self.model, sd)
             logger.info('warm start from %s: %d parameters copied',
                         load_from, n)
+        broadcast_state(self.model, self.ema_state)
+
+    def _save(self, epoch: int, iteration: int = 0) -> None:
+        """The checkpoint, from rank 0 alone; every rank waits for it."""
+        if self.dist.is_main:
+            max_keep = self.cfg.get('default_hooks', {}).get(
+                'checkpoint', {}).get('max_keep_ckpts', 2)
+            path = save_checkpoint(
+                self.work_dir, self.model, self.optimizer, self.global_step,
+                epoch, max_keep, iteration=iteration,
+                generator=self.generator, ema=self.ema_state)
+            logger.info('saved checkpoint %s', path)
+        barrier()
 
     def resume_from(self, path: str) -> Tuple[int, int]:
         """Full resume from a checkpoint directory: the model, the AdamW
@@ -589,8 +638,6 @@ class Runner:
         max_epochs = self.train_cfg.get('max_epochs', 12)
         val_interval = self.train_cfg.get('val_interval', max_epochs + 1)
         log_interval = self.cfg.get('log_interval', 50)
-        max_keep = self.cfg.get('default_hooks', {}).get(
-            'checkpoint', {}).get('max_keep_ckpts', 2)
 
         self._init_state()
         start_epoch = start_iter = 0
@@ -652,11 +699,7 @@ class Runner:
                     self._log_scalars(rec, step=epoch * len(loader) + i + 1)
                 if ckpt_iters and (i + 1) % ckpt_iters == 0 \
                         and i + 1 < len(loader):
-                    save_checkpoint(self.work_dir, self.model,
-                                    self.optimizer, self.global_step, epoch,
-                                    max_keep, iteration=i + 1,
-                                    generator=self.generator,
-                                    ema=self.ema_state)
+                    self._save(epoch, iteration=i + 1)
             self._sync()
             n_done = max(len(loader) - start_iter, 1)
             self.train_timing = {
@@ -665,9 +708,7 @@ class Runner:
                 'first_wait_s': first_wait,
             }
             start_iter = 0
-            save_checkpoint(self.work_dir, self.model, self.optimizer,
-                            self.global_step, epoch + 1, max_keep,
-                            generator=self.generator, ema=self.ema_state)
+            self._save(epoch + 1)
             if (epoch + 1) % val_interval == 0:
                 self.val(init_state=False)
         return self.model
@@ -813,8 +854,10 @@ class Runner:
                     '(no checkpoint given) — pass resume=CKPT or call '
                     'after train() for a meaningful metric')
         aug_metas = self._tta_metas() if tta else [None]
+        # each sample's place in the loader's order, for the gather
+        order = []
         with self._ema_weights():
-            for batch in loader:
+            for pos, batch in zip(loader.positions(), loader):
                 batch, _ = self._pad_batch(batch, bs)
                 outs, host = self._predict(batch, bs, aug_metas)
                 anns = host['eval_ann_info']
@@ -828,15 +871,20 @@ class Runner:
                     samples = [{'eval_ann_info': ann, 'pred_instances_3d': p}
                                for ann, p in zip(anns, self._grounding_preds(
                                    outs, aug_metas, len(anns)))]
-                for sample in samples:
+                for j, sample in enumerate(samples):
                     metric.process(None, [sample])
-        results = metric.evaluate()
+                    order.append((pos, j))
+        results = (metric.evaluate(order=order) if self.dist.world > 1
+                   else metric.evaluate())
         logger.info('val results: %s',
                     {k: round(v, 4) for k, v in results.items()})
         if results:
             self._log_scalars({f'val/{k}': v for k, v in results.items()})
-        with open(os.path.join(self.work_dir, 'val_results.json'), 'w') as f:
-            json.dump(results, f)
+        if self.dist.is_main:
+            with open(os.path.join(self.work_dir, 'val_results.json'),
+                      'w') as f:
+                json.dump(results, f)
+        barrier()
         return results
 
     def _detections(self, out: Dict[str, torch.Tensor]):

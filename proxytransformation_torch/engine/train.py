@@ -16,6 +16,14 @@ group's own, not the global one; the `grad_norm` metric is global over
 every parameter, the frozen ones included. Frozen parameters
 keep `requires_grad` (their gradients enter `grad_norm`) but are not in
 the optimizer, so they stay bit for bit as they are.
+
+Under data parallelism (`parallel/`) the step computes the global
+batch's: the norms' statistics and the loss normalisers are global
+inside `model.loss`, every gradient becomes its rank mean in one flat
+all-reduce after the backward (`parallel.average_gradients`; before the
+clip, whose test then reads the same norm on every rank), and the
+reported losses are rank means. DDP's bucketed overlap of that
+all-reduce with the backward is not used.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 from torch import nn
 
 from ..device import full_float32
+from ..parallel.dist import all_reduce_mean, average_gradients
 
 Schedule = Callable[[int], float]
 
@@ -151,7 +160,9 @@ def make_train_step(model: nn.Module, optimizer: AdamW,
     'total_loss' (their sum) and 'grad_norm' (the global norm of every
     gradient), as float32 scalar tensors; the update takes its lr from
     `schedule` (`build_lr_schedule`; None: the optimizer's constant base
-    lr). The loss, its backward and the update run with TF32 off."""
+    lr). The loss, its backward and the update run with TF32 off. With
+    more than one rank, `batch` is this rank's slice of the global batch,
+    the gradients and metrics are the global batch's rank means."""
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
@@ -162,11 +173,15 @@ def make_train_step(model: nn.Module, optimizer: AdamW,
             # the reference sums the loss dict's leaves in key order
             total = sum(losses[k] for k in sorted(losses))
             total.backward()
+            average_gradients(model.parameters())
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             optimizer.step(schedule)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics['total_loss'] = total.detach()
+        keys = sorted(metrics)
+        means = all_reduce_mean(torch.stack([metrics[k] for k in keys]))
+        metrics = {k: means[i] for i, k in enumerate(keys)}
         metrics['grad_norm'] = grad_norm
         return metrics
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.box3d_overlap import box3d_iou
+from ..parallel.gather import evaluate_gathered
 from ..utils.registry import METRICS
 
 
@@ -117,11 +118,13 @@ class GroundingMetric:
             return {}
         return ground_eval(annotations, preds, self.iou_thr, self.top_k)
 
-    def evaluate(self, *_args, **_kw) -> Dict[str, float]:
-        # one host: the JAX package's `allgather_objects` (the reference's
-        # collect_device='cpu', eval/metrics/grounding_metric.py:43-44) is
-        # the identity there, and the port runs on one host; gathering
-        # across hosts waits for its `parallel/` (ROADMAP item 14)
-        ret = self.compute_metrics(self.results)
+    def evaluate(self, *_args, order=None, **_kw) -> Dict[str, float]:
+        """Every rank's results gathered first, as the reference's
+        collect_device='cpu' does (eval/metrics/grounding_metric.py:43-44;
+        the JAX package's `allgather_objects`), put in `order` (each
+        result's place in the loader) when given; rank 0 computes (and
+        writes any dump) and every rank returns its dict. One process:
+        its own results."""
+        ret = evaluate_gathered(self.compute_metrics, self.results, order)
         self.results = []
         return ret

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.box3d_overlap import box3d_iou
+from ..parallel.gather import evaluate_gathered
 from ..utils.registry import METRICS
 
 
@@ -183,7 +184,9 @@ class IndoorDetMetric:
         return indoor_eval([r[0] for r in results], [r[1] for r in results],
                            self.iou_thr, label2cat or {})
 
-    def evaluate(self, *_a, **_k):
-        ret = self.compute_metrics()
+    def evaluate(self, *_a, order=None, **_k):
+        """Every rank's results gathered (in `order` when given), scored
+        on rank 0, its dict on every rank (`GroundingMetric.evaluate`)."""
+        ret = evaluate_gathered(self.compute_metrics, self.results, order)
         self.results = []
         return ret

@@ -252,7 +252,15 @@ class FCAF3DHead(nn.Module):
              ) -> Dict[str, torch.Tensor]:
         """'loss_center' (BCE on centerness), 'loss_bbox' (rotated IoU,
         centerness-weighted) and 'loss_cls' (focal), each averaged over
-        the batch (the reference's loss weights are 1)."""
+        the batch (the reference's loss weights are 1).
+
+        Each sample's normalisers (`avg`, `denom`) are its own, as in the
+        JAX package, which computes them inside its per-sample vmap
+        (fcaf3d_head.py:257-288); the one reduction over the batch is the
+        mean. Under data parallelism every rank holds an equal slice of
+        the global batch (the loader's rank slices), so the local mean is
+        local_sum / (global B / world size) and the rank mean of the
+        losses and gradients is the global batch's: nothing is synced."""
         centers, bboxes, clses, points, masks, level_ids = head_outs
         losses = [[], [], []]
         for b in range(centers.shape[0]):

@@ -9,7 +9,15 @@ checkpoint stores. The loss has the flagship config's settings
 (configs/grounding/proxy-tiblock33-gs12-wbias-ddr0.6-clip.py:72-99):
 focal classification, the decoupled 4-group corner-Chamfer box loss with
 weights (.2, .2, .2, .4), match costs focal 1 + L1 2 + IoU 2, no
-background class weight, on one device (no cross-device averaging).
+background class weight.
+
+The two normalisers are the global batch's, as under the JAX package's
+jitted step on a sharded batch (its `axis_name` form, JAX
+grounding_head.py:233-275, spells the same out with `pmean`): with more
+than one rank each is max(global count, 1) over the world size
+(`parallel.synced_normaliser`, one all-reduce for every layer's two), so
+the rank mean of the losses and of their gradients is the one-process
+global loss's.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from torch import nn
 
 from ..ops.box3d_overlap import box3d_iou_aligned
 from ..ops.hungarian import hungarian_assign
+from ..parallel.dist import synced_normaliser
 from ..structures.rotation import matrix_to_euler_angles, ortho_6d_to_matrix
 from .layers import linear
 from .losses import (bbox_l1_cost, binary_focal_cost, chamfer_corner_loss,
@@ -123,8 +132,18 @@ class GroundingHead(nn.Module):
         return hungarian_assign(cost.reshape(L * B, Q, G),
                                 num_gts).reshape(L, B, Q)
 
+    def normalisers(self, assign, query_mask=None) -> torch.Tensor:
+        """(2, L): each layer's `cls_avg` (positives plus negatives times
+        the background weight) and `np_sync` (positives), at least 1, the
+        global batch's under data parallelism."""
+        pos = (assign >= 0).flatten(1).sum(1).float()
+        valid_q = (assign[0].numel() if query_mask is None
+                   else query_mask.sum().float())
+        cls = pos + (valid_q - pos) * self.bg_cls_weight
+        return synced_normaliser(torch.stack([cls, pos]), 1.0)
+
     def _loss_single(self, cls_scores, pred_bboxes, assign, text_token_mask,
-                     gt_bboxes, positive_maps, query_mask):
+                     gt_bboxes, positive_maps, query_mask, cls_avg, np_sync):
         B, Q, M = cls_scores.shape
         T = text_token_mask.shape[1]
         pos = assign >= 0
@@ -133,13 +152,6 @@ class GroundingHead(nn.Module):
         labels = torch.take_along_dim(positive_maps, idx, dim=1)
         labels = torch.where(pos[..., None], labels, torch.zeros_like(labels))
         bbox_targets = torch.take_along_dim(gt_bboxes, idx, dim=1)
-
-        num_total_pos = pos.sum().float()
-        valid_q = (query_mask if query_mask is not None
-                   else torch.ones_like(pos))
-        num_total_neg = valid_q.sum() - num_total_pos
-        cls_avg = torch.clamp(
-            num_total_pos + num_total_neg * self.bg_cls_weight, min=1.0)
 
         # classification: focal over the valid text tokens
         tmask_full = torch.zeros((B, M), dtype=torch.bool,
@@ -152,12 +164,11 @@ class GroundingHead(nn.Module):
         logits = torch.where(finite, cls_scores,
                              torch.zeros_like(cls_scores))
         loss_cls = sigmoid_focal_loss(
-            logits, labels[..., :M], weight * finite,
-            avg_factor=cls_avg) * self.loss_cls_weight
+            logits, labels[..., :M], weight * finite) / cls_avg \
+            * self.loss_cls_weight
 
         # boxes: decoupled corner Chamfer over the matched queries
         pos_f = pos.float()
-        np_sync = torch.clamp(num_total_pos, min=1.0)
 
         def cd(src):
             per_box = chamfer_corner_loss(src, bbox_targets)
@@ -190,11 +201,13 @@ class GroundingHead(nn.Module):
                              text_token_mask, gt_bboxes, gt_masks,
                              positive_maps, query_mask)
         L = all_cls.shape[0]
+        cls_avg, np_sync = self.normalisers(assign, query_mask)
         losses = {}
         for lid in range(L):
             lc, lb = self._loss_single(
                 all_cls[lid], all_layers_pred_bboxes[lid], assign[lid],
-                text_token_mask, gt_bboxes, positive_maps, query_mask)
+                text_token_mask, gt_bboxes, positive_maps, query_mask,
+                cls_avg[lid], np_sync[lid])
             pre = '' if lid == L - 1 else f'd{lid}.'
             losses[pre + 'loss_cls'] = lc
             losses[pre + 'loss_bbox'] = lb

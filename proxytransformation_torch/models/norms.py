@@ -9,6 +9,16 @@ In train mode the first two normalize with batch statistics and update
 the running buffers in place. `torch.nn.BatchNorm*` is not used: its
 running variance is unbiased and its momentum means the other fraction.
 
+The batch statistics are the global batch's under data parallelism, as
+the JAX package's are: its step is one `jit` over a batch sharded on the
+`data` mesh, so XLA reduces over every device (PARITY.md deviation 4;
+the "per-device local" of proxytransformation_tpu/models/norms.py:5-6
+does not hold under `jit`). With more than one rank the sums behind the
+statistics go through `parallel.all_reduce_sum`, whose backward sums the
+incoming gradients over ranks, so the gradients are the global batch's
+too; every rank issues the same collectives in the same order, whatever
+its rows hold. Eval mode and `folded` stay local and issue none.
+
 `checkpoint_block` is the JAX package's `nn.remat` of a block: its
 backward recomputes the block's forward, and the recompute leaves the
 running statistics as they are, since flax's functional `batch_stats`
@@ -23,6 +33,8 @@ from typing import Iterator
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.dist import all_reduce_sum, world_size
 
 _RECOMPUTE = threading.local()
 
@@ -82,12 +94,21 @@ class BatchNormParams(nn.Module):
         """flax `nn.BatchNorm` over the last axis. Eval: running stats.
         Train (flax 0.12 defaults): batch stats over every other axis,
         var = E[x²] - E[x]² clipped at 0, the running stats updated in
-        place with momentum 0.99 (the fraction of the old value kept)."""
+        place with momentum 0.99 (the fraction of the old value kept).
+        With more than one rank: one all-reduce of the sums of x and x²
+        and of the row count, the moments from the global sums."""
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=dims)
-            var = torch.maximum((x * x).mean(dim=dims) - mean * mean,
-                                torch.zeros_like(mean))
+            if world_size() == 1:
+                mean = x.mean(dim=dims)
+                sq = (x * x).mean(dim=dims)
+            else:
+                C = x.shape[-1]
+                sums = all_reduce_sum(torch.cat([
+                    x.sum(dim=dims), (x * x).sum(dim=dims),
+                    x.new_tensor([x.numel() // C])]))
+                mean, sq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+            var = torch.maximum(sq - mean * mean, torch.zeros_like(mean))
             self._update(mean, var, 0.99)
         else:
             mean, var = self.running_mean, self.running_var
@@ -98,14 +119,19 @@ class BatchNormParams(nn.Module):
                train: bool = False) -> torch.Tensor:
         """`MaskedBatchNorm`, 0 at masked rows. Eval: running stats.
         Train: two-pass mean and variance over the valid rows of every
-        sample, the running stats updated in place with momentum 0.9."""
+        sample, the running stats updated in place with momentum 0.9.
+        With more than one rank each pass all-reduces its sums (the
+        masked sum and count, then the masked squared deviations)."""
         xf = x.float()
         if train:
             m = mask[..., None].float()
             dims = tuple(range(x.ndim - 1))
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(dim=dims) / cnt
-            var = (torch.square(xf - mean) * m).sum(dim=dims) / cnt
+            sums = all_reduce_sum(torch.cat([(xf * m).sum(dim=dims),
+                                             m.sum().reshape(1)]))
+            cnt = torch.clamp(sums[-1], min=1.0)
+            mean = sums[:-1] / cnt
+            var = all_reduce_sum(
+                (torch.square(xf - mean) * m).sum(dim=dims)) / cnt
             self._update(mean, var, 0.9)
         else:
             mean, var = self.running_mean, self.running_var

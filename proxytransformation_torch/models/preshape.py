@@ -38,6 +38,7 @@ from torch import nn
 from ..ops.ball_query import ball_query
 from ..ops.common import recip32
 from ..ops.fps import sample_farthest_points
+from ..parallel.dist import global_shape, local_rows
 from .layers import Conv1x1, linear, matmul_f32
 from .norms import BatchNormParams, layer_norm
 
@@ -65,7 +66,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 class Dropout(nn.Module):
     """flax `nn.Dropout`: in train mode keep each element with
-    probability 1 - rate and scale the kept ones by 1 / (1 - rate)."""
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate).
+    The mask is drawn at the global batch's shape and each rank keeps its
+    rows (`parallel.global_shape` / `local_rows`), as the JAX package's
+    draw is defined by the global shape whatever the sharding."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -81,7 +85,8 @@ class Dropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not train or self.rate == 0.0:
             return x
-        keep = self.draw(self.mask_shape(x), x.device, generator)
+        keep = local_rows(self.draw(global_shape(self.mask_shape(x)),
+                                    x.device, generator))
         scaled = x / weak_scalar(1.0 - self.rate, x.dtype)
         return torch.where(keep, scaled, torch.zeros_like(x))
 

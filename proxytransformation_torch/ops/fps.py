@@ -13,13 +13,16 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.dist import global_shape, local_rows
 from .common import masked_gather
 
 
 def random_start(mask: torch.Tensor, generator: torch.Generator
                  ) -> torch.Tensor:
-    """(B,) start indices uniform over each row's valid points."""
-    u = torch.rand(mask.shape, generator=generator, device=mask.device)
+    """(B,) start indices uniform over each row's valid points: the draw
+    is the global batch's, of which each rank keeps its rows."""
+    u = local_rows(torch.rand(global_shape(mask.shape), generator=generator,
+                              device=mask.device))
     return torch.argmax(torch.where(mask, u, torch.full_like(u, -1.0)), dim=1)
 
 

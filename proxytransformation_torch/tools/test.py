@@ -6,7 +6,10 @@ the augmented copies of the config's `tta_cfg` and merges them
 
     python -m proxytransformation_torch.tools.test CONFIG [CHECKPOINT]
         [--work-dir DIR] [--tta] [--device cpu|cuda]
-        [--cfg-options k=v ...]
+        [--launcher none|pytorch] [--cfg-options k=v ...]
+
+Under `--launcher pytorch` the ranks predict the loader's batches in
+turn and rank 0 scores them all and writes the result files.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import argparse
 from typing import Optional, Sequence
 
 from ..engine.runner import Runner
+from ..parallel.launch import LAUNCHERS, launched
 from ..utils.config import Config
 from .train import work_dir_of
 
@@ -27,7 +31,13 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument('--tta', action='store_true',
                         help='test-time augmentation (grounding only)')
     parser.add_argument('--device', default=None,
-                        help='torch device; default: the card')
+                        help='torch device; default: the card (with '
+                             '--launcher pytorch: cuda:LOCAL_RANK)')
+    parser.add_argument('--launcher', choices=LAUNCHERS, default='none',
+                        help='job launcher: pytorch joins the process '
+                             'group of python -m torch.distributed.run '
+                             '(backend: env_cfg.dist_cfg.backend, default '
+                             'nccl)')
     parser.add_argument('--cfg-options', nargs='+', default=[])
     return parser.parse_args(argv)
 
@@ -40,8 +50,9 @@ def main(argv: Optional[Sequence[str]] = None):
         cfg['val_dataloader'] = cfg['test_dataloader']
     if 'test_evaluator' in cfg:
         cfg['val_evaluator'] = cfg['test_evaluator']
-    runner = Runner.from_cfg(cfg, work_dir_of(args, cfg), args.device)
-    return runner.test(resume=args.checkpoint, tta=args.tta)
+    with launched(args.launcher, cfg, args.device) as device:
+        runner = Runner.from_cfg(cfg, work_dir_of(args, cfg), device)
+        return runner.test(resume=args.checkpoint, tta=args.tta)
 
 
 if __name__ == '__main__':

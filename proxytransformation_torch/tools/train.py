@@ -2,10 +2,18 @@
 
     python -m proxytransformation_torch.tools.train CONFIG [--work-dir DIR]
         [--resume [auto|PATH]] [--amp] [--device cpu|cuda]
-        [--cfg-options k=v ...]
+        [--launcher none|pytorch] [--cfg-options k=v ...]
 
 Without `--device` it runs on the card and raises when there is none.
 `main(argv)` returns the Runner, for callers in the same process.
+
+Data-parallel, one rank a process (`parallel/`):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m proxytransformation_torch.tools.train CONFIG --launcher pytorch
+        [--device cpu --cfg-options env_cfg.dist_cfg.backend=gloo]
+
+The config's batch size is a node's, split over its ranks.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import os
 from typing import Optional, Sequence
 
 from ..engine.runner import Runner, apply_amp
+from ..parallel.launch import LAUNCHERS, launched
 from ..utils.config import Config
 
 
@@ -29,7 +38,13 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              'checkpoints the painting; geometry, norm '
                              'statistics and losses stay float32')
     parser.add_argument('--device', default=None,
-                        help='torch device; default: the card')
+                        help='torch device; default: the card (with '
+                             '--launcher pytorch: cuda:LOCAL_RANK)')
+    parser.add_argument('--launcher', choices=LAUNCHERS, default='none',
+                        help='job launcher: pytorch joins the process '
+                             'group of python -m torch.distributed.run '
+                             '(backend: env_cfg.dist_cfg.backend, default '
+                             'nccl)')
     parser.add_argument('--use_wandb', action='store_true')
     parser.add_argument('--cfg-options', nargs='+', default=[])
     return parser.parse_args(argv)
@@ -60,8 +75,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Runner:
         apply_amp(cfg)
     if args.use_wandb:
         add_wandb(cfg)
-    runner = Runner.from_cfg(cfg, work_dir_of(args, cfg), args.device)
-    runner.train(resume=args.resume)
+    with launched(args.launcher, cfg, args.device) as device:
+        runner = Runner.from_cfg(cfg, work_dir_of(args, cfg), device)
+        runner.train(resume=args.resume)
     return runner
 
 

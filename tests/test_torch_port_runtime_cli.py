@@ -218,6 +218,21 @@ def test_slice13_modules_import_no_upstream_package(module):
     assert not mods & (FORBIDDEN | {'transformers', 'open_clip'}), mods
 
 
+# the modules of the data-parallel slice
+SLICE14_MODULES = ('parallel/__init__.py', 'parallel/dist.py',
+                   'parallel/gather.py', 'parallel/launch.py')
+
+
+@pytest.mark.parametrize('module', SLICE14_MODULES)
+def test_parallel_modules_import_no_jax(module):
+    """Each module of `parallel/` is walked by the static guard and
+    imports none of the forbidden packages (its gather keeps its own copy
+    of the JAX package's framing)."""
+    path = ROOT / 'proxytransformation_torch' / module
+    assert path in set((ROOT / 'proxytransformation_torch').rglob('*.py'))
+    assert not {mod for mod, _ in _imports(path)} & FORBIDDEN
+
+
 def test_port_runtime_loads_no_forbidden_module():
     # the data path too: a JPEG and a PNG view through the host decoder
     code = ('import sys, proxytransformation_torch.tools.train, '

@@ -45,6 +45,7 @@ from proxytransformation_tpu.models.detector import (
 from proxytransformation_tpu.ops import sparse as jsp
 from proxytransformation_tpu.ops.sparse_conv_pallas import (
     sparse_conv_dw_gather_gemm, sparse_conv_gather_gemm)
+from proxytransformation_tpu.parallel import replicate, shard_batch
 from proxytransformation_torch.convert import state_dict_from_jax
 from proxytransformation_torch.engine import train as ttrain
 from proxytransformation_torch.models import detector as tdet_mod
@@ -127,9 +128,12 @@ def _adam_moments(opt_state, params):
     return merge('mu'), merge('nu')
 
 
-def run_jax(sd, batch, steps, monkeypatch, cfg=TINY, compiler_options=None):
+def run_jax(sd, batch, steps, monkeypatch, cfg=TINY, compiler_options=None,
+            mesh=None):
     """`steps` JAX train steps of the grounder `cfg` from state dict `sd`,
-    compiled once (with XLA's `compiler_options`, when given)."""
+    compiled once (with XLA's `compiler_options`, when given); with a
+    `mesh`, the batch sharded over it and the state replicated (the JAX
+    Runner's data parallelism, `proxytransformation_tpu.parallel`)."""
     masks, seen = {}, {}
 
     def interceptor(next_fun, args, kwargs, ctx):
@@ -151,6 +155,8 @@ def run_jax(sd, batch, steps, monkeypatch, cfg=TINY, compiler_options=None):
     tx = _recording(jtrain.build_optimizer(variables['params']))
     state = jtrain.create_train_state(model, variables, tx)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    if mesh is not None:
+        jb, state = shard_batch(jb, mesh), replicate(state, mesh)
     out = []
     with fnn.intercept_methods(interceptor):
         step = jax.jit(jtrain.make_train_step(model, tx)).lower(
