@@ -176,7 +176,24 @@ Phases (any failure exits non-zero before the final line):
      the train CLI; (d) s/it beside one process, the gradient
      all-reduce's bytes and ms, the norm collectives' count and ms, each
      rank's peak memory. Gloo stages through the host and the ranks share
-     one card: not NCCL across cards.
+     one card: not NCCL across cards; (e) occupancy: the full occupancy
+     config through `tools/train.py` at host batch 4 (2 steps, val one
+     scene a batch) on one process, then inside the same two ranks as
+     (a) (`--launcher pytorch` in the group they hold): the first step's
+     losses' relative gap, the largest parameter and running-statistic
+     difference to the one-process step, both ranks' parameters equal,
+     s/it on 2 ranks beside 1, each rank's peak memory, val_results
+     beside one process's; no kernel of csrc/ may launch;
+ 20. the library (`[library]`): the structures and models/misc.py
+     modules on the card at realistic sizes against the same call on the
+     CPU: `points_in_boxes` of 100k points in 64 boxes (a mask that
+     differs only at points within 1e-5 m of a face), `EulerBoxes.
+     overlaps` of 256 x 256 boxes (within 1e-4), `TransformerEncoder` at
+     its defaults on (2, 4096, 256) tokens with a padding mask and
+     `ChannelMapper` on the flagship's four MinkResNet-34 levels (within
+     1e-4 · (1 + max)), each with its CUDA-event ms; and
+     `utils/timing.py::chained_ms_per_iter` of a flagship request beside
+     phase 5's request ms.
 Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
 `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
@@ -1178,6 +1195,9 @@ def run() -> int:
     # 19. data parallelism: ranks in processes of their own
     dp = dp_phases(smi)
 
+    # 20. the structures and models/misc.py modules
+    library = library_phase(smi, predict['req_ms'])
+
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
         {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
@@ -1261,6 +1281,7 @@ def run() -> int:
               'brick': slice13['brick']['summary'],
               'brick_calls': slice13['brick']['rows'],
               'dp': dp['summary'], 'dp_step_calls': dp['rows'],
+              'library': library,
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -1828,25 +1849,6 @@ REALDATA_CLASSES = ('cabinet', 'bed', 'chair', 'table')
 N_SCAN_VIEWS = 50
 
 
-def write_png16(path: Path, depth: np.ndarray) -> None:
-    """A 16-bit grayscale PNG (filter type 0 on every row), without cv2."""
-    import struct
-    import zlib
-
-    def chunk(kind, data):
-        return (struct.pack('>I', len(data)) + kind + data
-                + struct.pack('>I', zlib.crc32(kind + data)))
-
-    h, w = depth.shape
-    rows = np.zeros((h, 1 + 2 * w), np.uint8)
-    rows[:, 1:] = depth.astype('>u2').view(np.uint8).reshape(h, 2 * w)
-    path.write_bytes(
-        b'\x89PNG\r\n\x1a\n'
-        + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 16, 0, 0, 0, 0))
-        + chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
-        + chunk(b'IEND', b''))
-
-
 def write_embodiedscan_tree(root: Path, fixtures: Path) -> dict:
     """A two-scan EmbodiedScan tree from the fixture views: infos pkls,
     vg jsons and, per scan, 50 view entries cycling through the views
@@ -1855,7 +1857,7 @@ def write_embodiedscan_tree(root: Path, fixtures: Path) -> dict:
     quarter millimetres, its shift being 4000, and its axis alignment is a
     translation (its boxes are moved by it). Returns the file names."""
     import pickle
-    from proxytransformation_torch.data.image_io import imread
+    from proxytransformation_torch.data.image_io import imread, write_png
     manifest = json.loads((fixtures / 'manifest.json').read_text())
     cam2img = np.asarray(manifest['cam2img'], np.float64)
     boxes = [list(b) for b in manifest['boxes']]
@@ -1869,8 +1871,8 @@ def write_embodiedscan_tree(root: Path, fixtures: Path) -> dict:
         for k, view in enumerate(manifest['views']):
             shutil.copy(fixtures / view['image'], scan_dir / f'view{k}.jpg')
             if scan_id == MATTERPORT_SCAN:
-                write_png16(scan_dir / f'depth{k}.png',
-                            imread(str(fixtures / view['depth']), -1) * 4)
+                write_png(scan_dir / f'depth{k}.png',
+                          imread(str(fixtures / view['depth']), -1) * 4)
             else:
                 shutil.copy(fixtures / view['depth'],
                             scan_dir / f'depth{k}.png')
@@ -2368,26 +2370,29 @@ OCC_DATASET = dict(type='SyntheticOccupancyDataset', n_points=100_000,
 
 
 def occupancy_argv(work: Path, length: int, mtype: str = None,
-                   checkpoint: str = None):
+                   checkpoint: str = None, batch_size: int = 2,
+                   val_batch: int = 2, flags=()):
     """tools/train.py's arguments for phase 15 (tools/test.py's with
     `checkpoint`): the occupancy config as it is, with loaders at full
-    scale (the config has none): B=2, `length` train samples, 2 val
-    samples, the prefetch thread; `mtype` swaps the model's type."""
-    def loader(ds, shuffle):
-        return dict(batch_size=2, num_workers=0, dataset=ds,
+    scale (the config has none): `batch_size` (2: phase 15's), `length`
+    train samples, 2 val samples in batches of `val_batch`, the prefetch
+    thread; `mtype` swaps the model's type; `flags` go before the
+    options."""
+    def loader(ds, shuffle, bs):
+        return dict(batch_size=bs, num_workers=0, dataset=ds,
                     sampler=dict(type='DefaultSampler', shuffle=shuffle))
-    opts = [f'val_dataloader='
-            f'{loader(dict(OCC_DATASET, length=2, seed=7, test_mode=True), False)!r}']
+    val_ds = dict(OCC_DATASET, length=2, seed=7, test_mode=True)
+    opts = [f'val_dataloader={loader(val_ds, False, val_batch)!r}']
     if not checkpoint:
-        opts += [f'train_dataloader='
-                 f'{loader(dict(OCC_DATASET, length=length), True)!r}',
+        train_ds = dict(OCC_DATASET, length=length)
+        opts += [f'train_dataloader={loader(train_ds, True, batch_size)!r}',
                  'train_cfg.max_epochs=1', 'train_cfg.val_interval=1',
                  'log_interval=1']
     if mtype:
         opts.append(f'model.type={mtype!r}')
     root = Path(__file__).resolve().parent
     return ([str(root / OCC_CONFIG)] + ([checkpoint] if checkpoint else [])
-            + ['--work-dir', str(work), '--cfg-options', *opts])
+            + ['--work-dir', str(work), *flags, '--cfg-options', *opts])
 
 
 def cuda_ms(fn, reps: int):
@@ -3183,12 +3188,13 @@ def compare_stages(got, want, rows=slice(None)):
 
 
 def dp_step_worker(work: Path) -> int:
-    """19a's rank (`python -m torch.distributed.run --nproc_per_node 2
-    chip_smoke.py --dp-step WORK`): gloo, both ranks on cuda:0; rank 0's
-    state broadcast, one float32 step on the rank's half of the global
-    batch (rank 0's kernel calls captured and checked), its parameters
-    against the one-process run's and the other rank's, then a timed step
-    and one with the collectives timed alone."""
+    """19a's and 19e's rank (`python -m torch.distributed.run
+    --nproc_per_node 2 chip_smoke.py --dp-step WORK`): gloo, both ranks on
+    cuda:0; rank 0's state broadcast, one float32 step on the rank's half
+    of the global batch (rank 0's kernel calls captured and checked), its
+    parameters against the one-process run's and the other rank's, then a
+    timed step and one with the collectives timed alone; then the
+    occupancy run in the same group (`occ_dp_rank`)."""
     from proxytransformation_torch.device import full_float32
     from proxytransformation_torch.parallel import dist as pdist
     ctx = pdist.env_context()
@@ -3197,6 +3203,7 @@ def dp_step_worker(work: Path) -> int:
     try:
         with full_float32():
             out = dp_step_rank(ctx, work)
+            out['occupancy'] = occ_dp_rank(ctx, work)
     finally:
         pdist.destroy_process_group()
     (work / f'rank{ctx.rank}.json').write_text(json.dumps(out))
@@ -3309,6 +3316,152 @@ def dp_test_argv(ckpt: Path, work: Path, flags=(), options=()):
             'test_dataloader.num_workers=0', *options]
 
 
+OCC_DP_B = 4              # 19e's host batch: 2 a rank on 2 ranks
+OCC_DP_STEPS = 2
+
+
+@contextmanager
+def recording_first_step(rec):
+    """While open, the Runner's first train step records into `rec` its
+    metrics, its batch's rows, every trained parameter after the update
+    (flat, on the host) and every running statistic."""
+    from proxytransformation_torch.engine import runner as runner_mod
+    make_train_step = runner_mod.make_train_step
+
+    def recording_make_train_step(model, optimizer, schedule=None):
+        step = make_train_step(model, optimizer, schedule)
+
+        def train_step(batch, generator=None):
+            metrics = step(batch, generator)
+            if not rec:
+                rec.update(
+                    metrics={k: float(v) for k, v in metrics.items()},
+                    rows=int(batch['imgs'].shape[0]),
+                    params=trainable_flat(model).cpu(),
+                    stats=torch.cat([b.detach().reshape(-1) for n, b in
+                                     model.named_buffers()
+                                     if 'running' in n]).cpu())
+            return metrics
+        return train_step
+
+    runner_mod.make_train_step = recording_make_train_step
+    try:
+        yield
+    finally:
+        runner_mod.make_train_step = make_train_step
+
+
+def occ_dp_run(work: Path, flags) -> dict:
+    """19e: the occupancy config through `tools/train.py main` at host
+    batch OCC_DP_B (OCC_DP_STEPS steps, val one scene a batch) in this
+    process: one process, or a rank of the group it holds (`flags`
+    `--launcher pytorch`). The first step's record, the losses, s/it and
+    the peak memory; no kernel of csrc/ may launch."""
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.tools import train as train_cli
+    rec = {}
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_first_step(rec):
+        runner = train_cli.main(occupancy_argv(
+            work, OCC_DP_B * OCC_DP_STEPS, batch_size=OCC_DP_B, val_batch=1,
+            flags=flags))
+    counts = _cuda.launch_counts()
+    require(not any(counts.values()),
+            f'a kernel of csrc/ launched on the occupancy path: {counts}')
+    log_ = runner.train_log
+    require(len(log_) == OCC_DP_STEPS and all(
+        np.isfinite(v) for r in log_ for v in r.values()),
+        f'occupancy under DP: {log_}')
+    out = dict(rec, losses=[r['total_loss'] for r in log_],
+               s_per_it=runner.train_timing['iter_s'],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del runner
+    torch.cuda.empty_cache()
+    return out
+
+
+def occ_dp_rank(ctx, work: Path) -> dict:
+    """19e's rank: the occupancy run in the group this rank holds, its
+    first step against the one-process run's parameters and running
+    statistics and against rank 0's."""
+    from proxytransformation_torch.parallel import dist as pdist
+    got = occ_dp_run(work / 'occ_dp', ('--launcher', 'pytorch', '--device',
+                                        'cuda:0'))
+    params, stats = got.pop('params'), got.pop('stats')
+    ref_params = torch.load(work / 'occ_reference_params.pt')
+    ref_stats = torch.load(work / 'occ_reference_stats.pt')
+    theirs = params.clone()
+    pdist.broadcast_tensors([theirs])
+    return dict(got, max_param_diff=float((params - ref_params).abs().max()),
+                max_stats_diff=float((stats - ref_stats).abs().max()),
+                stats_max=float(ref_stats.abs().max()),
+                ranks_equal=bool(torch.equal(theirs, params)))
+
+
+def occ_dp_reference() -> dict:
+    """19e's one process at host batch OCC_DP_B; its first step's
+    parameters and running statistics go to the ranks."""
+    one = occ_dp_run(DP_WORK / 'occ_one', ('--device', 'cuda'))
+    torch.save(one.pop('params'), DP_WORK / 'occ_reference_params.pt')
+    torch.save(one.pop('stats'), DP_WORK / 'occ_reference_stats.pt')
+    one['val_results'] = json.loads(
+        (DP_WORK / 'occ_one' / 'val_results.json').read_text())
+    return one
+
+
+def occ_dp_report(smi, one: dict, ranks) -> dict:
+    """19e's checks and lines from the ranks' records beside one
+    process's."""
+    from proxytransformation_torch.utils.config import Config
+    occ = [r['occupancy'] for r in ranks]
+    lr = Config.fromfile(str(Path(__file__).resolve().parent / OCC_CONFIG))[
+        'optim_wrapper']['optimizer']['lr']
+    val = json.loads((DP_WORK / 'occ_dp' / 'val_results.json').read_text())
+    keys = sorted(k for k in one['metrics'] if k != 'grad_norm')
+    gaps = {k: abs(occ[0]['metrics'][k] - one['metrics'][k])
+            / abs(one['metrics'][k]) for k in (*keys, 'grad_norm')}
+    for r in occ:
+        require(r['ranks_equal'] and r['rows'] == OCC_DP_B // 2,
+                f'occupancy rank: rows {r["rows"]}, parameters equal to '
+                f'rank 0\'s {r["ranks_equal"]}')
+        require(r['metrics'] == occ[0]['metrics'],
+                'the ranks report different occupancy metrics')
+    require(one['rows'] == OCC_DP_B, f'one process: {one["rows"]} rows')
+    # the same float32 function in another summation order: no discrete
+    # choice, so rounding; Adam's first step moves an entry whose gradient
+    # is at rounding level by ±lr either way
+    require(max(gaps.values()) <= 1e-4,
+            f'occupancy losses on 2 ranks against one process: {gaps}')
+    require(occ[0]['max_param_diff'] <= 2.2 * lr,
+            'occupancy parameters after the step farther from one '
+            f'process\'s than Adam\'s first move: {occ[0]["max_param_diff"]}')
+    require(occ[0]['max_stats_diff'] <= 1e-4 * (1 + occ[0]['stats_max']),
+            f'occupancy running statistics: {occ[0]["max_stats_diff"]}')
+    require(set(val) == set(one['val_results']),
+            f'occupancy val keys {sorted(val)}')
+    log(f'[dp] occupancy ({OCC_CONFIG}, float32, host batch {OCC_DP_B}, '
+        f'{OCC_DP_STEPS} steps, val one scene a batch) on the two gloo '
+        'ranks of (a) (2 rows a rank) against one process: the first '
+        'step\'s relative gaps ' + ', '.join(
+            f'{k} {v:.3g}' for k, v in gaps.items())
+        + f' (one process total_loss {one["metrics"]["total_loss"]:.6f}, '
+        f'2 ranks {occ[0]["metrics"]["total_loss"]:.6f}); largest parameter '
+        f'difference after it {occ[0]["max_param_diff"]:.3g} (lr {lr:g}), '
+        f'running statistics {occ[0]["max_stats_diff"]:.3g} of max '
+        f'{occ[0]["stats_max"]:.3g}; both ranks hold the same parameters; '
+        f's/it {occ[0]["s_per_it"]:.3f} on 2 ranks beside '
+        f'{one["s_per_it"]:.3f} on one process; peak '
+        + ', '.join(f'rank {i} {r["peak_gib"]:.2f} GiB'
+                    for i, r in enumerate(occ))
+        + f' (one process {one["peak_gib"]:.2f} GiB); val mIoU '
+        f'{val["mIoU"]:.5f} / IoU_geo {val["IoU_geo"]:.5f} on 2 ranks, '
+        f'{one["val_results"]["mIoU"]:.5f} / '
+        f'{one["val_results"]["IoU_geo"]:.5f} on one process; no kernel of '
+        f'csrc/ launched ({smi})')
+    return dict(one=one, ranks=occ, gaps=gaps, val_results=val, lr=lr)
+
+
 def dp_phases(smi):
     """Phase 19: data parallelism. (a) the float32 step at global B=4 on
     one process twice, then on two gloo ranks sharing the card, every
@@ -3316,7 +3469,8 @@ def dp_phases(smi):
     `tools.train --launcher pytorch --amp` on the two ranks (an epoch of
     2 steps, val, a checkpoint, `--resume auto` for one more), then
     `tools.test --launcher pytorch` against one process's; (c) NCCL at
-    world size 1 through the train CLI; (d) their times."""
+    world size 1 through the train CLI; (d) their times; (e) occupancy
+    on one process and in the ranks of (a)."""
     from proxytransformation_torch.tools import test as test_cli
     t_phase = time.perf_counter()
     shutil.rmtree(DP_WORK, ignore_errors=True)
@@ -3334,6 +3488,7 @@ def dp_phases(smi):
         f'({ref["n_params"]} trained parameters); step '
         + ', '.join(f'{ms:.1f}' for ms in ref['step_ms'])
         + f' ms of CUDA events; peak {ref["peak_gib"]:.2f} GiB ({smi})')
+    occ_one = occ_dp_reference()
     _, step_s = torchrun(2, [Path(__file__).resolve(), '--dp-step', DP_WORK],
                          'step')
     ranks = [json.loads((DP_WORK / f'rank{r}.json').read_text())
@@ -3382,6 +3537,8 @@ def dp_phases(smi):
     for d in sd:
         require(d['offsets_max_abs'] <= 1e-4 * (1 + d['offsets_max']),
                 f'preshape offsets on 2 ranks differ from one process: {d}')
+
+    occupancy = occ_dp_report(smi, occ_one, ranks)
 
     # (b) the Runner on two ranks, then the test CLI on two and on one
     work = DP_WORK / 'runner'
@@ -3470,14 +3627,181 @@ def dp_phases(smi):
     shutil.rmtree(DP_WORK, ignore_errors=True)
     log(f'[phase 19] in {time.perf_counter() - t_phase:.1f} s ({smi})')
     summary = dict(reference=ref, ranks=[{k: v for k, v in r.items()
-                                          if k != 'rows'} for r in ranks],
+                                          if k not in ('rows', 'occupancy')}
+                                         for r in ranks],
                    runner_epochs=[epoch1, epoch2], nccl=nccl_log,
                    test_results=dp_results['val_results.json'],
+                   occupancy=occupancy,
                    seconds=dict(step=step_s, train=train_s, resume=resume_s,
                                 test=test_s, one_test=one_test_s,
                                 nccl=nccl_s))
     return dict(rows=r0['rows'], counts=r0['counts'],
                 per_step=r0['per_step'], summary=summary)
+
+
+# --------------------------------------------------------------------------
+# 20. the library
+# --------------------------------------------------------------------------
+LIB_RTOL = 1e-4           # the card against the CPU, · (1 + max|cpu|)
+LIB_FACE_M = 1e-5         # a mask may differ only this close to a face
+
+
+def to_cpu_level(lvl):
+    """A SparseLevel with its tensors on the host."""
+    return lvl._replace(keys=lvl.keys.cpu(), coords=lvl.coords.cpu(),
+                        feats=lvl.feats.cpu(), mask=lvl.mask.cpu(),
+                        origin=lvl.origin.cpu())
+
+
+def library_boxes():
+    """100k points in a 10 x 10 x 3 m room, 256 boxes of 0.2-2 m in it
+    with random yaw, pitch and roll."""
+    rng = np.random.RandomState(20)
+    pts = rng.uniform([-5, -5, 0], [5, 5, 3], (100_000, 3)).astype(
+        np.float32)
+    boxes = np.zeros((256, 9), np.float32)
+    boxes[:, :3] = rng.uniform([-4, -4, 0.2], [4, 4, 2.5], (256, 3))
+    boxes[:, 3:6] = rng.uniform(0.2, 2.0, (256, 3))
+    boxes[:, 6:9] = rng.uniform(-np.pi, np.pi, (256, 3)) * [1, 0.2, 0.2]
+    return pts, boxes
+
+
+def face_margin(pts: np.ndarray, boxes: np.ndarray, pairs) -> np.ndarray:
+    """For each (point, box) pair, in float64: how far the point lies from
+    the box's surface along its nearest face normal, max over axes of
+    |local| - dims / 2 (> 0 outside)."""
+    from proxytransformation_torch.structures.rotation import (
+        euler_angles_to_matrix)
+    p, b = pairs
+    rot = euler_angles_to_matrix(torch.from_numpy(
+        boxes[b, 6:9]).double()).numpy()
+    rel = pts[p].astype(np.float64) - boxes[b, :3]
+    local = np.einsum('ni,nij->nj', rel, rot)
+    return np.max(np.abs(local) - boxes[b, 3:6] / 2, axis=-1)
+
+
+def library_phase(smi, flagship_req_ms):
+    """Phase 20: the structures and models/misc.py modules at realistic
+    sizes on the card against the same call on the CPU, their CUDA-event
+    ms, and `chained_ms_per_iter` of a flagship request."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.models.detector import (
+        SparseFeatureFusion3DGrounderPreshape, batch_to_device)
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.layers import random_init_
+    from proxytransformation_torch.models.misc import (ChannelMapper,
+                                                       TransformerEncoder)
+    from proxytransformation_torch.models.sparse_resnet import MinkResNet
+    from proxytransformation_torch.structures.boxes import (EulerBoxes,
+                                                            points_in_boxes)
+    from proxytransformation_torch.utils.timing import chained_ms_per_iter
+    t_phase = time.perf_counter()
+    ms, errs = {}, {}
+
+    def card_vs_cpu(name, card_fn, cpu_fn):
+        with torch.no_grad():
+            ms[name] = cuda_ms(card_fn, 3)[0]
+            return card_fn(), cpu_fn()
+
+    # points_in_boxes, EulerBoxes.overlaps
+    pts, boxes = library_boxes()
+    card_pts, cpu_pts = torch.from_numpy(pts).cuda(), torch.from_numpy(pts)
+    card_boxes = EulerBoxes(boxes, device='cuda')
+    cpu_boxes = EulerBoxes(boxes, device='cpu')
+    got, want = card_vs_cpu(
+        'points_in_boxes',
+        lambda: points_in_boxes(card_pts, card_boxes.tensor[:64]),
+        lambda: points_in_boxes(cpu_pts, cpu_boxes.tensor[:64]))
+    differ = np.nonzero((got.cpu() != want).numpy())
+    margin = face_margin(pts, boxes, differ)
+    require(got.dtype == torch.bool and tuple(got.shape) == (100_000, 64)
+            and bool(want.any()),
+            f'points_in_boxes: {got.dtype} {tuple(got.shape)}')
+    require(bool(np.all(np.abs(margin) <= LIB_FACE_M)),
+            f'points_in_boxes: the card and the CPU differ away from a '
+            f'face: {np.abs(margin).max() if margin.size else 0}')
+    errs['points_in_boxes'] = (f'{len(differ[0])} of {got.numel()} pairs '
+                               f'differ, all within {LIB_FACE_M:g} m of a '
+                               f'face; {int(want.sum())} inside')
+    got, want = card_vs_cpu('EulerBoxes.overlaps',
+                            lambda: card_boxes.overlaps(card_boxes),
+                            lambda: cpu_boxes.overlaps(cpu_boxes))
+    err = float((got.cpu() - want).abs().max())
+    require(tuple(got.shape) == (256, 256) and err <= LIB_RTOL,
+            f'EulerBoxes.overlaps: card vs CPU {err}')
+    errs['EulerBoxes.overlaps'] = (f'max abs err {err:.3g}; '
+                                   f'{int((want > 0).sum())} pairs overlap')
+
+    # TransformerEncoder at its defaults, a padded batch
+    cpu_enc = random_init_(TransformerEncoder(device='cpu'),
+                           torch.Generator().manual_seed(20))
+    card_enc = TransformerEncoder(device='cuda')
+    card_enc.load_state_dict(cpu_enc.state_dict())
+    x = torch.randn(2, 4096, 256, generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(2, 4096, dtype=torch.bool)
+    mask[1, 3000:] = False
+    card_x, card_mask = x.cuda(), mask.cuda()
+    got, want = card_vs_cpu('TransformerEncoder',
+                            lambda: card_enc(card_x, card_mask),
+                            lambda: cpu_enc(x, mask))
+    err = float((got.cpu() - want).abs().max())
+    require(bool(torch.isfinite(got).all())
+            and err <= LIB_RTOL * (1 + float(want.abs().max())),
+            f'TransformerEncoder: card vs CPU {err}')
+    errs['TransformerEncoder'] = f'max abs err {err:.3g}'
+    del cpu_enc, card_enc, x, card_x, got, want
+    torch.cuda.empty_cache()
+
+    # ChannelMapper on the flagship's four MinkResNet-34 levels
+    backbone = MinkResNet(34, 3)
+    flax_init_(backbone, torch.Generator().manual_seed(0))
+    backbone = backbone.cuda().eval()
+    with torch.no_grad():
+        levels = backbone(flagship_level0())[0]
+    widths = [int(lvl.feats.shape[-1]) for lvl in levels]
+    cpu_map = random_init_(ChannelMapper(widths, 256, device='cpu'),
+                           torch.Generator().manual_seed(21))
+    card_map = ChannelMapper(widths, 256, device='cuda')
+    card_map.load_state_dict(cpu_map.state_dict())
+    cpu_levels = [to_cpu_level(lvl) for lvl in levels]
+    got, want = card_vs_cpu('ChannelMapper', lambda: card_map(levels),
+                            lambda: cpu_map(cpu_levels))
+    err = max(float((g.feats.cpu() - w.feats).abs().max()
+                    / (1 + float(w.feats.abs().max())))
+              for g, w in zip(got, want))
+    require(widths == [64, 128, 256, 512] and err <= LIB_RTOL,
+            f'ChannelMapper on widths {widths}: card vs CPU {err}')
+    errs['ChannelMapper'] = (f'widths {widths} to 256, voxels '
+                             f'{[int(lvl.mask.sum()) for lvl in levels]}, '
+                             f'max abs err / (1 + max) {err:.3g}')
+    del backbone, levels, cpu_levels, cpu_map, card_map, got, want
+    torch.cuda.empty_cache()
+
+    # a flagship request timed by chained_ms_per_iter
+    model = SparseFeatureFusion3DGrounderPreshape(
+        device='cuda').random_init_(0)
+    batch = batch_to_device(flagship_batch(seed=0), 'cuda')
+
+    def request(i, state):
+        with torch.no_grad():
+            model(state)
+        return state
+
+    chained = chained_ms_per_iter(request, batch)
+    require(np.isfinite(chained) and chained > 0,
+            f'chained_ms_per_iter: {chained}')
+    del model, batch
+    torch.cuda.empty_cache()
+    for name in ms:
+        log(f'[library] {name}: ' + ', '.join(f'{m:.3f}' for m in ms[name])
+            + f' ms of CUDA events on the card; card vs CPU: {errs[name]}')
+    log(f'[library] chained_ms_per_iter of a flagship request (B=2, '
+        f'float32; chains of 2 and 6, best of 2): {chained:.1f} ms a '
+        'request beside phase 5\'s ' + ', '.join(
+            f'{m:.1f}' for m in flagship_req_ms) + ' ms of CUDA events')
+    log(f'[phase 20] in {time.perf_counter() - t_phase:.1f} s ({smi})')
+    return dict(ms=ms, card_vs_cpu=errs, chained_request_ms=chained,
+                flagship_request_ms=flagship_req_ms)
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

@@ -11,8 +11,9 @@ with the text tower of any t_type (the inverses of the JAX package's
 `convert_hf_clip_text`, `convert_hf_bert_text`, `convert_hf_t5_encoder`,
 `convert_open_clip_text` and `convert_hf_deberta`) and any MinkResNet
 (bottleneck blocks, the batch-norm stem; brick stages share the cell
-format's tree). It reads plain nested dicts of arrays; nothing here
-imports JAX.
+format's tree), and of the standalone `ChannelMapper` and
+`TransformerEncoder` of models/misc.py. It reads plain nested dicts of
+arrays; nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -146,6 +147,22 @@ def _fcaf3d_head(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
         w.put(f'{pre}scales.{i}.scale', np.asarray(p[f'scale_{i}'])[0])
 
 
+def _attention(w: _Writer, key: str, a: Tree) -> None:
+    """flax q/k/v/out projections → `MultiheadAttention`'s packed
+    `attn.in_proj_*` and `attn.out_proj`."""
+    qkv = ('q_proj', 'k_proj', 'v_proj')
+    w.put(f'{key}.attn.in_proj_weight', np.concatenate(
+        [np.asarray(a[n]['kernel']).T for n in qkv]))
+    w.put(f'{key}.attn.in_proj_bias', np.concatenate(
+        [np.asarray(a[n]['bias']) for n in qkv]))
+    w.linear(f'{key}.attn.out_proj', a['out_proj'])
+
+
+def _ffn(w: _Writer, key: str, p: Tree) -> None:
+    w.linear(key + '.layers.0.0', p['Dense_0'])
+    w.linear(key + '.layers.1', p['Dense_1'])
+
+
 def _decoder(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
     for pe in ('self_posembed', 'cross_posembed'):
         dst = f'{pre}{pe}.position_embedding_head'
@@ -156,17 +173,24 @@ def _decoder(w: _Writer, p: Tree, s: Tree, pre: str) -> None:
     for i in range(_count(p, r'layer_(\d+)')):
         lp, dst = p[f'layer_{i}'], f'{pre}layers.{i}'
         for attn in ('self_attn', 'cross_attn_text', 'cross_attn'):
-            a = lp[attn]
-            qkv = ('q_proj', 'k_proj', 'v_proj')
-            w.put(f'{dst}.{attn}.attn.in_proj_weight', np.concatenate(
-                [np.asarray(a[n]['kernel']).T for n in qkv]))
-            w.put(f'{dst}.{attn}.attn.in_proj_bias', np.concatenate(
-                [np.asarray(a[n]['bias']) for n in qkv]))
-            w.linear(f'{dst}.{attn}.attn.out_proj', a['out_proj'])
+            _attention(w, f'{dst}.{attn}', lp[attn])
         for n in range(4):
             w.ln(f'{dst}.norms.{n}', lp[f'norm{n}'])
-        w.linear(dst + '.ffn.layers.0.0', lp['ffn']['Dense_0'])
-        w.linear(dst + '.ffn.layers.1', lp['ffn']['Dense_1'])
+        _ffn(w, dst + '.ffn', lp['ffn'])
+
+
+def _channel_mapper(w: _Writer, p: Tree) -> None:
+    for i in range(_count(p, r'conv_(\d+)')):
+        w.linear(f'convs.{i}', p[f'conv_{i}'])
+
+
+def _transformer_encoder(w: _Writer, p: Tree) -> None:
+    for i in range(_count(p, r'attn_(\d+)')):
+        dst = f'layers.{i}'
+        _attention(w, dst + '.attn', p[f'attn_{i}'])
+        w.ln(dst + '.norm1', p[f'norm1_{i}'])
+        _ffn(w, dst + '.ffn', p[f'ffn_{i}'])
+        w.ln(dst + '.norm2', p[f'norm2_{i}'])
 
 
 def _head(w: _Writer, p: Tree, pre: str) -> None:
@@ -285,12 +309,7 @@ def _open_clip_tower(w: _Writer, p: Tree, pre: str) -> None:
         lp, dst = p[f'resblock_{i}'], f'{pre}transformer.resblocks.{i}.'
         w.ln(dst + 'ln_1', lp['ln_1'])
         w.ln(dst + 'ln_2', lp['ln_2'])
-        qkv = [lp['attn'][n] for n in ('q_proj', 'k_proj', 'v_proj')]
-        w.put(dst + 'attn.in_proj_weight', np.concatenate(
-            [np.asarray(a['kernel']).T for a in qkv]))
-        w.put(dst + 'attn.in_proj_bias', np.concatenate(
-            [np.asarray(a['bias']) for a in qkv]))
-        w.linear(dst + 'attn.out_proj', lp['attn']['out_proj'])
+        _attention(w, dst[:-1], lp['attn'])
         w.linear(dst + 'mlp.c_fc', lp['c_fc'])
         w.linear(dst + 'mlp.c_proj', lp['c_proj'])
     w.ln(pre + 'ln_final', p['ln_final'])
@@ -344,8 +363,9 @@ def state_dict_from_jax(variables: Mapping[str, Tree],
                         deberta_heads: Optional[int] = None
                         ) -> Dict[str, torch.Tensor]:
     """`{'params', 'batch_stats'}` of the JAX grounder, detector or
-    occupancy model (arrays) → the port's state_dict; submodules absent
-    from the tree are skipped. A DeBERTa text tower of a width other than
+    occupancy model, or of a `ChannelMapper` or `TransformerEncoder`
+    (arrays) → the port's state_dict; submodules absent from the tree are
+    skipped. A DeBERTa text tower of a width other than
     768, 1024 or 1536 needs its head count (`deberta_heads`)."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
@@ -377,4 +397,6 @@ def state_dict_from_jax(variables: Mapping[str, Tree],
         _occ_head(w, params['bbox_head'], 'bbox_head.')
     elif 'bbox_head' in params:
         _head(w, params['bbox_head'], 'bbox_head.')
+    _channel_mapper(w, params)
+    _transformer_encoder(w, params)
     return w.sd

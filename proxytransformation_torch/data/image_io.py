@@ -4,7 +4,8 @@
 calls it (data/transforms.py: `LoadImageFromFile`, IMREAD_COLOR → BGR
 uint8 H×W×3; `LoadDepthFromFile`, IMREAD_UNCHANGED → uint16 H×W for a
 16-bit PNG). The format is chosen by the file's magic bytes, not its
-extension.
+extension. `write_png(path, img)` stands in for `cv2.imwrite` of a PNG
+(converter/scannet_sens.py's 16-bit depth dump).
 
 JPEG decodes in host C++ (`csrc/image_decode.cpp`: libjpeg-turbo's
 default decode — islow IDCT, fancy upsampling, jdcolor.c's YCbCr → BGR).
@@ -229,6 +230,38 @@ def decode_png(data: bytes, flags: int = IMREAD_UNCHANGED) -> np.ndarray:
         return np.ascontiguousarray(img[..., [0, 0, 0, 1]])
     order = [2, 1, 0] if samples == 3 else [2, 1, 0, 3]
     return np.ascontiguousarray(img[..., order])
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack('>I', len(data)) + kind + data
+            + struct.pack('>I', zlib.crc32(kind + data)))
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """`img` written to `path` as cv2.imwrite writes a PNG: (H, W) uint8 or
+    uint16 gray, or (H, W, 3) uint8 in cv2's BGR order (stored as RGB);
+    filter type 0 on every row, zlib level 6. `decode_png` and cv2.imread
+    give `img` back."""
+    img = np.asarray(img)
+    if img.dtype == np.uint16 and img.ndim == 2:
+        depth, color, samples = 16, 0, img.astype('>u2').view(np.uint8)
+    elif img.dtype == np.uint8 and img.ndim == 2:
+        depth, color, samples = 8, 0, img
+    elif img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        depth, color, samples = 8, 2, img[..., ::-1]
+    else:
+        raise ValueError(f'a PNG of a {img.dtype} array of shape '
+                         f'{img.shape}: (H, W) uint8 / uint16 or (H, W, 3) '
+                         'uint8 only')
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + samples[0].size), np.uint8)
+    rows[:, 1:] = np.ascontiguousarray(samples).reshape(h, -1)
+    Path(path).write_bytes(
+        _PNG_MAGIC
+        + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth, color, 0,
+                                          0, 0))
+        + _png_chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
+        + _png_chunk(b'IEND', b''))
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,10 @@ normalisers, draws and gradients (`engine/train.py`), val deals the
 loader's batches to the ranks in turn and gathers the predictions back
 in loader order for rank 0's metric, and rank 0 alone writes
 checkpoints, logs, scalars and result files (a barrier after each).
-Occupancy under data parallelism raises. The recipe (lr, weight decay, clip norm, milestones,
+That holds for every task: the occupancy models' batch-coupled
+reductions are the ImVoxel neck's train-mode norms (global sums) and
+each scale's batch mean of per-sample losses (the global mean over
+equal slices). The recipe (lr, weight decay, clip norm, milestones,
 gamma, the decoder's lr multiplier) comes from the config, and so does
 the EMA hook (`custom_hooks`: `ExpMomentumEMA`, advanced after each
 optimizer step, carried in the checkpoint and swapped in for val and
@@ -433,14 +436,6 @@ class Runner:
         self.cfg = cfg
         self.dist = context()
         self.task = _model_task(cfg['model'])
-        if self.task == 'occupancy' and self.dist.world > 1:
-            raise NotImplementedError(
-                f'{cfg["model"].get("type")} under data parallelism (world '
-                f'size {self.dist.world}): its batch-coupled reductions, the '
-                'ImVoxel neck\'s train-mode BatchNorm statistics '
-                '(models/occ.py, `norm.flax`) and the batch mean of each '
-                'scale\'s loss (ImVoxelOccHead.loss), are not ported to '
-                'data parallelism yet')
         self.device = resolve_device(device)
         self.ema = ema_from_hooks(cfg.get('custom_hooks'))
         # name → float32 EMA copy of each parameter (buffers are not

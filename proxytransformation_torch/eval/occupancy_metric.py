@@ -11,6 +11,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from ..parallel.gather import evaluate_gathered
 from ..utils.registry import METRICS
 
 
@@ -56,7 +57,9 @@ class OccupancyMetric:
         out['IoU_geo'] = float(iou[present].mean()) if present.any() else 0.0
         return out
 
-    def evaluate(self, *_a, **_k) -> Dict[str, float]:
-        ret = self.compute_metrics()
+    def evaluate(self, *_a, order=None, **_k) -> Dict[str, float]:
+        """Every rank's results gathered (in `order` when given), scored
+        on rank 0, its dict on every rank (`GroundingMetric.evaluate`)."""
+        ret = evaluate_gathered(self.compute_metrics, self.results, order)
         self.results = []
         return ret

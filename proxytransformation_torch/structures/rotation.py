@@ -2,8 +2,8 @@
 convention).
 
 Counterpart of proxytransformation_tpu/structures/rotation.py::
-euler_angles_to_matrix, ::ortho_6d_to_matrix, ::matrix_to_euler_angles
-and ::rotation_3d_in_euler.
+euler_angles_to_matrix, ::ortho_6d_to_matrix, ::matrix_to_euler_angles,
+::rotation_3d_in_euler and ::rotation_3d_in_axis.
 """
 from __future__ import annotations
 
@@ -71,3 +71,32 @@ def rotation_3d_in_euler(points: torch.Tensor, angles: torch.Tensor,
     if batch_free:
         out, rot_mat_t = out[0], rot_mat_t[0]
     return (out, rot_mat_t) if return_mat else out
+
+
+def rotation_3d_in_axis(points: torch.Tensor, angles, axis: int = 0,
+                        return_mat: bool = False):
+    """Rotate point sets about one axis: points (N, M, 3) (or (M, 3), one
+    set), angles (N,) (or a scalar) → points @ Rᵀ with the reference's
+    transposed right-multiplication matrices (reference utils.py:90-185);
+    with `return_mat` also Rᵀ."""
+    batch_free = points.ndim == 2
+    if batch_free:
+        points = points[None]
+    angles = torch.as_tensor(angles, dtype=points.dtype, device=points.device)
+    if angles.ndim == 0:
+        angles = angles.expand(points.shape[0])
+    s, c = torch.sin(angles), torch.cos(angles)
+    o, z = torch.ones_like(c), torch.zeros_like(c)
+    if axis in (1, -2):
+        rows = ((c, z, -s), (z, o, z), (s, z, c))
+    elif axis in (2, -1):
+        rows = ((c, s, z), (-s, c, z), (z, z, o))
+    elif axis in (0, -3):
+        rows = ((o, z, z), (z, c, s), (z, -s, c))
+    else:
+        raise ValueError(f'axis should be in [-3, 2], got {axis}')
+    rot_t = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    out = points @ rot_t
+    if batch_free:
+        out, rot_t = out[0], rot_t[0]
+    return (out, rot_t) if return_mat else out

@@ -196,19 +196,58 @@ def _one_process_fcaf3d(case):
 
 
 @pytest.fixture(scope='module')
-def small(tmp_path_factory):
+def rank_runs(tmp_path_factory):
+    """Every 2-rank run of this file in one spawn (`workers.run_jobs`):
+    the small checks, the grounder's free-running steps and its second
+    step from the JAX package's state, and the detector's steps; their
+    inputs and the JAX records come first, and the one-process runs they
+    are held against run here while the ranks work."""
     torch.set_num_threads(2)
     rng = np.random.RandomState(0)
     cases = {kind: _norm_inputs(kind, rng) for kind in ('flax', 'masked')}
     cases['grounding'] = _grounding_inputs(rng)
     cases['fcaf3d'] = _fcaf3d_inputs(rng)
-    ranks = workers.run_ranks(workers.small_checks, WORLD,
-                              tmp_path_factory.mktemp('small'), cases)
-    one = {kind: _one_process_norm(kind, *cases[kind])
-           for kind in ('flax', 'masked')}
-    one['grounding'] = _one_process_grounding(cases['grounding'])
-    one['fcaf3d'] = _one_process_fcaf3d(cases['fcaf3d'])
-    return dict(ranks=ranks, one=one)
+    sd = tiny_state_dict()
+    batch = global_batch()
+    mp = pytest.MonkeyPatch()
+    try:
+        want, masks, jseen = run_jax(sd, batch, 2, mp, mesh=make_mesh(WORLD))
+    finally:
+        mp.undo()
+    parts = [det_batch(seed) for seed in (0, 1)]
+    det = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    det_one = workers.detector_steps(None, TINY_DET, det)
+    jobs = [('small', workers.small_checks, (cases, )),
+            ('free', workers.grounder_steps, (TINY, sd, batch, masks, 2)),
+            # the second step again, from the JAX package's state after
+            # the first
+            ('forced', workers.grounder_steps,
+             (TINY, want[0]['state'], batch, masks, 1, want[0])),
+            # the ranks' first detector step, then their second from the
+            # one-process state after the first
+            ('detector', workers.detector_steps,
+             (TINY_DET, det, det_one[0]['resume']))]
+    handle = workers.start_ranks(workers.run_jobs, WORLD,
+                                 tmp_path_factory.mktemp('ranks'), jobs)
+    try:
+        one = {kind: _one_process_norm(kind, *cases[kind])
+               for kind in ('flax', 'masked')}
+        one['grounding'] = _one_process_grounding(cases['grounding'])
+        one['fcaf3d'] = _one_process_fcaf3d(cases['fcaf3d'])
+        grounder, one_seen, _, _ = run_port(sd, batch, masks, 2)
+        forced, _, _, _ = run_port(want[0]['state'], batch, masks, 1,
+                                   adam=want[0])
+    finally:
+        ranks = workers.join_ranks(handle, timeout=600.0)
+    return dict(ranks=ranks, one=one, sd=sd, want=want, masks=masks,
+                jseen=jseen, grounder=grounder, one_seen=one_seen,
+                forced=forced[0], det_one=det_one)
+
+
+@pytest.fixture(scope='module')
+def small(rank_runs):
+    return dict(ranks=[r['small'] for r in rank_runs['ranks']],
+                one=rank_runs['one'])
 
 
 def test_allgather_objects_round_trip_and_order(small):
@@ -354,27 +393,12 @@ def global_batch():
 
 
 @pytest.fixture(scope='module')
-def dp_steps(tmp_path_factory):
-    torch.set_num_threads(2)
-    sd = tiny_state_dict()
-    batch = global_batch()
-    mp = pytest.MonkeyPatch()
-    try:
-        want, masks, jseen = run_jax(sd, batch, 2, mp, mesh=make_mesh(WORLD))
-    finally:
-        mp.undo()
-    tmp = tmp_path_factory.mktemp('grounder')
-    free = workers.run_ranks(workers.grounder_steps, WORLD, tmp, TINY, sd,
-                             batch, masks, 2)
-    # the second step again, from the JAX package's state after the first
-    forced = workers.run_ranks(workers.grounder_steps, WORLD, tmp, TINY,
-                               want[0]['state'], batch, masks, 1, want[0])
-    one, one_seen, _, _ = run_port(sd, batch, masks, 2)
-    one_forced, _, _, _ = run_port(want[0]['state'], batch, masks, 1,
-                                   adam=want[0])
-    return dict(want=want, masks=masks, jseen=jseen, free=free,
-                forced=forced, one=one, one_seen=one_seen,
-                one_forced=one_forced[0], sd=sd)
+def dp_steps(rank_runs):
+    r = rank_runs
+    return dict(want=r['want'], masks=r['masks'], jseen=r['jseen'],
+                free=[x['free'] for x in r['ranks']],
+                forced=[x['forced'] for x in r['ranks']], one=r['grounder'],
+                one_seen=r['one_seen'], one_forced=r['forced'], sd=r['sd'])
 
 
 def _dp_record(dp, step, side):
@@ -560,17 +584,9 @@ def test_dp_ranks_hold_the_same_state(dp_steps):
 # the tiny detector
 # --------------------------------------------------------------------------
 @pytest.fixture(scope='module')
-def det_steps(tmp_path_factory):
-    parts = [det_batch(seed) for seed in (0, 1)]
-    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    torch.set_num_threads(2)
-    one = workers.detector_steps(None, TINY_DET, batch)
-    # the ranks' first step, then their second from the one-process state
-    # after the first
-    two = workers.run_ranks(workers.detector_steps, WORLD,
-                            tmp_path_factory.mktemp('detector'), TINY_DET,
-                            batch, one[0]['resume'])
-    return dict(one=one, two=two)
+def det_steps(rank_runs):
+    return dict(one=rank_runs['det_one'],
+                two=[r['detector'] for r in rank_runs['ranks']])
 
 
 @pytest.mark.parametrize('step', [0, 1])

@@ -9,17 +9,21 @@ checkpoint, written by rank 0 alone; its `val_results.json` equal to the
 one-process run's; `--resume auto` from the mid-epoch checkpoint
 bit-equal to the uninterrupted 2-rank run; `tools.test` on 2 ranks
 dumping the same boxes in the same order as on one process. And what
-raises: a batch the ranks do not divide, occupancy at world size 2,
-NCCL with two ranks on one device or on the CPU, `--launcher slurm` /
-`mpi`.
+raises: a batch the ranks do not divide, NCCL with two ranks on one
+device or on the CPU, `--launcher slurm` / `mpi`. Occupancy on 2 ranks
+(both predictors through the Runner, in the spawn that checks what
+raises) against one process: the step to float32 rounding, the ranks'
+states bit-equal, val_results.json equal.
 """
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -46,10 +50,11 @@ def two_threads():
     torch.set_num_threads(n)
 
 
-def launch(tool, args, options, tmp, world=WORLD, timeout=240):
-    """`tools.<tool> args --launcher pytorch --device cpu` on `world` gloo
-    ranks; returns each rank's stderr. Any rank failing fails the call."""
-    rdv = Path(tmp) / f'rendezvous_{tool}_{len(list(Path(tmp).iterdir()))}'
+def start(tool, args, options, tmp, world=WORLD):
+    """`tools.<tool> args --launcher pytorch --device cpu` started on
+    `world` gloo ranks (a rendezvous file of its own in `tmp`); returns
+    the rank processes for `finish`."""
+    rdv = Path(tempfile.mkdtemp(prefix=f'{tool}_', dir=tmp)) / 'rendezvous'
     procs = []
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
@@ -63,6 +68,12 @@ def launch(tool, args, options, tmp, world=WORLD, timeout=240):
         procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
                                       stdout=subprocess.DEVNULL,
                                       stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def finish(procs, timeout=240):
+    """Each rank's stderr once all have ended; any rank failing, or still
+    running after `timeout` seconds (then killed), fails the call."""
     errs = []
     try:
         for p in procs:
@@ -99,21 +110,33 @@ def same(a, b, what=''):
 
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
+    """The one-process runs overlap the 2-rank launches they are held
+    against (each launch's ranks start up while this process trains or
+    tests)."""
     torch.set_num_threads(2)
     tmp = tmp_path_factory.mktemp('dp_runner')
     one, two, resumed = tmp / 'one', tmp / 'two', tmp / 'resumed'
-    ttrain_cli.main([SMOKE, '--device', 'cpu', '--work-dir', str(one)])
-    train_err = launch('train', [SMOKE, '--work-dir', str(two)], MID, tmp)
+    train_two = start('train', [SMOKE, '--work-dir', str(two)], MID, tmp)
+    try:
+        ttrain_cli.main([SMOKE, '--device', 'cpu', '--work-dir', str(one)])
+    finally:
+        train_err = finish(train_two)
     resumed.mkdir()
     shutil.copytree(two / 'ckpt_00000002', resumed / 'ckpt_00000002')
-    launch('train', [SMOKE, '--work-dir', str(resumed), '--resume', 'auto'],
-           MID, tmp)
     # the same checkpoint tested on 2 ranks and on one, the boxes dumped
     ckpt = str(two / 'ckpt_00000004')
-    launch('test', [SMOKE, ckpt, '--work-dir', str(tmp / 'test_two')], DUMP,
-           tmp)
-    ttest.main([SMOKE, ckpt, '--device', 'cpu', '--work-dir',
-                str(tmp / 'test_one'), '--cfg-options', *DUMP])
+    resume = start('train', [SMOKE, '--work-dir', str(resumed), '--resume',
+                             'auto'], MID, tmp)
+    test_two = start('test', [SMOKE, ckpt, '--work-dir',
+                              str(tmp / 'test_two')], DUMP, tmp)
+    try:
+        ttest.main([SMOKE, ckpt, '--device', 'cpu', '--work-dir',
+                    str(tmp / 'test_one'), '--cfg-options', *DUMP])
+    finally:
+        try:
+            finish(resume)
+        finally:
+            finish(test_two)
     return dict(tmp=tmp, one=one, two=two, resumed=resumed,
                 train_err=train_err)
 
@@ -177,13 +200,45 @@ def test_dp_test_cli_dumps_the_one_process_boxes_in_loader_order(runs):
 # --------------------------------------------------------------------------
 # what raises
 # --------------------------------------------------------------------------
+OCC_TYPES = ('EmbodiedOccPredictor', 'DenseFusionOccPredictor')
+OCC_B = 4
+
+
+def _occ_cfgs(tmp):
+    """Each occupancy model on the smoke config at a global train batch of
+    OCC_B (its dataset cut to one batch: one step), val a scene a batch."""
+    return {mtype: (OCC_SMOKE, [f'model.type={mtype!r}',
+                                f'train_dataloader.batch_size={OCC_B}',
+                                f'train_dataloader.dataset.length={OCC_B}',
+                                'val_dataloader.batch_size=1'],
+                    str(tmp / mtype))
+            for mtype in OCC_TYPES}
+
+
 @pytest.fixture(scope='module')
-def rank_raises(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp('dp_raises')
+def rank_jobs(tmp_path_factory):
+    """One spawn of 2 ranks: what raises, then both occupancy models
+    through the Runner (`workers.occupancy_runs`); and, while the ranks
+    work, the occupancy runs in this process at B=OCC_B."""
+    tmp = tmp_path_factory.mktemp('dp_ranks')
+    torch.set_num_threads(2)
     cfgs = {'batch': (SMOKE, ['train_dataloader.batch_size=3'],
-                      str(tmp / 'batch')),
-            'occupancy': (OCC_SMOKE, [], str(tmp / 'occ'))}
-    return workers.run_ranks(workers.raises, WORLD, tmp / 'ranks', cfgs)
+                      str(tmp / 'batch'))}
+    jobs = [('raises', workers.raises, (cfgs, )),
+            ('occupancy', workers.occupancy_runs,
+             (_occ_cfgs(tmp / 'occ_two'), ))]
+    handle = workers.start_ranks(workers.run_jobs, WORLD, tmp / 'ranks',
+                                 jobs)
+    try:
+        one = workers.occupancy_runs(None, _occ_cfgs(tmp / 'occ_one'))
+    finally:
+        ranks = workers.join_ranks(handle, timeout=480.0)
+    return dict(ranks=ranks, one=one)
+
+
+@pytest.fixture(scope='module')
+def rank_raises(rank_jobs):
+    return [r['raises'] for r in rank_jobs['ranks']]
 
 
 def test_dp_raises_on_a_batch_the_ranks_do_not_divide(rank_raises):
@@ -192,11 +247,68 @@ def test_dp_raises_on_a_batch_the_ranks_do_not_divide(rank_raises):
         assert 'batch_size=3' in r['batch'] and '2 ranks' in r['batch']
 
 
-def test_dp_raises_on_occupancy(rank_raises):
-    for r in rank_raises:
-        assert r['occupancy'].startswith('NotImplementedError')
-        assert 'world size 2' in r['occupancy']
-        assert 'BatchNorm statistics' in r['occupancy']
+def test_dp_raises_on_occupancy(rank_jobs):
+    """Occupancy no longer raises at world size 2: both models train a
+    step and validate on both ranks (held against one process below)."""
+    for r in rank_jobs['ranks']:
+        assert set(r['occupancy']) == set(OCC_TYPES)
+        for run in r['occupancy'].values():
+            assert run['metrics'] and run['val_results']
+
+
+# --------------------------------------------------------------------------
+# occupancy on 2 ranks against one process
+# --------------------------------------------------------------------------
+# Both models' step at a global batch of 4 (2 rows a rank) against this
+# process's at B=4. The batch-coupled reductions are the ImVoxel neck's
+# train-mode flax norms (the sums all-reduced) and each scale's batch mean
+# of per-sample losses (equal slices: the rank mean is the global mean);
+# the affinity losses and DenseFusion's dense scatter are per sample, the
+# 2D ResNet's norms folded. No discrete choice, so the step agrees to
+# float32 rounding: losses and grad_norm within 1e-6 relative; every
+# gradient within 1e-5 of its tensor's max plus 1e-7 of the gradient norm
+# (a tensor whose gradients sit at rounding level); the running statistics
+# within 1e-6 · (1 + max); both ranks' states bit-equal; val's scenes dealt
+# to the ranks and gathered back: val_results.json equal.
+# (tests/test_torch_port_occupancy.py holds the one process against the
+# JAX Runner.)
+@pytest.mark.parametrize('mtype', OCC_TYPES)
+def test_dp_occupancy_step_matches_one_process(rank_jobs, mtype):
+    want = rank_jobs['one'][mtype]
+    got = rank_jobs['ranks'][0]['occupancy'][mtype]
+    assert (want['rows'], got['rows']) == (OCC_B, OCC_B // WORLD)
+    assert set(got['metrics']) == set(want['metrics']) >= {
+        'loss_occ_0', 'loss_occ_1', 'loss_occ_2', 'total_loss', 'grad_norm'}
+    for k, w in want['metrics'].items():
+        assert abs(got['metrics'][k] - w) <= 1e-6 * abs(w), (
+            k, got['metrics'][k], w)
+    assert set(got['grads']) == set(want['grads'])
+    gn = want['metrics']['grad_norm']
+    for k, w in want['grads'].items():
+        err = np.abs(got['grads'][k] - w).max()
+        assert err <= 1e-5 * np.abs(w).max() + 1e-7 * gn, (k, err)
+    stats = [k for k in want['state'] if 'running' in k]
+    assert stats
+    for k in stats:
+        w = want['state'][k]
+        err = np.abs(got['state'][k] - w).max()
+        assert err <= 1e-6 * (1 + np.abs(w).max()), (k, err)
+
+
+@pytest.mark.parametrize('mtype', OCC_TYPES)
+def test_dp_occupancy_ranks_hold_the_same_state(rank_jobs, mtype):
+    r0, r1 = (r['occupancy'][mtype] for r in rank_jobs['ranks'])
+    assert r0['metrics'] == r1['metrics']
+    for k, v in r0['state'].items():
+        assert np.array_equal(v, r1['state'][k]), k
+
+
+@pytest.mark.parametrize('mtype', OCC_TYPES)
+def test_dp_occupancy_val_results_equal_one_process(rank_jobs, mtype):
+    want = rank_jobs['one'][mtype]['val_results']
+    assert 'mIoU' in want and 'IoU_geo' in want
+    for r in rank_jobs['ranks']:
+        assert r['occupancy'][mtype]['val_results'] == want
 
 
 def _torchrun_env(monkeypatch, world=2, rank=0):

@@ -110,16 +110,56 @@ def test_cli_train_test_eval(tmp_path):
     assert runner.model.remat_painting
 
 
+# the entry points' `python -m ... --help` and the runtime's import in a
+# fresh process (`test_port_runtime_loads_no_forbidden_module`), started
+# together by one fixture
+HELP_MODULES = ('tools.train', 'tools.test', 'tools.eval', 'tools.eval_script',
+                'converter.rscan')
+
+
+@pytest.fixture(scope='module')
+def subprocess_runs():
+    """{name: (returncode, stdout, stderr)} of every subprocess check of
+    this file, run at once (each bounded by 300 s)."""
+    env = dict(os.environ, OMP_NUM_THREADS='2')
+    cmds = {m: [sys.executable, '-m', f'proxytransformation_torch.{m}',
+                '--help'] for m in HELP_MODULES}
+    cmds['runtime_import'] = [sys.executable, '-c', RUNTIME_IMPORT]
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    out = {}
+    try:
+        for k, p in procs.items():
+            o, e = p.communicate(timeout=300)
+            out[k] = (p.returncode, o, e)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
 @pytest.mark.parametrize('cli', ['train', 'test', 'eval'])
-def test_cli_runs_as_a_module(cli):
+def test_cli_runs_as_a_module(subprocess_runs, cli):
     """`python -m proxytransformation_torch.tools.<cli>` reaches its
     `main` (the run itself is `test_cli_train_test_eval`'s)."""
-    out = subprocess.run(
-        [sys.executable, '-m', f'proxytransformation_torch.tools.{cli}',
-         '--help'], cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, OMP_NUM_THREADS='2'))
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert '--device' in out.stdout and '--cfg-options' in out.stdout
+    rc, out, err = subprocess_runs[f'tools.{cli}']
+    assert rc == 0, err[-2000:]
+    assert '--device' in out and '--cfg-options' in out
+
+
+@pytest.mark.parametrize('module,flag', [
+    ('tools.eval_script', '--top-k'), ('converter.rscan', '--dataset_folder')])
+def test_library_entry_points_run_as_modules(subprocess_runs, module, flag):
+    """`python -m` reaches the offline scorer's and the 3RScan
+    extractor's `main` (their runs: tests/test_torch_port_library_tools.
+    py)."""
+    rc, out, err = subprocess_runs[module]
+    assert rc == 0, err[-2000:]
+    assert flag in out
 
 
 def test_entry_points_need_a_card_or_device_cpu(tmp_path):
@@ -233,27 +273,59 @@ def test_parallel_modules_import_no_jax(module):
     assert not {mod for mod, _ in _imports(path)} & FORBIDDEN
 
 
-def test_port_runtime_loads_no_forbidden_module():
-    # the data path too: a JPEG and a PNG view through the host decoder
-    code = ('import sys, proxytransformation_torch.tools.train, '
-            'proxytransformation_torch.tools.test, '
-            'proxytransformation_torch.tools.eval, '
-            'proxytransformation_torch.tools.make_image_fixtures, '
-            'proxytransformation_torch.converter.occupancy, '
-            'proxytransformation_torch.models.occ, '
-            'proxytransformation_torch.models.tta, '
-            'proxytransformation_torch.models.text_variants, '
-            'proxytransformation_torch.converter.parity, '
-            'proxytransformation_torch.ops.brick; '
-            'from proxytransformation_torch.data import image_io; '
-            'image_io.imread("tests/torch_port_images/view0_640x480.jpg"); '
-            'image_io.imread("tests/torch_port_images/depth0_640x480.png", '
-            '-1); '
-            'print(sorted({m.split(".")[0] for m in sys.modules}))')
-    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-2000:]
-    loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
+# the modules of the library slice (structures, the rest of misc.py, the
+# raw-data readers, timing, cache, the offline scorer)
+SLICE15_MODULES = (
+    'structures/rotation.py', 'structures/boxes.py',
+    'structures/projection.py', 'structures/modes.py',
+    'structures/points.py', 'structures/iou3d_calculator.py',
+    'structures/box_np_ops.py', 'structures/transforms.py',
+    'models/misc.py', 'utils/timing.py', 'utils/cache.py',
+    'converter/scannet_sens.py', 'converter/rscan.py',
+    'tools/eval_script.py', 'data/image_io.py')
+
+
+@pytest.mark.parametrize('module', SLICE15_MODULES)
+def test_slice15_modules_import_no_jax(module):
+    """Each module is walked by the static guard and imports none of the
+    forbidden packages at any scope (the .sens dump writes its PNGs with
+    the port's encoder, not cv2)."""
+    path = ROOT / 'proxytransformation_torch' / module
+    assert path in set((ROOT / 'proxytransformation_torch').rglob('*.py'))
+    assert not {mod for mod, _ in _imports(path)} & FORBIDDEN
+
+
+# the data path too: a JPEG and a PNG view through the host decoder
+RUNTIME_IMPORT = (
+    'import sys, proxytransformation_torch.tools.train, '
+    'proxytransformation_torch.tools.test, '
+    'proxytransformation_torch.tools.eval, '
+    'proxytransformation_torch.tools.make_image_fixtures, '
+    'proxytransformation_torch.converter.occupancy, '
+    'proxytransformation_torch.models.occ, '
+    'proxytransformation_torch.models.tta, '
+    'proxytransformation_torch.models.text_variants, '
+    'proxytransformation_torch.converter.parity, '
+    'proxytransformation_torch.ops.brick, '
+    'proxytransformation_torch.tools.eval_script, '
+    'proxytransformation_torch.converter.scannet_sens, '
+    'proxytransformation_torch.converter.rscan, '
+    'proxytransformation_torch.models.misc, '
+    'proxytransformation_torch.utils.timing, '
+    'proxytransformation_torch.utils.cache, '
+    + ', '.join(f'proxytransformation_torch.structures.{m}' for m in (
+        'rotation', 'boxes', 'projection', 'modes', 'points',
+        'iou3d_calculator', 'box_np_ops', 'transforms')) + '; '
+    'from proxytransformation_torch.data import image_io; '
+    'image_io.imread("tests/torch_port_images/view0_640x480.jpg"); '
+    'image_io.imread("tests/torch_port_images/depth0_640x480.png", -1); '
+    'print(sorted({m.split(".")[0] for m in sys.modules}))')
+
+
+def test_port_runtime_loads_no_forbidden_module(subprocess_runs):
+    rc, out, err = subprocess_runs['runtime_import']
+    assert rc == 0, err[-2000:]
+    loaded = set(ast.literal_eval(out.strip().splitlines()[-1]))
     assert not loaded & (FORBIDDEN | set(OPTIONAL)), loaded & FORBIDDEN
 
 

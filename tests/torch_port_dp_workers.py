@@ -4,8 +4,10 @@ children import torch, numpy and the port only).
 `run_ranks(fn, world, tmp, *args)` starts `world` spawned processes, each
 a gloo rank of a `file://` rendezvous in `tmp` with a process-group
 timeout of 60 s and two torch threads, runs `fn(ctx, *args)` there and
-returns every rank's result in rank order. The join is bounded: past
-`timeout` seconds every child is killed and the call raises.
+returns every rank's result in rank order (`start_ranks` and
+`join_ranks` split it, so the caller can work while the ranks run). The
+join is bounded: past `timeout` seconds every child is killed and the
+call raises.
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ def _entry(rank, fn, world, tmp, args):
         raise
 
 
-def run_ranks(fn, world, tmp, *args, timeout=240.0):
+def start_ranks(fn, world, tmp, *args):
+    """`world` spawned ranks running `fn(ctx, *args)`; returns the handle
+    `join_ranks` takes (the caller may work meanwhile)."""
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     for f in tmp.glob('rank*.pt'):
@@ -60,6 +64,14 @@ def run_ranks(fn, world, tmp, *args, timeout=240.0):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return procs, fn, world, tmp
+
+
+def join_ranks(handle, timeout=240.0):
+    """Every rank's result of `start_ranks`, in rank order. The join is
+    bounded: past `timeout` seconds every child is killed and the call
+    raises."""
+    procs, fn, world, tmp = handle
     deadline = time.monotonic() + timeout
     try:
         while not procs.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -80,6 +92,10 @@ def run_ranks(fn, world, tmp, *args, timeout=240.0):
     return results
 
 
+def run_ranks(fn, world, tmp, *args, timeout=240.0):
+    return join_ranks(start_ranks(fn, world, tmp, *args), timeout)
+
+
 def rank_rows(batch, ctx):
     """This rank's contiguous rows of a global numpy batch."""
     out = {}
@@ -87,6 +103,13 @@ def rank_rows(batch, ctx):
         b = v.shape[0] // ctx.world
         out[k] = v[ctx.rank * b:(ctx.rank + 1) * b]
     return out
+
+
+def run_jobs(ctx, jobs):
+    """Each (name, worker function, args) of `jobs` in turn on this rank,
+    in one process group (one spawn for a test file's runs): {name: its
+    result}."""
+    return {name: fn(ctx, *args) for name, fn, args in jobs}
 
 
 # --------------------------------------------------------------------------
@@ -325,4 +348,45 @@ def raises(ctx, cfgs):
             out[name] = None
         except (ValueError, NotImplementedError) as e:
             out[name] = f'{type(e).__name__}: {e}'
+    return out
+
+
+def occupancy_runs(ctx, cfgs):
+    """Each (name, config, options, work dir) through the Runner's
+    `train()` (its first step recorded: the metrics, every gradient after
+    the rank mean, the state after the update) on this rank, one process
+    without `ctx`; the run's val_results.json."""
+    import json
+    from proxytransformation_torch.engine import runner as rmod
+    from proxytransformation_torch.utils.config import Config
+    make = rmod.make_train_step
+    out = {}
+    for name, (path, options, work) in cfgs.items():
+        rec = {}
+
+        def recording(model, optimizer, schedule=None, rec=rec):
+            step = make(model, optimizer, schedule)
+
+            def run(batch, generator=None):
+                metrics = step(batch, generator)
+                if not rec:
+                    rec.update(
+                        metrics={k: float(v) for k, v in metrics.items()},
+                        grads={n: p.grad.numpy().copy()
+                               for n, p in model.named_parameters()
+                               if p.grad is not None},
+                        state=_state(model), rows=len(batch['imgs']))
+                return metrics
+            return run
+
+        cfg = Config.fromfile(path)
+        cfg.merge_from_dict(Config.parse_cfg_options(options))
+        rmod.make_train_step = recording
+        try:
+            rmod.Runner.from_cfg(cfg, work, 'cpu').train()
+        finally:
+            rmod.make_train_step = make
+        rec['val_results'] = json.loads(
+            (Path(work) / 'val_results.json').read_text())
+        out[name] = rec
     return out
