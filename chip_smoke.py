@@ -193,7 +193,25 @@ Phases (any failure exits non-zero before the final line):
      `ChannelMapper` on the flagship's four MinkResNet-34 levels (within
      1e-4 · (1 + max)), each with its CUDA-event ms; and
      `utils/timing.py::chained_ms_per_iter` of a flagship request beside
-     phase 5's request ms.
+     phase 5's request ms;
+ 21. the visualizer and the explorer (`[viz]`, run inside phase 13's
+     block, on its tree): whether matplotlib and open3d are installed
+     (their versions); the visualizer's NMS (`_nms_filter`, IoU 0.15) of
+     one flagship request's 256 boxes on the card against the CPU (equal
+     keeps but for boxes with an IoU within 1e-5 of 0.15, counted; CUDA-
+     event ms), the kept boxes' corners within 1e-5 · (1 + max);
+     `ContinuousDrawer.step` x 50 on 640x480 RGB-D views made from the
+     two fixture views under 50 poses, on the card against the CPU (each
+     step's new points within one float32 step; boxes, labels and view
+     index equal; ms a step; the back-projection's CUDA-event ms; the
+     final cloud's points); the explorer on phase 13's tree (an infos pkl
+     with absolute paths, 4 views a scan): listings equal,
+     `show_image(render_box=True)`'s sha256 equal on the card and the
+     CPU, and `render_continuous_scene`'s headless frames, PNG where
+     matplotlib is installed, else each frame's cloud through
+     `export_ply` and its boxes through `LineMesh.save_ply` (the card's
+     files against the CPU's: PNGs of the same size, PLY lines equal but
+     for a coordinate's last printed digit).
 Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
 `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
@@ -230,7 +248,7 @@ import sys
 import tempfile
 import time
 import types
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -1181,6 +1199,8 @@ def run() -> int:
         occupancy = occupancy_phases(smi)
         # 16. grounding TTA on phase 13's checkpoint and tree
         tta = tta_phases(smi, data_root, realdata)
+        # 21. the visualizer and the explorer, the latter on the same tree
+        viz = viz_phase(smi, data_root)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
         shutil.rmtree(REALDATA_WORK, ignore_errors=True)
@@ -1281,7 +1301,7 @@ def run() -> int:
               'brick': slice13['brick']['summary'],
               'brick_calls': slice13['brick']['rows'],
               'dp': dp['summary'], 'dp_step_calls': dp['rows'],
-              'library': library,
+              'library': library, 'viz': viz,
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -3802,6 +3822,352 @@ def library_phase(smi, flagship_req_ms):
     log(f'[phase 20] in {time.perf_counter() - t_phase:.1f} s ({smi})')
     return dict(ms=ms, card_vs_cpu=errs, chained_request_ms=chained,
                 flagship_request_ms=flagship_req_ms)
+
+
+# phase 21: the visualizer and the explorer
+VIZ_IOU = 0.15            # the visualizer's NMS threshold
+VIZ_IOU_MARGIN = 1e-5     # an IoU this close to it may fall either side
+VIZ_RTOL = 1e-5
+BACKPROJECT_VIEWS = 50
+EXPLORER_VIEWS = 4        # view entries a scan of the explorer's infos pkl
+
+
+def renderer_versions():
+    """{package: installed version or None} of the renderers the
+    visualizer imports when present (read without importing them)."""
+    import importlib.metadata
+    out = {}
+    for name in ('matplotlib', 'open3d'):
+        try:
+            out[name] = importlib.metadata.version(name)
+        except importlib.metadata.PackageNotFoundError:
+            out[name] = None
+    return out
+
+
+def float32_ulps_apart(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest |got - want| in float32 steps of the larger value."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if not want.size:
+        return 0.0
+    step = np.spacing(np.maximum(np.abs(got), np.abs(want)))
+    return float((np.abs(got.astype(np.float64) - want) / step).max())
+
+
+def ply_lines_close(got: bytes, want: bytes):
+    """Two ASCII PLY files: (equal bytes, lines that differ); the files
+    must hold the same lines but for the last printed digit of a
+    coordinate (values a float32 step apart may print either side of a
+    rounding edge)."""
+    if got == want:
+        return True, 0
+    g, w = got.decode().splitlines(), want.decode().splitlines()
+    require(len(g) == len(w), f'PLY files of {len(g)} and {len(w)} lines')
+    differ = 0
+    for a, b in zip(g, w):
+        if a == b:
+            continue
+        differ += 1
+        fa, fb = a.split(), b.split()
+        require(len(fa) == len(fb) and all(
+            x == y or ('.' in y and abs(float(x) - float(y)) <= 1.5e-4)
+            for x, y in zip(fa, fb)), f'PLY lines differ: {a!r} vs {b!r}')
+    return False, differ
+
+
+def flagship_predictions():
+    """The 256 boxes and scores of sample 0 of one float32 flagship request
+    (seeded weights, batch seed 0)."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.models.detector import (
+        SparseFeatureFusion3DGrounderPreshape, batch_to_device)
+    model = SparseFeatureFusion3DGrounderPreshape(
+        device='cuda').random_init_(0)
+    with torch.no_grad():
+        out = model(batch_to_device(flagship_batch(seed=0), 'cuda'))
+    boxes = out['bboxes_3d'][0].float().cpu().numpy()
+    scores = out['scores_3d'][0].float().cpu().numpy()
+    del model, out
+    torch.cuda.empty_cache()
+    return boxes, scores
+
+
+def viz_nms_check(boxes, scores, work: Path):
+    """The visualizer's NMS on the card against the CPU: (kept boxes,
+    CUDA-event ms, boxes kept on one side only)."""
+    from proxytransformation_torch.ops.box3d_overlap import box3d_iou
+    from proxytransformation_torch.visualization import (
+        EmbodiedScanBaseVisualizer)
+    card = EmbodiedScanBaseVisualizer(REALDATA_CLASSES, str(work / 'card'))
+    cpu = EmbodiedScanBaseVisualizer(REALDATA_CLASSES, str(work / 'cpu'),
+                                     device='cpu')
+    ms = cuda_ms(lambda: card._nms_filter(boxes, scores, VIZ_IOU), 3)[0]
+    got = card._nms_filter(boxes, scores, VIZ_IOU)
+    want = cpu._nms_filter(boxes, scores, VIZ_IOU)
+    rows = {b.tobytes(): i for i, b in enumerate(boxes)}
+    require(len(rows) == len(boxes), 'two predicted boxes are equal')
+    kept = {s: np.zeros(len(boxes), bool) for s in ('card', 'cpu')}
+    for side, out in (('card', got), ('cpu', want)):
+        kept[side][[rows[b.tobytes()] for b in out]] = True
+    differ = np.nonzero(kept['card'] != kept['cpu'])[0]
+    if len(differ):
+        iou = box3d_iou(torch.from_numpy(boxes), torch.from_numpy(boxes))
+        near = (iou - VIZ_IOU).abs().numpy() < VIZ_IOU_MARGIN
+        np.fill_diagonal(near, False)
+        require(bool(near[differ].any(1).all()),
+                f'NMS keeps differ on boxes {differ.tolist()} with no IoU '
+                f'within {VIZ_IOU_MARGIN} of {VIZ_IOU}')
+    require(0 < len(want) < len(boxes), f'NMS kept {len(want)} boxes')
+    return got, ms, len(differ)
+
+
+def backprojection_views(fixtures: Path):
+    """50 RGB-D views of 640x480 from the two fixture views, each under a
+    pose of its own (turned about z and moved along x)."""
+    from proxytransformation_torch.data.image_io import imread
+    manifest = json.loads((fixtures / 'manifest.json').read_text())
+    rgb = [imread(str(fixtures / v['image']))[..., ::-1]
+           for v in manifest['views']]
+    depth = [imread(str(fixtures / v['depth']), -1)
+             for v in manifest['views']]
+    views = []
+    for i in range(BACKPROJECT_VIEWS):
+        k = i % len(manifest['views'])
+        pose = np.asarray(manifest['views'][k]['cam2global'], np.float64)
+        c, s = np.cos(0.01 * i), np.sin(0.01 * i)
+        pose = np.array([[c, -s, 0, 0.002 * i], [s, c, 0, 0], [0, 0, 1, 0],
+                         [0, 0, 0, 1]]) @ pose
+        views.append({'img': rgb[k], 'depth': depth[k],
+                      'intrinsic': np.asarray(manifest['cam2img']),
+                      'cam2global': pose,
+                      'depth_shift': float(manifest['depth_shift']),
+                      'visible_instance_ids': [i % 3]})
+    return views, np.asarray(manifest['boxes'], np.float32)
+
+
+def viz_backprojection_check(fixtures: Path, work: Path):
+    """`ContinuousDrawer.step` x 50 on the card against the CPU: every
+    step's new points within one float32 step, the boxes, labels and view
+    index equal. Returns (card step ms, CPU step ms, back-projection
+    CUDA-event ms, final points, worst float32 steps apart)."""
+    from proxytransformation_torch.visualization import ContinuousDrawer
+    from proxytransformation_torch.visualization.continuous_drawer import (
+        _backproject)
+    views, boxes = backprojection_views(fixtures)
+    kw = dict(boxes=boxes, labels=[0, 1, 2], classes=REALDATA_CLASSES)
+    card = ContinuousDrawer(views, save_dir=str(work / 'card'), **kw)
+    cpu = ContinuousDrawer(views, save_dir=str(work / 'cpu'), device='cpu',
+                           **kw)
+    card_ms, cpu_ms, worst, done = [], [], 0.0, 0
+    for i in range(BACKPROJECT_VIEWS):
+        t0 = time.perf_counter()
+        got = card.step()
+        t1 = time.perf_counter()
+        want = cpu.step()
+        card_ms.append((t1 - t0) * 1e3)
+        cpu_ms.append((time.perf_counter() - t1) * 1e3)
+        g, w = got['points'], want['points']
+        require(g.dtype == w.dtype == np.float32 and g.shape == w.shape,
+                f'step {i}: clouds {g.dtype} {g.shape} vs {w.dtype} '
+                f'{w.shape}')
+        worst = max(worst, float32_ulps_apart(g[done:], w[done:]))
+        require(worst <= 1, f'step {i}: the card\'s cloud is {worst} '
+                'float32 steps from the CPU\'s')
+        require(got['view_index'] == want['view_index'] == i
+                and np.array_equal(got['boxes'], want['boxes'])
+                and np.array_equal(got['labels'], want['labels']),
+                f'step {i}: boxes, labels or view index differ')
+        done = len(w)
+    require(card.step() is None and cpu.step() is None,
+            'a drawer went past its views')
+    v = views[0]
+    bp_ms = cuda_ms(lambda: _backproject(
+        v['img'], v['depth'], np.asarray(v['intrinsic'], np.float32),
+        np.asarray(v['cam2global'], np.float32), v['depth_shift'],
+        device='cuda'), 3)[0]
+    return card_ms, cpu_ms, bp_ms, done, worst
+
+
+def explorer_infos(data_root: Path) -> Path:
+    """Phase 13's train infos with absolute paths (the explorer reads
+    absolute paths), the first EXPLORER_VIEWS view entries of each scan,
+    and the instances each view sees (two a view)."""
+    import pickle
+    with open(data_root / 'embodiedscan_infos_train.pkl', 'rb') as f:
+        infos = pickle.load(f)
+    for d in infos['data_list']:
+        d['images'] = d['images'][:EXPLORER_VIEWS]
+        n = len(d['instances'])
+        for k, im in enumerate(d['images']):
+            for key in ('img_path', 'depth_path'):
+                im[key] = str(data_root / im[key])
+            im['visible_instance_ids'] = [k % n, (k + 1) % n]
+    path = data_root / 'explorer_infos.pkl'
+    with open(path, 'wb') as f:
+        pickle.dump(infos, f)
+    return path
+
+
+@contextmanager
+def ply_frames():
+    """Without matplotlib the headless render writes each frame as PLY
+    instead: the cloud (as the PNG would sample it) through `export_ply`
+    and the boxes' wireframes through `LineMesh.save_ply`."""
+    from proxytransformation_torch.visualization import (
+        EmbodiedScanBaseVisualizer, LineMesh, box_lines)
+
+    def render(self, points, boxes, labels, name):
+        out = self.export_ply(points[::max(len(points) // 20000, 1)], name)
+        if boxes is not None and len(boxes):
+            segs = box_lines(boxes, self.device).reshape(-1, 3)
+            LineMesh(segs, lines=np.arange(len(segs)).reshape(-1, 2)
+                     ).save_ply(str(Path(self.save_dir) / f'{name}_boxes.ply'))
+        return out
+
+    saved = EmbodiedScanBaseVisualizer._render_matplotlib
+    EmbodiedScanBaseVisualizer._render_matplotlib = render
+    try:
+        yield
+    finally:
+        EmbodiedScanBaseVisualizer._render_matplotlib = saved
+
+
+def viz_explorer_check(data_root: Path, work: Path, have_mpl: bool):
+    """The explorer on phase 13's tree, on the card and on the CPU: equal
+    listings, `show_image(render_box=True)` hashes, and the headless
+    continuous render of the ScanNet scan (PNG, or PLY without
+    matplotlib). Returns its summary."""
+    import hashlib
+    from proxytransformation_torch.data.image_io import decode_png
+    from proxytransformation_torch.explorer import EmbodiedScanExplorer
+    ann = str(explorer_infos(data_root))
+    ex = {'card': EmbodiedScanExplorer(str(data_root), [ann],
+                                       save_dir=str(work / 'ex_card')),
+          'cpu': EmbodiedScanExplorer(str(data_root), [ann],
+                                      save_dir=str(work / 'ex_cpu'),
+                                      device='cpu')}
+    scans = ex['cpu'].list_scenes()
+    require(len(scans) == 2, f'explorer lists {scans}')
+
+    def listing(e):
+        return {'scenes': e.list_scenes(), 'count': e.count_scenes(),
+                'stats': e.category_statistics(),
+                'categories': e.list_categories(),
+                'info': [e.scene_info(s) for s in scans],
+                'cameras': [e.list_cameras(s) for s in scans],
+                'instances': [[(i['name'], i['bbox_3d'].tolist())
+                               for i in e.list_instances(s)] for s in scans]}
+
+    lists = {side: listing(e) for side, e in ex.items()}
+    require(lists['card'] == lists['cpu'], 'explorer listings differ')
+    hashes = {}
+    for scan in scans:
+        imgs = {side: e.show_image(scan, 'view0', render_box=True)
+                for side, e in ex.items()}
+        hashes[scan] = {side: hashlib.sha256(img.tobytes()).hexdigest()
+                        for side, img in imgs.items()}
+        plain = ex['cpu'].show_image(scan, 'view0')
+        require(hashes[scan]['card'] == hashes[scan]['cpu']
+                and imgs['cpu'].shape == (480, 640, 3)
+                and not np.array_equal(plain, imgs['cpu']),
+                f'{scan}: show_image(render_box=True) differs on the card '
+                'or draws nothing')
+    scannet = scans[0]
+    outs, t_render = {}, {}
+    with nullcontext() if have_mpl else ply_frames():
+        for side, e in ex.items():
+            t0 = time.perf_counter()
+            outs[side] = e.render_continuous_scene(scannet)
+            t_render[side] = time.perf_counter() - t0
+    rel = {side: [str(Path(p).relative_to(work / f'ex_{side}'))
+                  for p in o] for side, o in outs.items()}
+    require(rel['card'] == rel['cpu'] and len(rel['cpu']) == EXPLORER_VIEWS,
+            f'render_continuous_scene: {rel}')
+    files = sorted(p.name for p in (work / 'ex_cpu').iterdir())
+    require(files == sorted(p.name for p in (work / 'ex_card').iterdir()),
+            'the card and the CPU rendered other files')
+    equal, differ_lines = 0, 0
+    for name in files:
+        got = (work / 'ex_card' / name).read_bytes()
+        want = (work / 'ex_cpu' / name).read_bytes()
+        if name.endswith('.png'):
+            require(decode_png(got).shape == decode_png(want).shape,
+                    f'{name}: PNGs of other sizes')
+            equal += got == want
+        else:
+            same, n = ply_lines_close(got, want)
+            equal += same
+            differ_lines += n
+    return dict(listing=lists['cpu'], show_image_sha256={
+        scan: hashes[scan]['cpu'] for scan in scans}, files=files,
+        byte_equal=equal, ply_lines_differ=differ_lines,
+        render_s=t_render, format='png' if have_mpl else 'ply')
+
+
+def viz_phase(smi, data_root: Path):
+    """Phase 21: the visualizer's NMS, box corners and back-projection,
+    and the explorer on phase 13's tree, on the card against the CPU."""
+    from proxytransformation_torch.visualization import nine_dof_to_corners
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_viz_'))
+    try:
+        versions = renderer_versions()
+        log('[viz] renderers: ' + ', '.join(
+            f'{k} {v or "absent"}' for k, v in versions.items())
+            + ('' if versions['matplotlib'] else
+               ' (no headless PNG: the continuous render below writes PLY '
+               'frames through export_ply and LineMesh.save_ply)'))
+        boxes, scores = flagship_predictions()
+        require(boxes.shape == (256, 9) and scores.shape == (256, ),
+                f'flagship predictions {boxes.shape} {scores.shape}')
+        kept, nms_ms, near = viz_nms_check(boxes, scores, work)
+        log(f'[viz] NMS of one flagship request\'s 256 boxes at IoU '
+            f'{VIZ_IOU}: {len(kept)} kept, equal on the card and the CPU '
+            f'but for {near} boxes with an IoU within {VIZ_IOU_MARGIN:g} of '
+            f'it; ' + ', '.join(f'{m:.2f}' for m in nms_ms)
+            + f' ms of CUDA events on the card ({smi})')
+        got = nine_dof_to_corners(kept)
+        want = nine_dof_to_corners(kept, 'cpu')
+        err = float(np.abs(got - want).max())
+        require(got.shape == (len(kept), 8, 3)
+                and err <= VIZ_RTOL * (1 + float(np.abs(want).max())),
+                f'corners: card vs CPU {err}')
+        log(f'[viz] corners of the {len(kept)} kept boxes: card vs CPU '
+            f'max abs err {err:.3g}')
+        fixtures = Path(__file__).resolve().parent / FIXTURES
+        card_ms, cpu_ms, bp_ms, n_pts, worst = viz_backprojection_check(
+            fixtures, work)
+        log(f'[viz] ContinuousDrawer.step x {BACKPROJECT_VIEWS} (640x480 '
+            f'RGB-D views): every cloud within {worst:g} float32 steps of '
+            f'the CPU\'s; {np.mean(card_ms):.1f} ms a step on the card '
+            f'(first {card_ms[0]:.1f}, last {card_ms[-1]:.1f}; host wall '
+            f'time, the growing cloud\'s concatenation included) beside '
+            f'{np.mean(cpu_ms):.1f} on the CPU; the back-projection alone '
+            + ', '.join(f'{m:.2f}' for m in bp_ms) + ' ms of CUDA events; '
+            f'final cloud {n_pts} points ({smi})')
+        explorer = viz_explorer_check(data_root, work,
+                                      bool(versions['matplotlib']))
+        log(f'[viz] explorer on phase 13\'s tree: listings equal '
+            f'({explorer["listing"]["count"]} scans, '
+            f'{explorer["listing"]["stats"]}); show_image(render_box=True) '
+            f'sha256 equal on the card and the CPU: '
+            + ', '.join(f'{s} {h[:16]}' for s, h in
+                        explorer['show_image_sha256'].items()))
+        log(f'[viz] render_continuous_scene ({EXPLORER_VIEWS} views, '
+            f'{explorer["format"]}): {len(explorer["files"])} files, '
+            f'{explorer["byte_equal"]} byte-equal on the card and the CPU, '
+            f'{explorer["ply_lines_differ"]} PLY lines a last digit apart; '
+            f'{explorer["render_s"]["card"]:.1f} s on the card, '
+            f'{explorer["render_s"]["cpu"]:.1f} s on the CPU')
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f'[phase 21] in {seconds:.1f} s ({smi})')
+    return dict(renderers=versions, nms_kept=len(kept), nms_ms=nms_ms,
+                nms_near_threshold=near, corners_max_abs_err=err,
+                step_ms=card_ms, cpu_step_ms=cpu_ms, backproject_ms=bp_ms,
+                final_points=n_pts, max_float32_steps=worst,
+                explorer=explorer, seconds=seconds)
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

@@ -182,12 +182,24 @@ FORBIDDEN = {'jax', 'flax', 'proxytransformation_tpu', 'regex', 'cv2',
 # no module of the runtime imports it
 FIXTURE_TOOL = ('proxytransformation_torch/tools/make_image_fixtures.py',
                 'main')
-# optional packages, each allowed in the one guarded branch that the JAX
-# package also has
-OPTIONAL = {'wandb': ('proxytransformation_torch/utils/vis_backend.py',
-                      'WandbVisBackend.__init__'),
-            'transformers': ('proxytransformation_torch/models/'
-                             'text_encoder.py', 'HFTokenizerWrapper.__init__')}
+# optional packages, each allowed in the guarded scopes that the JAX
+# package also has: (file, enclosing class.function) pairs
+VIZ = 'proxytransformation_torch/visualization/'
+OPTIONAL = {
+    'wandb': {('proxytransformation_torch/utils/vis_backend.py',
+               'WandbVisBackend.__init__')},
+    'transformers': {('proxytransformation_torch/models/text_encoder.py',
+                      'HFTokenizerWrapper.__init__')},
+    'open3d': {(VIZ + 'utils.py', 'to_open3d_box'),
+               (VIZ + 'base_visualizer.py',
+                'EmbodiedScanBaseVisualizer.visualize_scene'),
+               (VIZ + 'base_visualizer.py',
+                'EmbodiedScanBaseVisualizer._render_open3d'),
+               (VIZ + 'line_mesh.py', 'LineMesh.to_open3d'),
+               (VIZ + 'continuous_drawer.py',
+                'ContinuousDrawer.run_interactive')},
+    'matplotlib': {(VIZ + 'base_visualizer.py',
+                    'EmbodiedScanBaseVisualizer._render_matplotlib')}}
 
 
 def _imports(path):
@@ -222,9 +234,10 @@ def test_port_imports_no_jax_or_missing_packages():
                 continue
             assert mod not in FORBIDDEN, (rel, mod)
             if mod in OPTIONAL:
-                assert (rel, scope) == OPTIONAL[mod], (rel, scope, mod)
-                seen.add(mod)
-    assert seen == set(OPTIONAL)
+                assert (rel, scope) in OPTIONAL[mod], (rel, scope, mod)
+                seen.add((mod, rel, scope))
+    assert seen == {(mod, *where) for mod, scopes in OPTIONAL.items()
+                    for where in scopes}
 
 
 # the modules of the occupancy, TTA and baseline slice
@@ -295,6 +308,31 @@ def test_slice15_modules_import_no_jax(module):
     assert not {mod for mod, _ in _imports(path)} & FORBIDDEN
 
 
+# the modules of the visualization slice: no cv2 (box wireframes are drawn
+# by visualization/raster.py), open3d and matplotlib only in the scopes of
+# OPTIONAL
+SLICE16_MODULES = (
+    'visualization/__init__.py', 'visualization/utils.py',
+    'visualization/color_selector.py', 'visualization/raster.py',
+    'visualization/img_drawer.py', 'visualization/line_mesh.py',
+    'visualization/base_visualizer.py', 'visualization/continuous_drawer.py',
+    'explorer.py')
+
+
+@pytest.mark.parametrize('module', SLICE16_MODULES)
+def test_slice16_modules_import_no_cv2_or_jax(module):
+    """Each module is walked by the static guard, imports none of the
+    forbidden packages at any scope, and imports open3d and matplotlib
+    only inside the functions that render with them."""
+    path = ROOT / 'proxytransformation_torch' / module
+    assert path in set((ROOT / 'proxytransformation_torch').rglob('*.py'))
+    rel = str(path.relative_to(ROOT))
+    for mod, scope in _imports(path):
+        assert mod not in FORBIDDEN, (mod, scope)
+        if mod in ('open3d', 'matplotlib'):
+            assert (rel, scope) in OPTIONAL[mod], (mod, scope)
+
+
 # the data path too: a JPEG and a PNG view through the host decoder
 RUNTIME_IMPORT = (
     'import sys, proxytransformation_torch.tools.train, '
@@ -313,6 +351,9 @@ RUNTIME_IMPORT = (
     'proxytransformation_torch.models.misc, '
     'proxytransformation_torch.utils.timing, '
     'proxytransformation_torch.utils.cache, '
+    'proxytransformation_torch.visualization, '
+    'proxytransformation_torch.visualization.raster, '
+    'proxytransformation_torch.explorer, '
     + ', '.join(f'proxytransformation_torch.structures.{m}' for m in (
         'rotation', 'boxes', 'projection', 'modes', 'points',
         'iou3d_calculator', 'box_np_ops', 'transforms')) + '; '
