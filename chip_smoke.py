@@ -88,22 +88,27 @@ Phases (any failure exits non-zero before the final line):
      batch, the losses, the val keys, peak memory beside phase 11's
      no-remat bf16 step;
  13. the EmbodiedScan data path: every fixture of
-     `tests/torch_port_images/` decoded by the port's host decoder to the
-     sha256 cv2 recorded in its manifest (and the decode of one 640x480
-     JPEG and one 640x480 16-bit PNG timed); a temporary EmbodiedScan
-     tree written from the two fixture views (a ScanNet scan and a
-     Matterport scan with depth in quarter millimetres for its shift of
-     4000; 50 view entries each with distinct poses, 4 boxes each, a vg
-     json with unique, hard and multi-target utterances); the flagship
-     config, as it is but for --amp, the data root and file names, the
-     EMA hook (`custom_hooks`) and the batch and epoch counts, through
-     `tools/train.py main(argv)`: two B=2 steps at 20 views from the
-     files, a checkpoint, val at 50 ordered views; every kernel call of
-     its first step held against its plain version; the checkpoint's EMA
-     weights equal the runner's and restore bit for bit; val and then
+     `tests/torch_port_images/` (JPEG baseline and progressive, Adobe RGB,
+     CMYK, YCCK, the EXIF orientations, PNG of every form, PGM and PPM)
+     decoded by the port's host decoder to the sha256 cv2 recorded in its
+     manifest (and the decode of one 640x480 JPEG and one 640x480 16-bit
+     PNG timed); a temporary EmbodiedScan tree of three sources written
+     from the fixture views (a ScanNet scan, a Matterport scan with depth
+     in quarter millimetres for its shift of 4000, and a 3RScan scan of
+     960x540 JPEG color and 224x172 16-bit PGM depth frames with a
+     `depth_cam2img` of its own; 50 view entries each with distinct
+     poses, 4 boxes each, a vg json with unique, hard and multi-target
+     utterances); the flagship config, as it is but for --amp, the data
+     root and file names, the EMA hook (`custom_hooks`) and the batch and
+     epoch counts, through `tools/train.py main(argv)`: two B=2 steps at
+     20 views from the files (every scan in them), a checkpoint, val at
+     50 ordered views (the Matterport and the 3RScan scan); every kernel
+     call of both steps held against its plain version; the checkpoint's
+     EMA weights equal the runner's and restore bit for bit; val and then
      `tools/test.py` on the checkpoint ran on the EMA weights.
      `[realdata]` lines: s/it, data wait, first wait, peak memory, and
-     one train sample's host pipeline by stage;
+     one train sample's host pipeline by stage, for a 3RScan sample too
+     with the PGM frame's decode ms;
  14. detection pretraining on phase 13's tree: the detection config
      (`configs/detection/embodied-det3d-resnet50.py`: 284 classes, 100k
      points, MinkResNet-34, ResNet-50 at base 16, head 128, prune 1000,
@@ -173,7 +178,10 @@ Phases (any failure exits non-zero before the final line):
      at host batch 4 (an epoch of 2 steps, val, a checkpoint, `--resume
      auto` for a second), then `tools/test.py --launcher pytorch` with
      val_results.json equal to one process's; (c) one NCCL rank through
-     the train CLI; (d) s/it beside one process, the gradient
+     the train CLI, then again through `--launcher slurm` as the one task
+     of a one-node SLURM step (the variables srun sets, MASTER_PORT): its
+     context equal to torchrun's, its first step to the `--launcher
+     pytorch` run's; (d) s/it beside one process, the gradient
      all-reduce's bytes and ms, the norm collectives' count and ms, each
      rank's peak memory. Gloo stages through the host and the ranks share
      one card: not NCCL across cards; (e) occupancy: the full occupancy
@@ -1691,23 +1699,28 @@ def require_same(got, want, what):
 
 
 @contextmanager
-def capturing_first_step(first):
+def capturing_first_step(first, steps: int = 1):
     """While open, the Runner's train step records the kernel calls of its
     first call into `first['calls']` (and its batch into
-    `first['batch']`)."""
+    `first['batch']`), and those of its next `steps - 1` calls into the
+    list `first['more']`."""
     from proxytransformation_torch.engine import runner as runner_mod
     make_train_step = runner_mod.make_train_step
+    first['more'] = []
 
     def capturing_make_train_step(model, optimizer, schedule=None):
         step = make_train_step(model, optimizer, schedule)
 
         def train_step(batch, generator=None):
-            if first:
+            if 'calls' in first and len(first['more']) >= steps - 1:
                 return step(batch, generator)
             out = {}
-            first['batch'] = batch
-            first['calls'] = capture_kernel_calls(
+            calls = capture_kernel_calls(
                 lambda: out.update(step(batch, generator)))
+            if 'calls' in first:
+                first['more'].append(calls)
+            else:
+                first['batch'], first['calls'] = batch, calls
             return out
         return train_step
 
@@ -1865,50 +1878,75 @@ FIXTURES = 'tests/torch_port_images'
 REALDATA_WORK = Path(__file__).resolve().parent / 'build' / \
     'chip_smoke_realdata'
 MATTERPORT_SCAN = 'matterport3d/1mp3d_0000/region0'
+RSCAN_SCAN = '3rscan/0cac7578-8d6f-2d13-8c2d-bfa7a04f8af3'
 REALDATA_CLASSES = ('cabinet', 'bed', 'chair', 'table')
 N_SCAN_VIEWS = 50
 
 
 def write_embodiedscan_tree(root: Path, fixtures: Path) -> dict:
-    """A two-scan EmbodiedScan tree from the fixture views: infos pkls,
-    vg jsons and, per scan, 50 view entries cycling through the views
+    """A three-source EmbodiedScan tree from the fixture views: infos pkls,
+    vg jsons and, per scan, 50 view entries cycling through its views
     with distinct poses (2 mm apart along x). The ScanNet scan keeps the
     depth in millimetres (shift 1000); the Matterport scan holds it in
     quarter millimetres, its shift being 4000, and its axis alignment is a
-    translation (its boxes are moved by it). Returns the file names."""
+    translation (its boxes are moved by it); the 3RScan scan reads
+    `sequence/frame-000000.color.jpg` (960x540) and `.depth.pgm` (224x172,
+    16-bit, shift 1000) through a `depth_cam2img` of its own. Train: the
+    ScanNet and Matterport scans one utterance each, the 3RScan scan two
+    (two steps at B=2); val and test: the Matterport and the 3RScan scan.
+    Returns the file names."""
     import pickle
     from proxytransformation_torch.data.image_io import imread, write_png
     manifest = json.loads((fixtures / 'manifest.json').read_text())
     cam2img = np.asarray(manifest['cam2img'], np.float64)
     boxes = [list(b) for b in manifest['boxes']]
     boxes.append([0.6, 0.9, 0.4, 1.2, 0.7, 0.8, 0.0, 0.0, 0.0])  # a table
-    align = {'scannet/scene0000_00': np.eye(4), MATTERPORT_SCAN: np.eye(4)}
+    align = {'scannet/scene0000_00': np.eye(4), MATTERPORT_SCAN: np.eye(4),
+             RSCAN_SCAN: np.eye(4)}
     align[MATTERPORT_SCAN][:3, 3] = [0.5, -0.3, 0.0]
     scans = {}
     for scan_id, m in align.items():
-        scan_dir = root / 'posed_images' / scan_id.replace('/', '_')
-        scan_dir.mkdir(parents=True)
-        for k, view in enumerate(manifest['views']):
-            shutil.copy(fixtures / view['image'], scan_dir / f'view{k}.jpg')
-            if scan_id == MATTERPORT_SCAN:
-                write_png(scan_dir / f'depth{k}.png',
-                          imread(str(fixtures / view['depth']), -1) * 4)
-            else:
-                shutil.copy(fixtures / view['depth'],
-                            scan_dir / f'depth{k}.png')
+        if scan_id == RSCAN_SCAN:
+            rscan = manifest['rscan']
+            scan_dir = root / scan_id / 'sequence'
+            scan_dir.mkdir(parents=True)
+            shutil.copy(fixtures / rscan['image'],
+                        scan_dir / 'frame-000000.color.jpg')
+            shutil.copy(fixtures / rscan['depth'],
+                        scan_dir / 'frame-000000.depth.pgm')
+            views = [('frame-000000.color.jpg', 'frame-000000.depth.pgm',
+                      rscan['cam2global'])]
+            cams = (np.asarray(rscan['cam2img'], np.float64),
+                    np.asarray(rscan['depth_cam2img'], np.float64))
+        else:
+            scan_dir = root / 'posed_images' / scan_id.replace('/', '_')
+            scan_dir.mkdir(parents=True)
+            views = []
+            for k, view in enumerate(manifest['views']):
+                shutil.copy(fixtures / view['image'],
+                            scan_dir / f'view{k}.jpg')
+                if scan_id == MATTERPORT_SCAN:
+                    write_png(scan_dir / f'depth{k}.png',
+                              imread(str(fixtures / view['depth']), -1) * 4)
+                else:
+                    shutil.copy(fixtures / view['depth'],
+                                scan_dir / f'depth{k}.png')
+                views.append((f'view{k}.jpg', f'depth{k}.png',
+                              view['cam2global']))
+            cams = (cam2img, cam2img)
         images = []
+        rel = scan_dir.relative_to(root)
         for i in range(N_SCAN_VIEWS):
-            k = i % len(manifest['views'])
-            pose = np.asarray(manifest['views'][k]['cam2global'], np.float64)
+            image, depth, pose = views[i % len(views)]
+            pose = np.asarray(pose, np.float64)
             pose[0, 3] += 0.002 * i
-            rel = scan_dir.relative_to(root)
-            images.append({'img_path': str(rel / f'view{k}.jpg'),
-                           'depth_path': str(rel / f'depth{k}.png'),
+            images.append({'img_path': str(rel / image),
+                           'depth_path': str(rel / depth),
                            'cam2global': pose})
         aligned = [list(np.add(b[:3], m[:3, 3])) + b[3:] for b in boxes]
         scans[scan_id] = {
             'sample_idx': scan_id, 'axis_align_matrix': m,
-            'cam2img': cam2img, 'depth_cam2img': cam2img, 'images': images,
+            'cam2img': cams[0], 'depth_cam2img': cams[1], 'images': images,
             'instances': [{'bbox_3d': b, 'bbox_label_3d': j + 1,
                            'bbox_id': j} for j, b in enumerate(aligned)]}
     categories = {c: j + 1 for j, c in enumerate(REALDATA_CLASSES)}
@@ -1926,15 +1964,19 @@ def write_embodiedscan_tree(root: Path, fixtures: Path) -> dict:
              'tokens_positive': [[4, 7]]}]
         return both[:n]
 
+    per_split = {'train': {'scannet/scene0000_00': 1, MATTERPORT_SCAN: 1,
+                           RSCAN_SCAN: 2},
+                 'val': {MATTERPORT_SCAN: 1, RSCAN_SCAN: 1}}
     names = {}
-    for split, n in (('train', 2), ('val', 1)):
+    for split, counts in per_split.items():
         infos = {'metainfo': {'categories': categories},
                  'data_list': list(scans.values())}
         names[split] = (f'embodiedscan_infos_{split}.pkl',
                         f'embodiedscan_{split}_vg.json')
         with open(root / names[split][0], 'wb') as f:
             pickle.dump(infos, f)
-        vg = [u for scan_id in scans for u in utterances(scan_id, n)]
+        vg = [u for scan_id, n in counts.items()
+              for u in utterances(scan_id, n)]
         (root / names[split][1]).write_text(json.dumps(vg))
     return names
 
@@ -1978,22 +2020,29 @@ def decode_check(fixtures: Path):
         require(got == f['sha256'] and list(img.shape) == f['shape']
                 and str(img.dtype) == f['dtype'],
                 f'{f["name"]}: decoded array differs from cv2\'s')
-    ms = {}
-    for kind, name in (('jpeg', 'view0_640x480.jpg'),
-                       ('png', 'depth0_640x480.png')):
-        data = (fixtures / name).read_bytes()
-        t = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            image_io.decode(data, image_io.IMREAD_UNCHANGED)
-            t.append((time.perf_counter() - t0) * 1e3)
-        ms[kind] = float(np.median(t))
+    ms = {kind: decode_ms(fixtures / name, image_io.IMREAD_UNCHANGED)
+          for kind, name in (('jpeg', 'view0_640x480.jpg'),
+                             ('png', 'depth0_640x480.png'))}
     return len(manifest['files']), build_s, ms
 
 
-def host_pipeline_breakdown(root: Path, names: dict, pipeline, n: int = 3):
+def decode_ms(path: Path, flag: int) -> float:
+    """ms of the host decode of one image file (median of 10)."""
+    from proxytransformation_torch.data import image_io
+    data = path.read_bytes()
+    t = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        image_io.decode(data, flag)
+        t.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(t))
+
+
+def host_pipeline_breakdown(root: Path, names: dict, pipeline, n: int = 3,
+                            scan: str = None):
     """ms of one train sample's host pipeline by stage (the median of `n`
-    samples after a warm one), and of the B=2 collate."""
+    samples after a warm one) and the last sample: of `scan`'s samples,
+    or without it of the 640x480 scans' (ScanNet, Matterport)."""
     from proxytransformation_torch.data import image_io
     from proxytransformation_torch.data import transforms as tf
     from proxytransformation_torch.data.dataset import (
@@ -2002,6 +2051,7 @@ def host_pipeline_breakdown(root: Path, names: dict, pipeline, n: int = 3):
     patches = [
         (image_io, 'decode_jpeg', 'jpeg decode'),
         (image_io, 'decode_png', 'png decode'),
+        (image_io, 'decode_pnm', 'pgm decode'),
         (tf, 'depth_to_points', 'depth to points'),
         (tf, 'resize_bilinear_u8', 'resize'),
         (tf.PointSample, '__call__', 'point sampling'),
@@ -2025,11 +2075,15 @@ def host_pipeline_breakdown(root: Path, names: dict, pipeline, n: int = 3):
         ds = MultiView3DGroundingDataset(
             data_root=str(root) + '/', ann_file=names['train'][0],
             vg_file=names['train'][1], pipeline=pipeline)
+        picks = [i for i, d in enumerate(ds.data_list)
+                 if d['scan_id'] == scan
+                 or (scan is None and d['scan_id'] != RSCAN_SCAN)]
+        require(bool(picks), f'no sample of {scan}')
         rows = []
         for i in range(n + 1):
             spent.clear()
             t0 = time.perf_counter()
-            sample = ds[i % len(ds)]
+            sample = ds[picks[i % len(picks)]]
             total = time.perf_counter() - t0
             row = {k: v * 1e3 for k, v in spent.items()}
             row['other'] = total * 1e3 - sum(row.values())
@@ -2041,6 +2095,17 @@ def host_pipeline_breakdown(root: Path, names: dict, pipeline, n: int = 3):
     stages = {k: float(np.median([r.get(k, 0.0) for r in rows[1:]]))
               for k in rows[1]}
     return stages, sample
+
+
+def rscan_decode_ms(fixtures: Path) -> dict:
+    """ms of the host decode of the 3RScan fixture frame: its 224x172
+    16-bit PGM depth and its 960x540 JPEG color (median of 10 each)."""
+    from proxytransformation_torch.data import image_io
+    rscan = json.loads((fixtures / 'manifest.json').read_text())['rscan']
+    return {'pgm': decode_ms(fixtures / rscan['depth'],
+                             image_io.IMREAD_UNCHANGED),
+            'jpeg': decode_ms(fixtures / rscan['image'],
+                              image_io.IMREAD_COLOR)}
 
 
 def data_path_phases(smi, data_root: Path):
@@ -2081,11 +2146,26 @@ def data_path_phases(smi, data_root: Path):
     try:
         t0 = time.perf_counter()
         names = write_embodiedscan_tree(data_root, fixtures)
-        log(f'[realdata] wrote a 2-scan EmbodiedScan tree ({N_SCAN_VIEWS} '
-            f'views a scan) in {time.perf_counter() - t0:.1f} s')
+        log(f'[realdata] wrote a 3-scan EmbodiedScan tree (ScanNet, '
+            f'Matterport, 3RScan; {N_SCAN_VIEWS} views a scan) in '
+            f'{time.perf_counter() - t0:.1f} s')
         cfg = Config.fromfile(str(repo / FLAGSHIP_CONFIG))
         stages, sample = host_pipeline_breakdown(data_root, names,
                                                  cfg['train_pipeline'])
+        rscan = rscan_decode_ms(fixtures)
+        rstages, rsample = host_pipeline_breakdown(
+            data_root, names, cfg['train_pipeline'], scan=RSCAN_SCAN)
+        require(rsample['imgs'].shape[0] == 20
+                and rsample['points'].shape == (100_000, 3)
+                and np.isfinite(rsample['points']).all(),
+                f'3RScan sample: imgs {rsample["imgs"].shape}, points '
+                f'{rsample["points"].shape}')
+        log(f'[realdata] 3rscan {RSCAN_SCAN}: host decode of one 224x172 '
+            f'16-bit PGM depth frame {rscan["pgm"]:.3f} ms, one 960x540 '
+            f'JPEG color frame {rscan["jpeg"]:.2f} ms; host pipeline of one '
+            'train sample (20 views, ms): '
+            + ', '.join(f'{k} {v:.1f}' for k, v in rstages.items())
+            + f' ({smi})')
         pp = Det3DDataPreprocessor(**{
             k: v for k, v in cfg['model']['data_preprocessor'].items()
             if k != 'type'})
@@ -2098,7 +2178,9 @@ def data_path_phases(smi, data_root: Path):
 
         first = {}
         runner_mod.Runner._ema_weights = checked_ema_weights
-        with capturing_first_step(first):
+        # both steps captured: the epoch's four samples, the 3RScan ones
+        # wherever the shuffle puts them
+        with capturing_first_step(first, steps=2):
             _cuda.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2154,9 +2236,13 @@ def data_path_phases(smi, data_root: Path):
         require(moved > 0, 'the EMA weights equal the trained weights')
         log(f'[realdata] {Path(path).name}: {len(saved)} EMA tensors, '
             f'restored bit for bit; {moved} differ from the trained weights')
+        require(len(first['more']) == 1, 'the second step was not captured')
         with torch.no_grad():
             rows = check_calls(first['calls'], RUNNER_KERNELS,
                                'the first step from files')
+            second = check_calls(first['more'][0], RUNNER_KERNELS,
+                                 'the second step from files')
+        rows = {k: rows[k] + second[k] for k in rows}
         del runner, model, first
         torch.cuda.empty_cache()
 
@@ -2174,6 +2260,7 @@ def data_path_phases(smi, data_root: Path):
         runner_mod.Runner._ema_weights = ema_weights
     torch.cuda.empty_cache()
     summary = dict(decode_ms=decode_ms, host_stage_ms=stages,
+                   rscan_decode_ms=rscan, rscan_host_stage_ms=rstages,
                    collate_ms=collate_ms, wall_s=wall, timing=timing,
                    peak_gib=peak, losses=losses, val_results=results,
                    per_step=per_step, test_s=test_s)
@@ -2202,7 +2289,7 @@ def detection_argv(config: Path, work: Path, root: Path, names: dict,
                sampler=dict(type='DefaultSampler', shuffle=False),
                dataset=dict(type='EmbodiedScanDataset',
                             data_root=str(root) + '/',
-                            ann_file=names['val'][0],
+                            ann_file=names['det_val'],
                             metainfo=cfg['metainfo'], pipeline=pipeline,
                             test_mode=True))
     opts = [f'val_dataloader={val!r}']
@@ -2217,15 +2304,19 @@ def detection_argv(config: Path, work: Path, root: Path, names: dict,
 
 
 def write_detection_ann(root: Path, names: dict) -> None:
-    """The train split's infos with each scan listed DET_REPEATS times
-    (eight samples: two steps at the config's B=4), beside the others."""
+    """The train split's ScanNet and Matterport scans, each listed
+    DET_REPEATS times (eight samples: two steps at the config's B=4), and
+    the two alone for val, beside the others (phase 13's 3RScan scan is
+    not phase 14's)."""
     import pickle
     with open(root / names['train'][0], 'rb') as f:
         infos = pickle.load(f)
-    infos['data_list'] = infos['data_list'] * DET_REPEATS
-    names['det_train'] = 'embodiedscan_infos_det_train.pkl'
-    with open(root / names['det_train'], 'wb') as f:
-        pickle.dump(infos, f)
+    scans = [d for d in infos['data_list'] if d['sample_idx'] != RSCAN_SCAN]
+    for key, repeats in (('det_train', DET_REPEATS), ('det_val', 1)):
+        infos['data_list'] = scans * repeats
+        names[key] = f'embodiedscan_infos_{key}.pkl'
+        with open(root / names[key], 'wb') as f:
+            pickle.dump(infos, f)
 
 
 @contextmanager
@@ -3319,6 +3410,45 @@ def torchrun(nproc: int, args, label: str, timeout: float = DP_TIMEOUT_S):
     return err, seconds
 
 
+def slurm_task(args, label: str, timeout: float = DP_TIMEOUT_S):
+    """`python args` from the repository root as the one task of a
+    one-node SLURM step (the variables srun sets, the coordinator
+    localhost at a free MASTER_PORT), in a session of its own (killed
+    whole on timeout); its output goes to chiprun_out/dp_<label>.log.
+    Returns (the environment it had, seconds)."""
+    import os
+    import signal
+    import socket
+    root = Path(__file__).resolve().parent
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK',
+                        'LOCAL_WORLD_SIZE', 'GROUP_RANK')}
+    slurm = dict(SLURM_JOB_ID='4182391', SLURM_STEP_NODELIST='localhost',
+                 SLURM_NTASKS='1', SLURM_PROCID='0', SLURM_LOCALID='0',
+                 SLURM_STEP_NUM_NODES='1', SLURM_NODEID='0',
+                 MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *map(str, args)], cwd=root,
+                            env={**env, **slurm}, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    seconds = time.perf_counter() - t0
+    LOG_PATH.parent.mkdir(exist_ok=True)
+    (LOG_PATH.parent / f'dp_{label}.log').write_text(out + '\n' + err)
+    require(proc.returncode == 0,
+            f'{label}: exit {proc.returncode} after {seconds:.0f} s; '
+            f'stderr tail: {err[-2000:]}')
+    return slurm, seconds
+
+
 def scalars(work: Path):
     return [json.loads(line) for line in
             (work / 'scalars.jsonl').read_text().splitlines()
@@ -3489,7 +3619,8 @@ def dp_phases(smi):
     `tools.train --launcher pytorch --amp` on the two ranks (an epoch of
     2 steps, val, a checkpoint, `--resume auto` for one more), then
     `tools.test --launcher pytorch` against one process's; (c) NCCL at
-    world size 1 through the train CLI; (d) their times; (e) occupancy
+    world size 1 through the train CLI, by torchrun and by SLURM's
+    variables; (d) their times; (e) occupancy
     on one process and in the ranks of (a)."""
     from proxytransformation_torch.tools import test as test_cli
     t_phase = time.perf_counter()
@@ -3625,6 +3756,67 @@ def dp_phases(smi):
         f'{nccl_s:.1f} s, losses '
         + ', '.join(f'{r["total_loss"]:.5f}' for r in nccl_log))
 
+    # (c) again through --launcher slurm: the context of one task of a
+    # one-node step is torchrun's world-size-1 context, and its two steps
+    # are the --launcher pytorch run's
+    import os
+    from proxytransformation_torch.parallel import dist as pdist
+    from proxytransformation_torch.parallel.launch import (launcher_context,
+                                                           rank_device)
+    slurm_dir = DP_WORK / 'nccl_slurm'
+    env, slurm_s = slurm_task(
+        ['-m', 'proxytransformation_torch.tools.train',
+         *runner_argv(slurm_dir, 1, 0, batch_size=DP_B,
+                      flags=('--launcher', 'slurm'),
+                      options=('train_cfg.val_interval=2',
+                               f'env_cfg.dist_cfg.timeout={DP_TIMEOUT_S}'))],
+        'nccl_slurm')
+    saved = dict(os.environ)
+    try:
+        os.environ.update(env)
+        slurm_ctx, rendezvous = launcher_context('slurm', {})
+        for k in env:
+            os.environ.pop(k)
+        os.environ.update(WORLD_SIZE='1', RANK='0', LOCAL_RANK='0',
+                          LOCAL_WORLD_SIZE='1', GROUP_RANK='0')
+        torchrun_ctx = pdist.env_context()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    require(slurm_ctx == torchrun_ctx == pdist.DistContext(1, 0, 0, 1, 0)
+            and rank_device(slurm_ctx, None, 'nccl') == 'cuda:0'
+            and rendezvous == f'tcp://localhost:{env["MASTER_PORT"]}',
+            f'--launcher slurm: {slurm_ctx}, {rendezvous}; torchrun: '
+            f'{torchrun_ctx}')
+    slurm_log = scalars(slurm_dir)
+    require(len(slurm_log) == 2 and (slurm_dir / 'ckpt_00000002').is_dir(),
+            f'the --launcher slurm run: {slurm_log}')
+    loss_keys = [k for k in nccl_log[0] if 'loss' in k or k == 'grad_norm']
+
+    def apart(step):
+        return {k: abs(slurm_log[step][k] - nccl_log[step][k])
+                / max(abs(nccl_log[step][k]), 1e-12) for k in loss_keys}
+
+    # the second step is reported, not held: the steps part run to run
+    # from the second on (ROADMAP §3), and at this random initialisation a
+    # bf16 loss moves by tens of percent between two runs
+    step1, step2 = apart(0), max(apart(1).values())
+    require(max(v for k, v in step1.items() if k != 'grad_norm') <= 1e-6
+            and step1['grad_norm'] <= 1e-4,
+            'the first step through --launcher slurm differs from '
+            f'--launcher pytorch\'s: {step1}')
+    log(f'[dp] tools.train --launcher slurm (SLURM_NTASKS=1, '
+        f'SLURM_STEP_NODELIST=localhost, MASTER_PORT={env["MASTER_PORT"]}), '
+        f'nccl, --amp, host batch {DP_B}: context {slurm_ctx} = torchrun\'s, '
+        f'rank device cuda:0, rendezvous {rendezvous}; 2 steps in '
+        f'{slurm_s:.1f} s, losses '
+        + ', '.join(f'{r["total_loss"]:.5f}' for r in slurm_log)
+        + f'; step 1 against --launcher pytorch\'s: {len(loss_keys) - 1} '
+        f'losses {max(v for k, v in step1.items() if k != "grad_norm"):.3g} '
+        f'relative apart at most, grad_norm {step1["grad_norm"]:.3g}; '
+        f'step 2 {step2:.3g} at most (not held: steps part run to run from '
+        'step 2 on, ROADMAP §3)')
+
     # (d) times
     st = r0['timed_collectives']
     log(f'[dp] times ({smi}; gloo stages every collective through the host '
@@ -3650,11 +3842,12 @@ def dp_phases(smi):
                                           if k not in ('rows', 'occupancy')}
                                          for r in ranks],
                    runner_epochs=[epoch1, epoch2], nccl=nccl_log,
+                   nccl_slurm=slurm_log,
                    test_results=dp_results['val_results.json'],
                    occupancy=occupancy,
                    seconds=dict(step=step_s, train=train_s, resume=resume_s,
                                 test=test_s, one_test=one_test_s,
-                                nccl=nccl_s))
+                                nccl=nccl_s, nccl_slurm=slurm_s))
     return dict(rows=r0['rows'], counts=r0['counts'],
                 per_step=r0['per_step'], summary=summary)
 
@@ -3990,11 +4183,14 @@ def viz_backprojection_check(fixtures: Path, work: Path):
 
 def explorer_infos(data_root: Path) -> Path:
     """Phase 13's train infos with absolute paths (the explorer reads
-    absolute paths), the first EXPLORER_VIEWS view entries of each scan,
-    and the instances each view sees (two a view)."""
+    absolute paths), its ScanNet and Matterport scans, the first
+    EXPLORER_VIEWS view entries of each, and the instances each view sees
+    (two a view)."""
     import pickle
     with open(data_root / 'embodiedscan_infos_train.pkl', 'rb') as f:
         infos = pickle.load(f)
+    infos['data_list'] = [d for d in infos['data_list']
+                          if d['sample_idx'] != RSCAN_SCAN]
     for d in infos['data_list']:
         d['images'] = d['images'][:EXPLORER_VIEWS]
         n = len(d['instances'])

@@ -1,10 +1,16 @@
-// Host image decoders for the data pipeline: baseline JPEG and the PNG
-// unfilter step.
+// Host image decoders for the data pipeline: JPEG and the PNG unfilter
+// step.
 //
 // The JAX package reads its views with cv2 (libjpeg-turbo, libpng). The
 // port's batches must equal its batches byte for byte, so this decoder
 // follows libjpeg-turbo's default decompression exactly:
-//   - sequential Huffman scans (SOF0 / SOF1), 8-bit samples;
+//   - sequential (SOF0 / SOF1) and progressive (SOF2) Huffman scans, 8-bit
+//     samples, restart intervals in either; a sequential block goes through
+//     the IDCT as it is decoded, a progressive scan decodes into one
+//     coefficient buffer per component (jdphuff.c's DC first / refine and
+//     AC first / refine with EOB runs) and the IDCT runs once all scans
+//     are in; each component takes the quantization table it latched at
+//     its first scan (jdinput.c::latch_quant_tables);
 //   - the `islow` integer IDCT of jidctint.c with the range-limit table of
 //     jdmaster.c::prepare_range_limit_table;
 //   - "fancy" upsampling of jdsample.c: the h2v1, h1v2 and h2v2 triangle
@@ -12,13 +18,20 @@
 //     two samples wide or narrower (where libjpeg-turbo drops to the box
 //     filter) and for other integral factors; rows past the edge repeat
 //     the last real row (jdmainct.c::set_bottom_pointers);
-//   - YCbCr -> BGR with the fixed-point tables of jdcolor.c;
+//   - the color space as jdapimin.c::default_decompress_parms guesses it:
+//     YCbCr -> BGR with the fixed-point tables of jdcolor.c, RGB (Adobe
+//     transform 0, or the component ids 'R' 'G' 'B' without a JFIF or
+//     Adobe marker) reordered, CMYK as stored, YCCK -> CMYK by jdcolor.c's
+//     ycck_cmyk_convert; CMYK -> BGR as OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+//     does (c = k - ((255 - c) * k >> 8), and so for m and y);
 //   - one-component images replicated to three channels, as cv2's
 //     IMREAD_COLOR does.
 // What it does not decode it refuses with a message naming the feature:
-// progressive, lossless, hierarchical or arithmetic-coded JPEG, 12-bit
-// samples, Adobe RGB / CMYK / YCCK. It reports the EXIF orientation and
-// leaves the image unrotated; the caller refuses what cv2 would rotate.
+// lossless, hierarchical or arithmetic-coded JPEG, 12-bit samples, a
+// height defined by DNL, and a progressive file whose scans leave one of
+// the first ten coefficients unrefined (libjpeg then smooths the blocks,
+// jdcoefct.c::decompress_smooth_data). It reports the EXIF orientation and
+// leaves the image unrotated; the caller turns it as cv2 does.
 //
 // A plain C interface for ctypes; every function is reentrant and works on
 // caller-owned buffers. Build: c++ -O2 -fPIC -shared -std=c++17.
@@ -311,9 +324,17 @@ struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int width = 0, height = 0;  // downsampled size in samples
   int stride = 0, rows = 0;   // plane size, whole blocks
+  int bw = 0, bh = 0;         // coefficient blocks, whole MCUs
   std::vector<uint8_t> plane;
+  std::vector<int16_t> coef;  // progressive: bw * bh blocks of 64
+  int16_t q[64];              // the table latched at the first scan
   bool seen = false;          // decoded by some scan
+  int coef_bits[64];          // progressive: the Al last coded, -1: none
   int dc_table = 0, ac_table = 0;
+
+  int16_t* block(int bx, int by) {
+    return coef.data() + (static_cast<size_t>(by) * bw + bx) * 64;
+  }
 };
 
 struct Jpeg {
@@ -323,7 +344,7 @@ struct Jpeg {
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1;
   int restart_interval = 0;
-  bool have_frame = false;
+  bool have_frame = false, progressive = false;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   int orientation = 1;
@@ -397,13 +418,15 @@ struct Jpeg {
     switch (m) {
       case 0xC0:
       case 0xC1: read_sof(end); break;
-      case 0xC2: case 0xC6: case 0xCA: case 0xCE:
-        fail("progressive JPEG is not supported");
+      case 0xC2:
+        progressive = true;
+        read_sof(end);
+        break;
       case 0xC3: case 0xC7: case 0xCB: case 0xCF:
         fail("lossless JPEG is not supported");
-      case 0xC5:
+      case 0xC5: case 0xC6: case 0xCD: case 0xCE:
         fail("hierarchical JPEG is not supported");
-      case 0xC9: case 0xCC:
+      case 0xC9: case 0xCA: case 0xCC:
         fail("arithmetic-coded JPEG is not supported");
       case 0xC4: read_dht(end); break;
       case 0xDB: read_dqt(end); break;
@@ -436,8 +459,7 @@ struct Jpeg {
     ncomp = u8();
     if (height <= 0) fail("JPEG with a height defined by DNL is not supported");
     if (width <= 0) fail("corrupt JPEG: zero width");
-    if (ncomp == 4) fail("CMYK / YCCK JPEG is not supported");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail("JPEG with " + std::to_string(ncomp) + " components is not supported");
     if (pos + 3 * ncomp > end) fail("corrupt JPEG: bad frame header");
     for (int c = 0; c < ncomp; ++c) {
@@ -462,7 +484,12 @@ struct Jpeg {
       k.height = (height * k.v + vmax - 1) / vmax;
       k.stride = mcux * k.h * 8;
       k.rows = mcuy * k.v * 8;
+      k.bw = mcux * k.h;
+      k.bh = mcuy * k.v;
       k.plane.assign(static_cast<size_t>(k.stride) * k.rows, 0);
+      if (progressive)
+        k.coef.assign(static_cast<size_t>(k.bw) * k.bh * 64, 0);
+      std::fill(k.coef_bits, k.coef_bits + 64, -1);
     }
     have_frame = true;
   }
@@ -496,7 +523,121 @@ struct Jpeg {
     }
   }
 
-  // decode one sequential scan; `pos` is just past the SOS marker
+  // ------------------------------------------------------ entropy decoding
+  // one block of a sequential scan (jdhuff.c::decode_mcu)
+  void block_sequential(BitReader& br, const Component& k, int& pred,
+                        int16_t* block) {
+    std::memset(block, 0, 64 * sizeof(int16_t));
+    int s = br.decode(dc[k.dc_table]);
+    int diff = 0;
+    if (s) {
+      if (s > 16) fail("corrupt JPEG: bad DC magnitude");
+      diff = extend(br.get(s), s);
+    }
+    pred += diff;
+    block[0] = static_cast<int16_t>(pred);
+    const HuffTable& at = ac[k.ac_table];
+    for (int z = 1; z < 64; ++z) {
+      const int rs = br.decode(at);
+      const int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        z += r;
+        block[kNaturalOrder[z]] = static_cast<int16_t>(extend(br.get(s), s));
+      } else {
+        if (r != 15) break;
+        z += 15;
+      }
+    }
+  }
+
+  // jdphuff.c::decode_mcu_DC_first / decode_mcu_DC_refine
+  void block_dc_first(BitReader& br, const Component& k, int& pred, int al,
+                      int16_t* block) {
+    int s = br.decode(dc[k.dc_table]);
+    if (s) {
+      if (s > 16) fail("corrupt JPEG: bad DC magnitude");
+      s = extend(br.get(s), s);
+    }
+    pred += s;
+    block[0] = static_cast<int16_t>(pred * (1 << al));
+  }
+
+  // jdphuff.c::decode_mcu_AC_first
+  void block_ac_first(BitReader& br, const Component& k, int ss, int se,
+                      int al, int& eobrun, int16_t* block) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const HuffTable& at = ac[k.ac_table];
+    for (int z = ss; z <= se; ++z) {
+      const int rs = br.decode(at);
+      int r = rs >> 4;
+      const int s = rs & 15;
+      if (s) {
+        z += r;
+        if (z > 63) fail("corrupt JPEG: AC run past the block");
+        block[kNaturalOrder[z]] =
+            static_cast<int16_t>(extend(br.get(s), s) * (1 << al));
+      } else if (r == 15) {
+        z += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c::decode_mcu_AC_refine
+  void block_ac_refine(BitReader& br, const Component& k, int ss, int se,
+                       int al, int& eobrun, int16_t* block) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int z = ss;
+    auto correct = [&](int16_t& c) {
+      if (br.get(1) && (c & p1) == 0)
+        c = static_cast<int16_t>(c + (c >= 0 ? p1 : m1));
+    };
+    if (eobrun == 0) {
+      const HuffTable& at = ac[k.ac_table];
+      for (; z <= se; ++z) {
+        const int rs = br.decode(at);
+        int r = rs >> 4;
+        int s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt JPEG: bad refinement code");
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        // pass the nonzero coefficients (correcting each) and r zeros
+        do {
+          int16_t& c = block[kNaturalOrder[z]];
+          if (c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;
+          }
+          ++z;
+        } while (z <= se);
+        if (s) block[kNaturalOrder[z]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; z <= se; ++z) {
+        int16_t& c = block[kNaturalOrder[z]];
+        if (c != 0) correct(c);
+      }
+      --eobrun;
+    }
+  }
+
+  // decode one scan into the coefficient buffers; `pos` is just past the
+  // SOS marker
   void decode_scan() {
     if (!have_frame) fail("corrupt JPEG: scan before frame header");
     const size_t seg_len = static_cast<size_t>(u16());
@@ -513,17 +654,38 @@ struct Jpeg {
       if (!sc[i]) fail("corrupt JPEG: scan names an unknown component");
       sc[i]->dc_table = tables >> 4;
       sc[i]->ac_table = tables & 15;
-      if (sc[i]->dc_table > 3 || sc[i]->ac_table > 3 ||
-          !dc[sc[i]->dc_table].defined || !ac[sc[i]->ac_table].defined)
-        fail("corrupt JPEG: scan uses an undefined Huffman table");
-      if (!qt_defined[sc[i]->tq])
-        fail("corrupt JPEG: component uses an undefined quantization table");
-      sc[i]->seen = true;
+      if (sc[i]->dc_table > 3 || sc[i]->ac_table > 3)
+        fail("corrupt JPEG: bad Huffman table id");
     }
     const int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0)
-      fail("corrupt JPEG: spectral selection in a sequential scan");
+    const int ah = ahal >> 4, al = ahal & 15;
     pos = end;
+    const bool dc_band = ss == 0;
+    if (progressive) {
+      if ((dc_band && se != 0) ||
+          (!dc_band && (se < ss || se > 63 || ns != 1)) ||
+          (ah != 0 && al != ah - 1) || al > 13)
+        fail("corrupt JPEG: bad progression parameters");
+    } else if (ss != 0 || se != 63 || ahal != 0) {
+      fail("corrupt JPEG: spectral selection in a sequential scan");
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component& k = *sc[i];
+      const bool need_dc = !progressive || (dc_band && ah == 0);
+      const bool need_ac = !progressive || !dc_band;
+      if ((need_dc && !dc[k.dc_table].defined) ||
+          (need_ac && !ac[k.ac_table].defined))
+        fail("corrupt JPEG: scan uses an undefined Huffman table");
+      if (!k.seen) {  // latch the quantization table
+        if (!qt_defined[k.tq])
+          fail("corrupt JPEG: component uses an undefined quantization "
+               "table");
+        std::memcpy(k.q, qt[k.tq], sizeof(k.q));
+      }
+      k.seen = true;
+      if (progressive)
+        for (int z = ss; z <= se; ++z) k.coef_bits[z] = al;
+    }
 
     int mcus_x, mcus_y;
     if (ns == 1) {
@@ -535,7 +697,8 @@ struct Jpeg {
     }
     BitReader br{buf, len, pos};
     int pred[4] = {0, 0, 0, 0};
-    int16_t block[64];
+    int eobrun = 0;
+    int16_t seq_block[64];
     int todo = restart_interval, next_rst = 0;
     const int total = mcus_x * mcus_y;
     for (int m = 0; m < total; ++m) {
@@ -544,6 +707,7 @@ struct Jpeg {
         next_rst = (next_rst + 1) & 7;
         todo = restart_interval;
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
+        eobrun = 0;
       }
       const int mx = m % mcus_x, my = m / mcus_x;
       for (int i = 0; i < ns; ++i) {
@@ -551,33 +715,24 @@ struct Jpeg {
         const int bh = ns == 1 ? 1 : k.h, bv = ns == 1 ? 1 : k.v;
         for (int by = 0; by < bv; ++by) {
           for (int bx = 0; bx < bh; ++bx) {
-            std::memset(block, 0, sizeof(block));
-            int s = br.decode(dc[k.dc_table]);
-            int diff = 0;
-            if (s) {
-              if (s > 16) fail("corrupt JPEG: bad DC magnitude");
-              diff = extend(br.get(s), s);
+            const int bx_all = mx * bh + bx, by_all = my * bv + by;
+            if (!progressive) {  // one scan holds all: no buffer
+              block_sequential(br, k, pred[i], seq_block);
+              idct_islow(seq_block, k.q,
+                         k.plane.data() + static_cast<size_t>(by_all) * 8 *
+                                              k.stride + bx_all * 8,
+                         k.stride);
+              continue;
             }
-            pred[i] += diff;
-            block[0] = static_cast<int16_t>(pred[i]);
-            const HuffTable& at = ac[k.ac_table];
-            for (int z = 1; z < 64; ++z) {
-              const int rs = br.decode(at);
-              const int r = rs >> 4;
-              s = rs & 15;
-              if (s) {
-                z += r;
-                block[kNaturalOrder[z]] =
-                    static_cast<int16_t>(extend(br.get(s), s));
-              } else {
-                if (r != 15) break;
-                z += 15;
-              }
-            }
-            const int x0 = (mx * bh + bx) * 8, y0 = (my * bv + by) * 8;
-            idct_islow(block, qt[k.tq],
-                       k.plane.data() + static_cast<size_t>(y0) * k.stride + x0,
-                       k.stride);
+            int16_t* block = k.block(bx_all, by_all);
+            if (dc_band && ah == 0)
+              block_dc_first(br, k, pred[i], al, block);
+            else if (dc_band)
+              block[0] = static_cast<int16_t>(block[0] | (br.get(1) << al));
+            else if (ah == 0)
+              block_ac_first(br, k, ss, se, al, eobrun, block);
+            else
+              block_ac_refine(br, k, ss, se, al, eobrun, block);
           }
         }
       }
@@ -612,19 +767,55 @@ struct Jpeg {
   done:
     for (int c = 0; c < ncomp; ++c)
       if (!comp[c].seen) fail("corrupt JPEG: a component has no scan");
+    if (!progressive) return;
+    if (block_smoothing())
+      fail("progressive JPEG with unrefined low-frequency coefficients "
+           "(block smoothing) is not supported");
+    for (int c = 0; c < ncomp; ++c) {
+      Component& k = comp[c];
+      for (int by = 0; by < k.bh; ++by)
+        for (int bx = 0; bx < k.bw; ++bx)
+          idct_islow(k.block(bx, by), k.q,
+                     k.plane.data() + static_cast<size_t>(by) * 8 * k.stride +
+                         bx * 8,
+                     k.stride);
+    }
   }
 
-  void check_supported() {
-    if (!have_frame) fail("corrupt JPEG: no frame header");
-    if (ncomp == 3) {
-      bool rgb = false;
-      if (!saw_jfif && saw_adobe) rgb = adobe_transform == 0;
-      else if (!saw_jfif && !saw_adobe)
-        rgb = comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
-      if (rgb) fail("RGB (Adobe transform 0) JPEG is not supported");
-      if (saw_adobe && adobe_transform == 2)
-        fail("YCCK JPEG is not supported");
+  // whether libjpeg-turbo would smooth the blocks of this progressive file
+  // (jdcoefct.c::smoothing_ok with its SAVED_COEFS = 10)
+  bool block_smoothing() const {
+    static const int kLow[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int c = 0; c < ncomp; ++c) {
+      const Component& k = comp[c];
+      for (int i = 0; i < 10; ++i)
+        if (k.q[kLow[i]] == 0) return false;
+      if (k.coef_bits[0] < 0) return false;
+      for (int i = 1; i < 10; ++i)
+        if (k.coef_bits[i] != 0) useful = true;
     }
+    return useful;
+  }
+
+  enum class Space { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+
+  // jdapimin.c::default_decompress_parms
+  Space color_space() const {
+    if (ncomp == 1) return Space::kGray;
+    if (ncomp == 3) {
+      if (saw_jfif) return Space::kYCbCr;
+      if (saw_adobe) return adobe_transform == 0 ? Space::kRGB : Space::kYCbCr;
+      return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66
+                 ? Space::kRGB
+                 : Space::kYCbCr;
+    }
+    if (saw_adobe && adobe_transform != 0) return Space::kYCCK;
+    return Space::kCMYK;
+  }
+
+  void check_supported() const {
+    if (!have_frame) fail("corrupt JPEG: no frame header");
   }
 
   // ------------------------------------------------------- upsampling
@@ -700,9 +891,11 @@ struct Jpeg {
   // BGR rows into `out`, or gray ones (out_channels 1, one component)
   void output(uint8_t* out, int out_channels) const {
     check_factors();
+    const Space space = color_space();
     const int W = width;
     const int wide = (W + 8 * hmax) * 2;  // room for an upsampled row
-    std::vector<uint8_t> r0(wide), r1(wide), r2(wide);
+    std::vector<uint8_t> rows[4];
+    for (int c = 0; c < ncomp; ++c) rows[c].resize(wide);
     // jdcolor.c tables
     int cr_r[256], cb_b[256], cr_g[256], cb_g[256];
     constexpr int kScale = 16;
@@ -719,25 +912,55 @@ struct Jpeg {
     auto clamp = [](int v) -> uint8_t {
       return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
     };
+    // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R, one sample
+    auto ink = [](int v, int k) {
+      return static_cast<uint8_t>(k - (((255 - v) * k) >> 8));
+    };
     for (int y = 0; y < height; ++y) {
       uint8_t* o = out + static_cast<size_t>(y) * W * out_channels;
-      upsample_row(comp[0], y, r0.data());
-      if (ncomp == 1) {
-        if (out_channels == 1) {
-          std::memcpy(o, r0.data(), W);
-        } else {
-          for (int x = 0; x < W; ++x)
-            o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = r0[x];
-        }
-        continue;
-      }
-      upsample_row(comp[1], y, r1.data());
-      upsample_row(comp[2], y, r2.data());
-      for (int x = 0; x < W; ++x) {
-        const int Y = r0[x], cb = r1[x], cr = r2[x];
-        o[3 * x + 2] = clamp(Y + cr_r[cr]);
-        o[3 * x + 1] = clamp(Y + ((cb_g[cb] + cr_g[cr]) >> kScale));
-        o[3 * x + 0] = clamp(Y + cb_b[cb]);
+      for (int c = 0; c < ncomp; ++c) upsample_row(comp[c], y, rows[c].data());
+      const uint8_t *r0 = rows[0].data(), *r1 = rows[1].data(),
+                    *r2 = rows[2].data(), *r3 = rows[3].data();
+      switch (space) {
+        case Space::kGray:
+          if (out_channels == 1) {
+            std::memcpy(o, r0, W);
+          } else {
+            for (int x = 0; x < W; ++x)
+              o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = r0[x];
+          }
+          break;
+        case Space::kYCbCr:
+          for (int x = 0; x < W; ++x) {
+            const int Y = r0[x], cb = r1[x], cr = r2[x];
+            o[3 * x + 2] = clamp(Y + cr_r[cr]);
+            o[3 * x + 1] = clamp(Y + ((cb_g[cb] + cr_g[cr]) >> kScale));
+            o[3 * x + 0] = clamp(Y + cb_b[cb]);
+          }
+          break;
+        case Space::kRGB:
+          for (int x = 0; x < W; ++x) {
+            o[3 * x + 2] = r0[x];
+            o[3 * x + 1] = r1[x];
+            o[3 * x + 0] = r2[x];
+          }
+          break;
+        case Space::kCMYK:
+        case Space::kYCCK:
+          for (int x = 0; x < W; ++x) {
+            int c = r0[x], m = r1[x], yy = r2[x];
+            if (space == Space::kYCCK) {  // jdcolor.c::ycck_cmyk_convert
+              const int Y = r0[x], cb = r1[x], cr = r2[x];
+              c = clamp(255 - (Y + cr_r[cr]));
+              m = clamp(255 - (Y + ((cb_g[cb] + cr_g[cr]) >> kScale)));
+              yy = clamp(255 - (Y + cb_b[cb]));
+            }
+            const int k = r3[x];
+            o[3 * x + 2] = ink(c, k);
+            o[3 * x + 1] = ink(m, k);
+            o[3 * x + 0] = ink(yy, k);
+          }
+          break;
       }
     }
   }

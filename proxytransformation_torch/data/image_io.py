@@ -110,17 +110,27 @@ def _library() -> ctypes.CDLL:
 # --------------------------------------------------------------------------
 # JPEG
 # --------------------------------------------------------------------------
-def _check_orientation(orientation: int, flags: int) -> None:
-    """cv2 rotates an image by its EXIF orientation under IMREAD_COLOR
-    (not under IMREAD_UNCHANGED); the port refuses to differ silently."""
-    if flags == IMREAD_COLOR and orientation not in (0, 1):
-        raise ValueError(f'EXIF orientation {orientation} is not supported '
-                         'under IMREAD_COLOR (cv2 would rotate the image)')
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """`img` turned upright by its EXIF orientation as cv2.imread does
+    under IMREAD_COLOR (loadsave.cpp's ApplyExifOrientation: 2 mirrors, 3
+    turns half round, 4 flips, 5-8 transpose first and then do nothing,
+    mirror, turn half round or flip); a value outside 2-8 leaves it."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+        orientation -= 4
+    if orientation == 2:
+        img = img[:, ::-1]
+    elif orientation == 3:
+        img = img[::-1, ::-1]
+    elif orientation == 4:
+        img = img[::-1]
+    return np.ascontiguousarray(img)
 
 
 def decode_jpeg(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """JPEG bytes → BGR uint8 (H, W, 3); under IMREAD_UNCHANGED a
-    one-component image stays (H, W)."""
+    """JPEG bytes → BGR uint8 (H, W, 3), turned upright by the EXIF
+    orientation under IMREAD_COLOR; under IMREAD_UNCHANGED a one-component
+    image stays (H, W) and nothing turns."""
     lib = _library()
     buf = np.frombuffer(data, np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
@@ -130,14 +140,17 @@ def decode_jpeg(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
                          ctypes.byref(w), ctypes.byref(c),
                          ctypes.byref(orient), err, _ERR_LEN):
         raise ValueError(err.value.decode())
-    _check_orientation(orient.value, flags)
     gray = flags == IMREAD_UNCHANGED and c.value == 1
     channels = 1 if gray else 3
     out = np.empty((h.value, w.value, channels), np.uint8)
     if lib.ptt_jpeg_decode(buf.ctypes.data, len(buf), out.ctypes.data,
                            h.value, w.value, channels, err, _ERR_LEN):
         raise ValueError(err.value.decode())
-    return out[..., 0] if gray else out
+    if gray:
+        return out[..., 0]
+    if flags == IMREAD_COLOR:
+        return apply_orientation(out, orient.value)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -169,14 +182,60 @@ def _exif_orientation(payload: bytes) -> int:
     return 1
 
 
+# (x0, y0, dx, dy) of the seven Adam7 passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# the bit depths the PNG specification allows for each color type
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+
+
+def _png_samples(raw: np.ndarray, pos: int, width: int, height: int,
+                 samples: int, depth: int) -> tuple:
+    """Unfilter one image (or Adam7 pass) of `height` rows starting at
+    `raw[pos]`: (H, W, samples) samples (uint8, or uint16 at depth 16) and
+    the position after it."""
+    bits = samples * depth
+    rowbytes = (width * bits + 7) // 8
+    end = pos + height * (rowbytes + 1)
+    if end > raw.size:
+        raise ValueError('corrupt PNG: image data too short')
+    rows = np.empty(height * rowbytes, np.uint8)
+    part = np.ascontiguousarray(raw[pos:end])
+    if _library().ptt_png_unfilter(part.ctypes.data, height, rowbytes,
+                                   max(1, bits // 8), rows.ctypes.data):
+        raise ValueError('corrupt PNG: unknown filter type')
+    rows = rows.reshape(height, rowbytes)
+    if depth == 16:
+        img = rows.view('>u2').astype(np.uint16)
+    elif depth == 8:
+        img = rows
+    else:   # 1, 2, 4 bits, most significant first, rows padded to bytes
+        flat = np.unpackbits(rows, axis=1)[:, :width * samples * depth]
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        img = (flat.reshape(height, width * samples, depth)
+               * weights).sum(-1, dtype=np.uint8)
+    return img.reshape(height, width, samples), end
+
+
 def decode_png(data: bytes, flags: int = IMREAD_UNCHANGED) -> np.ndarray:
-    """PNG bytes → the array cv2.imread gives: 16-bit samples as native
-    uint16, color as BGR(A). IMREAD_COLOR gives 3 channels (gray
-    replicated, alpha dropped, 16-bit samples cut to their high byte);
-    IMREAD_UNCHANGED keeps the file's channels (gray + alpha as BGRA)."""
+    """PNG bytes → the array cv2.imread gives (libpng with OpenCV's
+    transforms).
+
+    16-bit samples come as native uint16, color as BGR(A); gray of 1, 2 or
+    4 bits is scaled to 8 (× 255, 85, 17); a palette image is its colors;
+    Adam7 is deinterlaced. IMREAD_UNCHANGED keeps the file's channels, with
+    an alpha channel where the file has one or where a tRNS chunk gives a
+    palette or RGB image one (the palette's alphas, 255 past them; 0 on the
+    RGB key color, else the maximum); a gray image's tRNS is ignored, as
+    cv2 ignores it, and gray + alpha comes as BGRA. IMREAD_COLOR gives 3
+    channels: gray replicated, alpha dropped, 16-bit samples cut to their
+    high byte, turned upright by the eXIf chunk's orientation."""
     if not data.startswith(_PNG_MAGIC):
         raise ValueError('not a PNG file')
     pos, header, idat = len(_PNG_MAGIC), None, []
+    palette = trns = None
+    orientation = 1
     while pos + 8 <= len(data):
         length, ctype = struct.unpack_from('>I4s', data, pos)
         body = data[pos + 8:pos + 8 + length]
@@ -186,49 +245,73 @@ def decode_png(data: bytes, flags: int = IMREAD_UNCHANGED) -> np.ndarray:
         elif ctype == b'IDAT':
             idat.append(body)
         elif ctype == b'PLTE':
-            raise ValueError('palette PNG is not supported')
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3]
         elif ctype == b'tRNS':
-            raise ValueError('PNG with a tRNS chunk is not supported')
+            trns = body
         elif ctype == b'eXIf':
-            _check_orientation(_exif_orientation(body), flags)
+            orientation = _exif_orientation(body)
         elif ctype == b'IEND':
             break
     if header is None:
         raise ValueError('corrupt PNG: no IHDR')
     width, height, depth, color, _, _, interlace = header
-    if interlace:
-        raise ValueError('interlaced PNG is not supported')
-    if color not in _PNG_SAMPLES:
+    if color not in _PNG_DEPTHS:
         raise ValueError(f'PNG color type {color} is not supported')
-    if depth not in (8, 16):
-        raise ValueError(f'{depth}-bit PNG is not supported')
-    samples = _PNG_SAMPLES[color]
-    bpp = samples * depth // 8
-    rowbytes = width * bpp
-    raw = zlib.decompress(b''.join(idat))
-    if len(raw) < height * (rowbytes + 1):
-        raise ValueError('corrupt PNG: image data too short')
-    raw = np.frombuffer(raw, np.uint8)
-    out = np.empty(height * rowbytes, np.uint8)
-    if _library().ptt_png_unfilter(raw.ctypes.data, height, rowbytes, bpp,
-                                   out.ctypes.data):
-        raise ValueError('corrupt PNG: unknown filter type')
-    if depth == 16:
-        img = out.view('>u2').astype(np.uint16)
+    if depth not in _PNG_DEPTHS[color]:
+        raise ValueError(f'{depth}-bit PNG of color type {color} is not '
+                         'supported')
+    if interlace > 1:
+        raise ValueError(f'PNG interlace method {interlace} is not supported')
+    if color == 3 and palette is None:
+        raise ValueError('corrupt PNG: palette image without PLTE')
+    # libpng drops a tRNS chunk of the wrong size (png_handle_tRNS): a gray
+    # or RGB key is one 16-bit sample a channel, a palette's alphas are at
+    # most one an entry
+    if trns is not None and not (
+            len(trns) == 2 if color == 0 else len(trns) == 6 if color == 2
+            else color == 3 and 0 < len(trns) <= palette.size // 3):
+        trns = None
+    samples = 1 if color == 3 else _PNG_SAMPLES[color]
+    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+    if not interlace:
+        img, _ = _png_samples(raw, 0, width, height, samples, depth)
     else:
-        img = out
-    img = img.reshape(height, width, samples)
+        img = np.empty((height, width, samples),
+                       np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if pw > 0 and ph > 0:
+                img[y0::dy, x0::dx], at = _png_samples(raw, at, pw, ph,
+                                                       samples, depth)
+    if color == 3:   # palette: colors (and alphas) of the indices
+        lut = np.zeros((256, 4), np.uint8)
+        lut[:, 3] = 255
+        lut[:palette.size // 3, :3] = palette.reshape(-1, 3)
+        alpha = trns is not None
+        if alpha:
+            lut[:len(trns), 3] = np.frombuffer(trns, np.uint8)
+        img = lut[img[..., 0], :4 if alpha else 3]
+    elif color == 0 and depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    elif color == 2 and trns is not None:
+        key = np.frombuffer(trns, '>u2').astype(img.dtype)
+        top = 65535 if depth == 16 else 255
+        img = np.concatenate([img, np.where(
+            (img == key).all(-1, keepdims=True), 0, top).astype(img.dtype)],
+            -1)
+    channels = img.shape[-1]
     if flags == IMREAD_COLOR:
         if depth == 16:
             img = (img >> 8).astype(np.uint8)
-        if samples <= 2:
-            return np.repeat(img[..., :1], 3, axis=2)
-        return np.ascontiguousarray(img[..., 2::-1])
-    if samples == 1:
+        img = (np.repeat(img[..., :1], 3, axis=2) if channels <= 2
+               else img[..., 2::-1])
+        return apply_orientation(img, orientation)
+    if channels == 1:
         return img[..., 0]
-    if samples == 2:   # gray + alpha → BGRA
+    if channels == 2:   # gray + alpha → BGRA
         return np.ascontiguousarray(img[..., [0, 0, 0, 1]])
-    order = [2, 1, 0] if samples == 3 else [2, 1, 0, 3]
+    order = [2, 1, 0] if channels == 3 else [2, 1, 0, 3]
     return np.ascontiguousarray(img[..., order])
 
 
@@ -265,6 +348,116 @@ def write_png(path, img: np.ndarray) -> None:
 
 
 # --------------------------------------------------------------------------
+# Netpbm (PBM / PGM / PPM)
+# --------------------------------------------------------------------------
+_PNM_SPACE = frozenset(b' \t\n\v\f\r')
+
+
+class _PnmReader:
+    """cv2's PxM byte stream: `number` is grfmt_pxm.cpp's ReadNumber
+    (comments to the end of the line and whitespace skipped, anything
+    else refused; the byte after the digits is consumed unless `digits`
+    stopped it)."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise ValueError('corrupt PNM: truncated')
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def number(self, digits: int = 0) -> int:
+        code = self.byte()
+        while not 48 <= code <= 57:
+            if code == 35:   # '#': a comment to the end of the line
+                while code not in (10, 13):
+                    code = self.byte()
+                code = self.byte()
+            elif code in _PNM_SPACE:
+                while code in _PNM_SPACE:
+                    code = self.byte()
+            else:
+                raise ValueError(f'corrupt PNM: unexpected byte {code:#x}')
+        val, n = 0, 0
+        while True:
+            val = val * 10 + code - 48
+            if val > 2**31 - 1:
+                raise ValueError('corrupt PNM: number too large')
+            n += 1
+            if digits and n >= digits:
+                break
+            code = self.byte()
+            if not 48 <= code <= 57:
+                break
+        return val
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError('corrupt PNM: truncated')
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+
+def decode_pnm(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """P1-P6 bytes → the array cv2.imdecode gives (grfmt_pxm.cpp).
+
+    IMREAD_UNCHANGED: bitmaps (P1 / P4) as uint8 gray, 0 → 255 and 1 → 0;
+    gray maps (P2 / P5) and pixmaps (P3 / P6) as uint8 when maxval ≤ 255,
+    else uint16 (big-endian samples, whatever the maxval), pixmaps in BGR
+    order. Binary samples are taken as stored; ASCII samples are clamped to
+    maxval, and 8-bit ones scaled to 255 (`v * 255 // maxval`).
+    IMREAD_COLOR: 3 channels of uint8, 16-bit samples cut to their high
+    byte, gray replicated."""
+    if len(data) < 2 or data[0] != 0x50 or not 0x31 <= data[1] <= 0x36:
+        raise ValueError('not a PNM file')
+    kind = data[1] - 0x30
+    binary = kind >= 4
+    bits = {1: 1, 2: 8, 3: 24}[kind - 3 if binary else kind]
+    r = _PnmReader(data, 2)
+    width, height = r.number(), r.number()
+    maxval = r.number() if bits > 1 else 1
+    if maxval > 65535:
+        raise ValueError(f'corrupt PNM: maxval {maxval} above 65535')
+    if width <= 0 or height <= 0 or maxval <= 0:
+        raise ValueError(f'corrupt PNM: {width}x{height}, maxval {maxval}')
+    channels = 3 if bits == 24 else 1
+    count = width * height * channels
+    if bits == 1:
+        if binary:
+            pitch = (width + 7) // 8
+            raw = np.frombuffer(r.take(pitch * height), np.uint8)
+            ones = np.unpackbits(raw.reshape(height, pitch), axis=1,
+                                 count=width)
+        else:
+            ones = np.array([r.number(1) != 0 for _ in range(count)],
+                            np.uint8).reshape(height, width)
+        img = np.where(ones != 0, 0, 255).astype(np.uint8)
+    else:
+        wide = maxval > 255
+        if binary:
+            size = 2 if wide else 1
+            raw = r.take(count * size)
+            img = (np.frombuffer(raw, '>u2').astype(np.uint16) if wide
+                   else np.frombuffer(raw, np.uint8).copy())
+        else:
+            img = np.minimum([r.number() for _ in range(count)], maxval)
+            img = (img.astype(np.uint16) if wide
+                   else (img * 255 // maxval).astype(np.uint8))
+        img = img.reshape(height, width, channels)
+        if channels == 3:
+            img = np.ascontiguousarray(img[..., ::-1])
+        if flags == IMREAD_COLOR and wide:
+            img = (img >> 8).astype(np.uint8)
+        if channels == 1:
+            img = img[..., 0]
+    if flags == IMREAD_COLOR and img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    return img
+
+
+# --------------------------------------------------------------------------
 def decode(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     """Image bytes → array, by the magic bytes (cv2.imdecode), for
     IMREAD_COLOR or IMREAD_UNCHANGED."""
@@ -275,7 +468,10 @@ def decode(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
         return decode_jpeg(data, flags)
     if data.startswith(_PNG_MAGIC):
         return decode_png(data, flags)
-    raise ValueError('unknown image format (neither JPEG nor PNG)')
+    if (len(data) > 2 and data[0] == 0x50 and 0x31 <= data[1] <= 0x36
+            and data[2] in _PNM_SPACE):
+        return decode_pnm(data, flags)
+    raise ValueError('unknown image format (not JPEG, PNG or PNM)')
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:

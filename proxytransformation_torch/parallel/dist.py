@@ -10,7 +10,8 @@ and normalisers per rank), so the port builds those semantics here:
 
 - topology: one process is one rank on one device, and a node's ranks
   together are one JAX host. torchrun's `RANK`, `WORLD_SIZE`,
-  `LOCAL_RANK`, `LOCAL_WORLD_SIZE` and `GROUP_RANK` give the context; the
+  `LOCAL_RANK`, `LOCAL_WORLD_SIZE` and `GROUP_RANK` give the context (or
+  SLURM's and Open MPI's variables, `slurm_context` / `mpi_context`); the
   loader is sharded by node and each local rank takes its contiguous
   slice of the node's batch (`shard_batch` puts that slice on device r);
 - `all_reduce_sum`: a differentiable sum over ranks, whose backward sums
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import re
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -94,6 +96,108 @@ def env_context() -> DistContext:
             f'LOCAL_WORLD_SIZE={local_world} GROUP_RANK={node}: the port '
             'runs the same number of ranks on every node')
     return DistContext(world, rank, local_rank, local_world, node)
+
+
+# SLURM's and Open MPI's variables (the ones jax.distributed.initialize's
+# cluster detection reads, jax/_src/clusters/{slurm,ompi}_cluster.py, and
+# the node count and index the port's homogeneity rule needs)
+_SLURM_KEYS = ('SLURM_JOB_ID', 'SLURM_STEP_NODELIST', 'SLURM_NTASKS',
+               'SLURM_PROCID', 'SLURM_LOCALID', 'SLURM_STEP_NUM_NODES',
+               'SLURM_NODEID')
+_OMPI_KEYS = ('OMPI_MCA_orte_hnp_uri', 'OMPI_COMM_WORLD_SIZE',
+              'OMPI_COMM_WORLD_RANK', 'OMPI_COMM_WORLD_LOCAL_RANK',
+              'OMPI_COMM_WORLD_LOCAL_SIZE')
+# JAX's coordinator port range when none is named: [65535 - 2^12 + 1, 65535]
+_PORT_BASE = 65535 - 2**12 + 1
+_RUNNERS = {'slurm': 'srun', 'mpi': 'mpirun'}
+
+
+def _require(keys: Sequence[str], launcher: str) -> Dict[str, str]:
+    missing = [k for k in keys if k not in os.environ]
+    if missing:
+        raise RuntimeError(f'--launcher {launcher}: {missing} not set (run '
+                           f'the command under {_RUNNERS[launcher]})')
+    return {k: os.environ[k] for k in keys}
+
+
+def first_slurm_host(node_list: str) -> str:
+    """The first host of a SLURM node list ('node001', 'node001,host2',
+    'node[001-015],host2', 'node[001,007-015]'), parsed as JAX's
+    `SlurmCluster.get_coordinator_address` parses it, without `scontrol`
+    (the closing bracket of a one-host range such as 'node[7]' is
+    dropped, where JAX keeps it)."""
+    cut = next((i for i, ch in enumerate(node_list) if ch in ',['),
+               len(node_list))
+    if cut == len(node_list) or node_list[cut] == ',':
+        return node_list[:cut]
+    rest = node_list[cut + 1:]
+    end = next((i for i, ch in enumerate(rest) if ch in ',-]'), len(rest))
+    return node_list[:cut] + rest[:end]
+
+
+def _coordinator_port(job_id: int) -> int:
+    """`MASTER_PORT` where it is set, else the port JAX derives from the
+    job id (every task of the job computes the same one)."""
+    if 'MASTER_PORT' in os.environ:
+        return int(os.environ['MASTER_PORT'])
+    return job_id % 2**12 + _PORT_BASE
+
+
+def _homogeneous(world: int, rank: int, local_rank: int, local_world: int,
+                 node: int, names: str) -> DistContext:
+    if (local_world < 1 or world % local_world
+            or rank != node * local_world + local_rank):
+        raise RuntimeError(
+            f'{names} = {world}, {rank}, {local_rank}, {local_world}, '
+            f'{node}: the port runs the same number of ranks on every node, '
+            'a node\'s ranks numbered contiguously')
+    return DistContext(world, rank, local_rank, local_world, node)
+
+
+def slurm_context() -> Tuple[DistContext, str]:
+    """(context, coordinator 'host:port') of a task started by `srun`:
+    rank `SLURM_PROCID` of `SLURM_NTASKS`, local rank `SLURM_LOCALID` on
+    node `SLURM_NODEID` of `SLURM_STEP_NUM_NODES`; the coordinator is the
+    first host of `SLURM_STEP_NODELIST` at `MASTER_PORT`, else at JAX's
+    port for the job, `SLURM_JOB_ID` mod 4096 + 61440. A missing variable
+    raises and names itself."""
+    env = _require(_SLURM_KEYS, 'slurm')
+    world, nodes = int(env['SLURM_NTASKS']), int(env['SLURM_STEP_NUM_NODES'])
+    ctx = _homogeneous(
+        world, int(env['SLURM_PROCID']), int(env['SLURM_LOCALID']),
+        world // nodes if nodes > 0 and world % nodes == 0 else 0,
+        int(env['SLURM_NODEID']), 'SLURM_NTASKS, SLURM_PROCID, '
+        'SLURM_LOCALID, ranks a node, SLURM_NODEID')
+    host = first_slurm_host(env['SLURM_STEP_NODELIST'])
+    return ctx, f'{host}:{_coordinator_port(int(env["SLURM_JOB_ID"]))}'
+
+
+def mpi_context() -> Tuple[DistContext, str]:
+    """(context, coordinator 'host:port') of a process started by Open
+    MPI's `mpirun`: rank `OMPI_COMM_WORLD_RANK` of `OMPI_COMM_WORLD_SIZE`,
+    local rank `OMPI_COMM_WORLD_LOCAL_RANK` of `OMPI_COMM_WORLD_LOCAL_SIZE`
+    (node = rank // local size); the coordinator is the launcher's address
+    in `OMPI_MCA_orte_hnp_uri` at `MASTER_PORT`, else at JAX's port for the
+    job, (job id // 4096) mod 4096 + 61440. A missing variable raises and
+    names itself."""
+    env = _require(_OMPI_KEYS, 'mpi')
+    world, rank = (int(env['OMPI_COMM_WORLD_SIZE']),
+                   int(env['OMPI_COMM_WORLD_RANK']))
+    local_world = int(env['OMPI_COMM_WORLD_LOCAL_SIZE'])
+    ctx = _homogeneous(
+        world, rank, int(env['OMPI_COMM_WORLD_LOCAL_RANK']), local_world,
+        rank // max(local_world, 1), 'OMPI_COMM_WORLD_{SIZE, RANK, '
+        'LOCAL_RANK, LOCAL_SIZE}, node')
+    uri = env['OMPI_MCA_orte_hnp_uri']
+    found = re.search(r'tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]', uri)
+    if found is None:
+        raise RuntimeError(f'--launcher mpi: no launcher address in '
+                           f'OMPI_MCA_orte_hnp_uri={uri!r}')
+    host = next(g for g in found.groups() if g is not None)
+    if ':' in host:   # an IPv6 address
+        host = f'[{host}]'
+    job = int(uri.split('.', 1)[0]) // 2**12
+    return ctx, f'{host}:{_coordinator_port(job)}'
 
 
 def context() -> DistContext:

@@ -7,7 +7,17 @@ tools/train.py:51-54; the JAX CLIs keep the flag, tools/train.py:30-45).
   proxytransformation_torch.tools.train CONFIG --launcher pytorch`), with
   the backend, timeout and rendezvous of the config's
   `env_cfg.dist_cfg` (mmengine's key; backend default `nccl`);
-- `slurm`, `mpi`: raise.
+- `slurm`: a task of `srun` (`srun -N NODES --ntasks-per-node N python -m
+  proxytransformation_torch.tools.train CONFIG --launcher slurm`), its
+  rank, world and local rank from SLURM's environment as
+  `jax.distributed.initialize()` detects them (`dist.slurm_context`);
+- `mpi`: a process of Open MPI's `mpirun` (`dist.mpi_context`).
+
+Under `slurm` and `mpi` the rendezvous is `tcp://` at the coordinator,
+the first host of the job at `MASTER_PORT` (else the port JAX derives from
+the job id), unless `env_cfg.dist_cfg.init_method` names another. A
+variable the launcher needs and does not find raises and names itself;
+nothing falls back to one process.
 
 Each rank runs on `--device`, by default `cuda:{LOCAL_RANK}`. NCCL needs
 a card of its own for every rank of a node: a CPU device, one named
@@ -22,10 +32,12 @@ from typing import Any, Dict, Iterator, Optional
 import torch
 
 from .dist import (DEFAULT_TIMEOUT_S, DistContext, destroy_process_group,
-                   env_context, init_process_group)
+                   env_context, init_process_group, mpi_context,
+                   slurm_context)
 
 LAUNCHERS = ('none', 'pytorch', 'slurm', 'mpi')
 _DIST_CFG_KEYS = {'backend', 'timeout', 'init_method'}
+_CLUSTERS = {'slurm': slurm_context, 'mpi': mpi_context}
 _GLOO_OPTION = '--cfg-options env_cfg.dist_cfg.backend=gloo'
 
 
@@ -38,7 +50,19 @@ def dist_cfg_of(cfg) -> Dict[str, Any]:
                                   f'port takes {sorted(_DIST_CFG_KEYS)}')
     return dict(backend=dist_cfg.get('backend', 'nccl'),
                 timeout=float(dist_cfg.get('timeout', DEFAULT_TIMEOUT_S)),
-                init_method=dist_cfg.get('init_method', 'env://'))
+                init_method=dist_cfg.get('init_method'))
+
+
+def launcher_context(launcher: str, cfg) -> tuple:
+    """(context, rendezvous) of `launcher` ('pytorch', 'slurm' or 'mpi')
+    from this process's environment; the config's `init_method` wins over
+    the launcher's own (`env://` for torchrun, `tcp://` at the coordinator
+    for SLURM and Open MPI)."""
+    named = dist_cfg_of(cfg)['init_method']
+    if launcher == 'pytorch':
+        return env_context(), named or 'env://'
+    ctx, coordinator = _CLUSTERS[launcher]()
+    return ctx, named or f'tcp://{coordinator}'
 
 
 def rank_device(ctx: DistContext, device: Optional[str], backend: str
@@ -76,22 +100,17 @@ def launched(launcher: str, cfg, device: Optional[str]
     if launcher in ('none', ''):
         yield device
         return
-    if launcher in ('slurm', 'mpi'):
-        raise NotImplementedError(
-            f'--launcher {launcher}: the port starts its ranks with '
-            'python -m torch.distributed.run and --launcher pytorch')
-    if launcher != 'pytorch':
+    if launcher not in LAUNCHERS:
         raise ValueError(f'--launcher {launcher!r}: one of {LAUNCHERS}')
     if torch.distributed.is_initialized():
         yield device
         return
-    ctx = env_context()
+    ctx, init_method = launcher_context(launcher, cfg)
     opts = dist_cfg_of(cfg)
     rank_dev = rank_device(ctx, device, opts['backend'])
     if rank_dev.startswith('cuda') and torch.cuda.is_available():
         torch.cuda.set_device(rank_dev)
-    init_process_group(ctx, opts['backend'], opts['init_method'],
-                       opts['timeout'])
+    init_process_group(ctx, opts['backend'], init_method, opts['timeout'])
     try:
         yield rank_dev
     finally:

@@ -3,7 +3,7 @@ its metric through the Runner, on the weights of `--resume`.
 
     python -m proxytransformation_torch.tools.eval CONFIG
         [--resume CHECKPOINT] [--work-dir DIR] [--device cpu|cuda]
-        [--launcher none|pytorch] [--cfg-options k=v ...]
+        [--launcher none|pytorch|slurm|mpi] [--cfg-options k=v ...]
 """
 from __future__ import annotations
 
@@ -24,12 +24,13 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help='checkpoint to load weights from')
     parser.add_argument('--device', default=None,
                         help='torch device; default: the card (with '
-                             '--launcher pytorch: cuda:LOCAL_RANK)')
+                             'a launcher: cuda:LOCAL_RANK)')
     parser.add_argument('--launcher', choices=LAUNCHERS, default='none',
                         help='job launcher: pytorch joins the process '
-                             'group of python -m torch.distributed.run '
-                             '(backend: env_cfg.dist_cfg.backend, default '
-                             'nccl)')
+                             'group of python -m torch.distributed.run, '
+                             'slurm that of srun\'s tasks, mpi that of '
+                             'Open MPI\'s mpirun (backend: '
+                             'env_cfg.dist_cfg.backend, default nccl)')
     parser.add_argument('--use_wandb', action='store_true')
     parser.add_argument('--cfg-options', nargs='+', default=[])
     return parser.parse_args(argv)

@@ -6,7 +6,7 @@ the augmented copies of the config's `tta_cfg` and merges them
 
     python -m proxytransformation_torch.tools.test CONFIG [CHECKPOINT]
         [--work-dir DIR] [--tta] [--device cpu|cuda]
-        [--launcher none|pytorch] [--cfg-options k=v ...]
+        [--launcher none|pytorch|slurm|mpi] [--cfg-options k=v ...]
 
 Under `--launcher pytorch` the ranks predict the loader's batches in
 turn and rank 0 scores them all and writes the result files.
@@ -32,12 +32,13 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help='test-time augmentation (grounding only)')
     parser.add_argument('--device', default=None,
                         help='torch device; default: the card (with '
-                             '--launcher pytorch: cuda:LOCAL_RANK)')
+                             'a launcher: cuda:LOCAL_RANK)')
     parser.add_argument('--launcher', choices=LAUNCHERS, default='none',
                         help='job launcher: pytorch joins the process '
-                             'group of python -m torch.distributed.run '
-                             '(backend: env_cfg.dist_cfg.backend, default '
-                             'nccl)')
+                             'group of python -m torch.distributed.run, '
+                             'slurm that of srun\'s tasks, mpi that of '
+                             'Open MPI\'s mpirun (backend: '
+                             'env_cfg.dist_cfg.backend, default nccl)')
     parser.add_argument('--cfg-options', nargs='+', default=[])
     return parser.parse_args(argv)
 

@@ -2,7 +2,7 @@
 
     python -m proxytransformation_torch.tools.train CONFIG [--work-dir DIR]
         [--resume [auto|PATH]] [--amp] [--device cpu|cuda]
-        [--launcher none|pytorch] [--cfg-options k=v ...]
+        [--launcher none|pytorch|slurm|mpi] [--cfg-options k=v ...]
 
 Without `--device` it runs on the card and raises when there is none.
 `main(argv)` returns the Runner, for callers in the same process.
@@ -12,6 +12,13 @@ Data-parallel, one rank a process (`parallel/`):
     python -m torch.distributed.run --nproc_per_node N \
         -m proxytransformation_torch.tools.train CONFIG --launcher pytorch
         [--device cpu --cfg-options env_cfg.dist_cfg.backend=gloo]
+
+or on a SLURM cluster (Open MPI: `mpirun ... --launcher mpi`), one task
+a card, the rendezvous at the first node's `MASTER_PORT` (else a port
+derived from the job id):
+
+    srun -N NODES --ntasks-per-node N python -m \
+        proxytransformation_torch.tools.train CONFIG --launcher slurm
 
 The config's batch size is a node's, split over its ranks.
 """
@@ -39,12 +46,13 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              'statistics and losses stay float32')
     parser.add_argument('--device', default=None,
                         help='torch device; default: the card (with '
-                             '--launcher pytorch: cuda:LOCAL_RANK)')
+                             'a launcher: cuda:LOCAL_RANK)')
     parser.add_argument('--launcher', choices=LAUNCHERS, default='none',
                         help='job launcher: pytorch joins the process '
-                             'group of python -m torch.distributed.run '
-                             '(backend: env_cfg.dist_cfg.backend, default '
-                             'nccl)')
+                             'group of python -m torch.distributed.run, '
+                             'slurm that of srun\'s tasks, mpi that of '
+                             'Open MPI\'s mpirun (backend: '
+                             'env_cfg.dist_cfg.backend, default nccl)')
     parser.add_argument('--use_wandb', action='store_true')
     parser.add_argument('--cfg-options', nargs='+', default=[])
     return parser.parse_args(argv)

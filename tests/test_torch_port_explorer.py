@@ -35,7 +35,7 @@ def two_threads():
 def explorers(tmp_path_factory):
     """(port, jax, save dirs): both explorers on the same infos pkl."""
     tmp = tmp_path_factory.mktemp('explorer')
-    root = make_dataset(tmp / 'data')
+    root = make_dataset(tmp / 'data', rscan=False)
     with open(os.path.join(root, 'mini_infos_ext.pkl'), 'rb') as f:
         infos = pickle.load(f)
     # the explorer reads absolute paths; the tree holds relative ones

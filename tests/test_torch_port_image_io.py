@@ -23,6 +23,7 @@ import pytest
 
 from proxytransformation_torch.data import image_io
 from proxytransformation_torch.data.resize import resize_bilinear_u8
+from proxytransformation_torch.tools.make_image_fixtures import png_bytes
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / 'tests' / 'torch_port_images'
@@ -149,18 +150,23 @@ def _with_exif_orientation(jpeg: bytes, orientation: int) -> bytes:
 
 
 def test_jpeg_refuses_what_it_does_not_decode():
+    """A lossless frame raises naming itself, and bytes that are no JPEG
+    raise. A progressive JPEG and an EXIF orientation, refused before,
+    now decode as cv2 decodes them: under IMREAD_COLOR cv2 turns the
+    image by its orientation, and so does the port; under
+    IMREAD_UNCHANGED both ignore the tag (the other refused forms:
+    tests/test_torch_port_image_formats.py)."""
     img = textured(40, 56, 4)
     ok, prog = cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match='progressive'):
-        image_io.decode(prog.tobytes())
+    assert_same(image_io.decode(prog.tobytes()),
+                cv2.imdecode(prog, cv2.IMREAD_COLOR))
     ok, enc = cv2.imencode('.jpg', img)
     rotated = _with_exif_orientation(enc.tobytes(), 6)
-    # under IMREAD_COLOR cv2 rotates such an image, and the decoder refuses
-    # it; under IMREAD_UNCHANGED cv2 ignores the tag, and so does the port
     assert cv2.imdecode(np.frombuffer(rotated, np.uint8),
                         cv2.IMREAD_COLOR).shape == (56, 40, 3)
-    with pytest.raises(ValueError, match='EXIF orientation 6'):
-        image_io.decode(rotated)
+    assert_same(image_io.decode(rotated),
+                cv2.imdecode(np.frombuffer(rotated, np.uint8),
+                             cv2.IMREAD_COLOR))
     assert_same(image_io.decode(rotated, cv2.IMREAD_UNCHANGED),
                 cv2.imdecode(np.frombuffer(rotated, np.uint8),
                              cv2.IMREAD_UNCHANGED))
@@ -168,6 +174,10 @@ def test_jpeg_refuses_what_it_does_not_decode():
     assert_same(image_io.decode(upright),
                 cv2.imdecode(np.frombuffer(upright, np.uint8),
                              cv2.IMREAD_COLOR))
+    sof = enc.tobytes().index(b'\xff\xc0')
+    lossless = enc.tobytes()[:sof + 1] + b'\xc3' + enc.tobytes()[sof + 2:]
+    with pytest.raises(ValueError, match='lossless'):
+        image_io.decode(lossless)
     with pytest.raises(ValueError, match='not a JPEG'):
         image_io.decode_jpeg(b'\x89PNG')
 
@@ -239,21 +249,33 @@ def test_png_written_by_cv2_matches(level):
 
 
 def test_png_refuses_interlaced_palette_and_rotation():
+    """Interlaced, palette and rotated PNGs, refused before, now decode as
+    cv2 decodes them (a palette is expanded to its colors, Adam7 is
+    deinterlaced, an eXIf orientation turns the image under
+    IMREAD_COLOR only); an unknown interlace method still raises (every
+    form: tests/test_torch_port_image_formats.py)."""
     arr = np.arange(60, dtype=np.uint8).reshape(6, 10)
-    with pytest.raises(ValueError, match='interlaced'):
-        image_io.decode(png_by_hand(arr, 0, 8, 0, interlace=1))
+    interlaced = png_bytes(arr[..., None], 8, 0, adam7=True)
     plain = png_by_hand(arr, 0, 8, 0)
+    for flag in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_COLOR):
+        assert_same(image_io.decode(interlaced, flag),
+                    cv2.imdecode(np.frombuffer(interlaced, np.uint8), flag))
+    with pytest.raises(ValueError, match='interlace method 2'):
+        image_io.decode(png_by_hand(arr, 0, 8, 0, interlace=2))
     cut = 8 + 25    # chunks after IHDR
-    palette = plain[:cut] + _chunk(b'PLTE', bytes(range(12))) + plain[cut:]
-    with pytest.raises(ValueError, match='palette'):
-        image_io.decode(palette)
+    ihdr = plain[:cut].replace(
+        struct.pack('>BB', 8, 0), struct.pack('>BB', 8, 3), 1)
+    ihdr = ihdr[:cut - 4] + struct.pack('>I', zlib.crc32(ihdr[12:cut - 4]))
+    palette = (ihdr + _chunk(b'PLTE', bytes(range(180)))
+               + _chunk(b'tRNS', bytes(range(0, 250, 25))) + plain[cut:])
+    for flag in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_COLOR):
+        assert_same(image_io.decode(palette, flag),
+                    cv2.imdecode(np.frombuffer(palette, np.uint8), flag))
     rotated = plain[:cut] + _chunk(b'eXIf', _exif_tiff(6)) + plain[cut:]
     buf = np.frombuffer(rotated, np.uint8)
     assert cv2.imdecode(buf, cv2.IMREAD_COLOR).shape == (10, 6, 3)
-    with pytest.raises(ValueError, match='EXIF orientation 6'):
-        image_io.decode(rotated, cv2.IMREAD_COLOR)
-    assert_same(image_io.decode(rotated, cv2.IMREAD_UNCHANGED),
-                cv2.imdecode(buf, cv2.IMREAD_UNCHANGED))
+    for flag in (cv2.IMREAD_UNCHANGED, cv2.IMREAD_COLOR):
+        assert_same(image_io.decode(rotated, flag), cv2.imdecode(buf, flag))
 
 
 # --------------------------------------------------------------------------

@@ -34,6 +34,9 @@ of the global loss times the world size (local_sum over the synced
 count / world), and the rank mean of the weight gradients is the global
 loss's gradient.
 """
+import contextlib
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -195,14 +198,43 @@ def _one_process_fcaf3d(case):
                 grads={k: v.grad.numpy() for k, v in leaves.items()})
 
 
+@contextlib.contextmanager
+def reference_state():
+    """The process state this file's one-process and JAX references run
+    in, set here instead of inherited from the test files an xdist worker
+    ran before: two torch threads, denormals not flushed, float32 as the
+    default dtype, torch's and numpy's global generators seeded 0; all
+    restored on exit."""
+    saved = (torch.get_num_threads(), torch.get_default_dtype(),
+             torch.random.get_rng_state(), np.random.get_state())
+    torch.set_num_threads(2)
+    torch.set_flush_denormal(False)
+    torch.set_default_dtype(torch.float32)
+    torch.manual_seed(0)
+    np.random.seed(0)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved[0])
+        torch.set_default_dtype(saved[1])
+        torch.random.set_rng_state(saved[2])
+        np.random.set_state(saved[3])
+
+
 @pytest.fixture(scope='module')
 def rank_runs(tmp_path_factory):
     """Every 2-rank run of this file in one spawn (`workers.run_jobs`):
     the small checks, the grounder's free-running steps and its second
     step from the JAX package's state, and the detector's steps; their
     inputs and the JAX records come first, and the one-process runs they
-    are held against run here while the ranks work."""
-    torch.set_num_threads(2)
+    are held against run here while the ranks work, in `reference_state`
+    and each on its own deep copy of its inputs (no run can change what
+    another reads)."""
+    with reference_state():
+        return _rank_runs(tmp_path_factory)
+
+
+def _rank_runs(tmp_path_factory):
     rng = np.random.RandomState(0)
     cases = {kind: _norm_inputs(kind, rng) for kind in ('flax', 'masked')}
     cases['grounding'] = _grounding_inputs(rng)
@@ -211,12 +243,13 @@ def rank_runs(tmp_path_factory):
     batch = global_batch()
     mp = pytest.MonkeyPatch()
     try:
-        want, masks, jseen = run_jax(sd, batch, 2, mp, mesh=make_mesh(WORLD))
+        want, masks, jseen = run_jax(*copy.deepcopy((sd, batch)), 2, mp,
+                                     mesh=make_mesh(WORLD))
     finally:
         mp.undo()
     parts = [det_batch(seed) for seed in (0, 1)]
     det = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    det_one = workers.detector_steps(None, TINY_DET, det)
+    det_one = workers.detector_steps(None, TINY_DET, copy.deepcopy(det))
     jobs = [('small', workers.small_checks, (cases, )),
             ('free', workers.grounder_steps, (TINY, sd, batch, masks, 2)),
             # the second step again, from the JAX package's state after
@@ -230,13 +263,16 @@ def rank_runs(tmp_path_factory):
     handle = workers.start_ranks(workers.run_jobs, WORLD,
                                  tmp_path_factory.mktemp('ranks'), jobs)
     try:
+        cases = copy.deepcopy(cases)
         one = {kind: _one_process_norm(kind, *cases[kind])
                for kind in ('flax', 'masked')}
         one['grounding'] = _one_process_grounding(cases['grounding'])
         one['fcaf3d'] = _one_process_fcaf3d(cases['fcaf3d'])
-        grounder, one_seen, _, _ = run_port(sd, batch, masks, 2)
-        forced, _, _, _ = run_port(want[0]['state'], batch, masks, 1,
-                                   adam=want[0])
+        grounder, one_seen, _, _ = run_port(
+            *copy.deepcopy((sd, batch, masks)), 2)
+        forced, _, _, _ = run_port(
+            *copy.deepcopy((want[0]['state'], batch, masks)), 1,
+            adam=copy.deepcopy(want[0]))
     finally:
         ranks = workers.join_ranks(handle, timeout=600.0)
     return dict(ranks=ranks, one=one, sd=sd, want=want, masks=masks,

@@ -8,9 +8,12 @@ epoch of 4 steps at the config's B=2 (1 a rank) with a mid-epoch
 checkpoint, written by rank 0 alone; its `val_results.json` equal to the
 one-process run's; `--resume auto` from the mid-epoch checkpoint
 bit-equal to the uninterrupted 2-rank run; `tools.test` on 2 ranks
-dumping the same boxes in the same order as on one process. And what
-raises: a batch the ranks do not divide, NCCL with two ranks on one
-device or on the CPU, `--launcher slurm` / `mpi`. Occupancy on 2 ranks
+dumping the same boxes in the same order as on one process; the same
+epoch started through `--launcher slurm` from SLURM's environment (two
+tasks on one node, a `tcp://` rendezvous at `MASTER_PORT`) bit-equal to
+the `--launcher pytorch` run. And what raises: a batch the ranks do not
+divide, NCCL with two ranks on one device or on the CPU, `--launcher
+slurm` / `mpi` without their environment. Occupancy on 2 ranks
 (both predictors through the Runner, in the spawn that checks what
 raises) against one process: the step to float32 rounding, the ranks'
 states bit-equal, val_results.json equal.
@@ -18,6 +21,7 @@ states bit-equal, val_results.json equal.
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -50,20 +54,39 @@ def two_threads():
     torch.set_num_threads(n)
 
 
-def start(tool, args, options, tmp, world=WORLD):
+def free_port():
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def start(tool, args, options, tmp, world=WORLD, launcher='pytorch'):
     """`tools.<tool> args --launcher pytorch --device cpu` started on
     `world` gloo ranks (a rendezvous file of its own in `tmp`); returns
-    the rank processes for `finish`."""
+    the rank processes for `finish`. `launcher='slurm'`: the ranks are
+    the tasks of a one-node SLURM step instead, meeting over tcp:// at
+    localhost's MASTER_PORT."""
     rdv = Path(tempfile.mkdtemp(prefix=f'{tool}_', dir=tmp)) / 'rendezvous'
+    port = free_port()
     procs = []
     for rank in range(world):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                   GROUP_RANK='0', OMP_NUM_THREADS='2', MKL_NUM_THREADS='2')
+        if launcher == 'slurm':
+            ranks = dict(SLURM_JOB_ID='4182391',
+                         SLURM_STEP_NODELIST='localhost',
+                         SLURM_NTASKS=str(world), SLURM_PROCID=str(rank),
+                         SLURM_LOCALID=str(rank), SLURM_STEP_NUM_NODES='1',
+                         SLURM_NODEID='0', MASTER_PORT=str(port))
+            meet = []
+        else:
+            ranks = dict(RANK=str(rank), WORLD_SIZE=str(world),
+                         LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                         GROUP_RANK='0')
+            meet = [f'env_cfg.dist_cfg.init_method=file://{rdv}']
+        env = dict(os.environ, OMP_NUM_THREADS='2', MKL_NUM_THREADS='2',
+                   **ranks)
         cmd = [sys.executable, '-m', f'proxytransformation_torch.tools.{tool}',
-               *args, '--launcher', 'pytorch', '--device', 'cpu',
-               '--cfg-options', 'env_cfg.dist_cfg.backend=gloo',
-               f'env_cfg.dist_cfg.init_method=file://{rdv}',
+               *args, '--launcher', launcher, '--device', 'cpu',
+               '--cfg-options', 'env_cfg.dist_cfg.backend=gloo', *meet,
                'env_cfg.dist_cfg.timeout=60', *options]
         procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
                                       stdout=subprocess.DEVNULL,
@@ -116,11 +139,17 @@ def runs(tmp_path_factory):
     torch.set_num_threads(2)
     tmp = tmp_path_factory.mktemp('dp_runner')
     one, two, resumed = tmp / 'one', tmp / 'two', tmp / 'resumed'
+    slurm = tmp / 'slurm'
     train_two = start('train', [SMOKE, '--work-dir', str(two)], MID, tmp)
+    train_slurm = start('train', [SMOKE, '--work-dir', str(slurm)], MID, tmp,
+                        launcher='slurm')
     try:
         ttrain_cli.main([SMOKE, '--device', 'cpu', '--work-dir', str(one)])
     finally:
-        train_err = finish(train_two)
+        try:
+            train_err = finish(train_two)
+        finally:
+            finish(train_slurm)
     resumed.mkdir()
     shutil.copytree(two / 'ckpt_00000002', resumed / 'ckpt_00000002')
     # the same checkpoint tested on 2 ranks and on one, the boxes dumped
@@ -137,7 +166,7 @@ def runs(tmp_path_factory):
             finish(resume)
         finally:
             finish(test_two)
-    return dict(tmp=tmp, one=one, two=two, resumed=resumed,
+    return dict(tmp=tmp, one=one, two=two, resumed=resumed, slurm=slurm,
                 train_err=train_err)
 
 
@@ -183,6 +212,17 @@ def test_dp_resume_auto_is_bit_equal_to_the_uninterrupted_run(runs):
     same(state_of(runs['resumed'], 'ckpt_00000004'),
          state_of(runs['two'], 'ckpt_00000004'), 'state')
     assert (json.loads((runs['resumed'] / 'val_results.json').read_text())
+            == json.loads((runs['two'] / 'val_results.json').read_text()))
+
+
+def test_dp_slurm_launch_trains_what_the_pytorch_launch_trains(runs):
+    """The epoch through `--launcher slurm` (two tasks of a one-node step,
+    tcp:// at MASTER_PORT): both checkpoints and the val results equal
+    the `--launcher pytorch` run's, bit for bit."""
+    for ckpt in ('ckpt_00000002', 'ckpt_00000004'):
+        same(state_of(runs['slurm'], ckpt), state_of(runs['two'], ckpt),
+             ckpt)
+    assert (json.loads((runs['slurm'] / 'val_results.json').read_text())
             == json.loads((runs['two'] / 'val_results.json').read_text()))
 
 
@@ -332,7 +372,16 @@ def test_nccl_refuses_two_ranks_on_one_device(monkeypatch, tmp_path,
 
 @pytest.mark.parametrize('launcher', ['slurm', 'mpi'])
 @pytest.mark.parametrize('cli', [ttrain_cli, ttest, teval])
-def test_launchers_other_than_pytorch_raise(tmp_path, cli, launcher):
-    with pytest.raises(NotImplementedError, match=f'--launcher {launcher}'):
+def test_launchers_other_than_pytorch_raise(monkeypatch, tmp_path, cli,
+                                            launcher):
+    """`--launcher slurm` / `mpi` outside srun / mpirun: every CLI raises
+    naming the first variable it misses, before any process group
+    exists (no fallback to one process)."""
+    for k in ('SLURM_JOB_ID', 'OMPI_MCA_orte_hnp_uri'):
+        monkeypatch.delenv(k, raising=False)
+    first = {'slurm': 'SLURM_JOB_ID', 'mpi': 'OMPI_MCA_orte_hnp_uri'}
+    with pytest.raises(RuntimeError,
+                       match=f'--launcher {launcher}: .*{first[launcher]}'):
         cli.main([SMOKE, '--launcher', launcher, '--device', 'cpu',
                   '--work-dir', str(tmp_path)])
+    assert not torch.distributed.is_initialized()

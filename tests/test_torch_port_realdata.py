@@ -3,7 +3,10 @@
 On the JAX package's miniature RGB-D dataset (`tests/test_realdata_e2e.py::
 _make_mini_dataset`, files written by cv2) plus a matterport scan
 (depth shift 4000, a rotated axis alignment, multi-target and
-`tokens_positive_rebuild` utterances):
+`tokens_positive_rebuild` utterances) and a 3RScan scan (EmbodiedScan's
+`3rscan/<id>/sequence/frame-XXXXXX.{color.jpg,depth.pgm}`: 960x540 JPEG
+color, 224x172 16-bit PGM depth at shift 1000, a `depth_cam2img` of its
+own; the committed fixture frame and cv2-written variants of it):
 
 - the datasets' `data_list` (`MultiView3DGroundingDataset`,
   `EmbodiedScanDataset`, `RepeatDataset`) equal the JAX package's;
@@ -28,6 +31,10 @@ import json
 import logging
 import os
 import pickle
+import shutil
+from pathlib import Path
+
+import cv2
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +66,8 @@ BOX_TOL = dict(rtol=1e-5, atol=1e-6)
 EMA_RTOL = 1e-6
 EMA_ULPS = 1
 MATTERPORT = 'matterport3d/17DRP5sb8fy/region0'
+RSCAN = '3rscan/0cac7578-8d6f-2d13-8c2d-bfa7a04f8af3'
+FIXTURES = Path(__file__).resolve().parent / 'torch_port_images'
 EMA_HOOK = ("custom_hooks = [dict(type='EMAHook', ema_type='ExpMomentumEMA',"
             " momentum=0.0002, gamma=2000)]\n")
 
@@ -71,9 +80,50 @@ def two_threads():
     torch.set_num_threads(n)
 
 
-def make_dataset(root) -> str:
-    """The JAX test's mini dataset plus a matterport scan, written to
-    `mini_infos_ext.pkl` / `mini_vg_ext.json`."""
+def rscan_scan(root: str) -> dict:
+    """A 3RScan scan's info: three frames under `3rscan/<id>/sequence/` (the
+    committed 960x540 / 224x172 fixture frame, then cv2-written mirror and
+    darkened variants of it), the fixture's two cameras, its room's boxes,
+    a rotated axis alignment."""
+    rscan = json.loads((FIXTURES / 'manifest.json').read_text())['rscan']
+    seq = Path(root) / RSCAN / 'sequence'
+    seq.mkdir(parents=True)
+    color = cv2.imread(str(FIXTURES / rscan['image']))
+    depth = cv2.imread(str(FIXTURES / rscan['depth']), cv2.IMREAD_UNCHANGED)
+    images = []
+    for i in range(3):
+        stem = seq / f'frame-{i:06d}'
+        if i == 0:
+            shutil.copy(FIXTURES / rscan['image'], f'{stem}.color.jpg')
+            shutil.copy(FIXTURES / rscan['depth'], f'{stem}.depth.pgm')
+        else:
+            flip = (lambda a: a[:, ::-1]) if i == 1 else (lambda a: a)
+            cv2.imwrite(f'{stem}.color.jpg', flip(color) // i)
+            cv2.imwrite(f'{stem}.depth.pgm', np.ascontiguousarray(
+                flip(depth) + np.uint16(100 * i)))
+        pose = np.asarray(rscan['cam2global'], np.float64)
+        pose[:3, 3] += [0.05 * i, -0.03 * i, 0.0]
+        images.append({
+            'img_path': os.path.relpath(f'{stem}.color.jpg', root),
+            'depth_path': os.path.relpath(f'{stem}.depth.pgm', root),
+            'cam2global': pose})
+    c, s = np.cos(-0.3), np.sin(-0.3)
+    boxes = json.loads((FIXTURES / 'manifest.json').read_text())['boxes']
+    return {
+        'sample_idx': RSCAN,
+        'axis_align_matrix': np.array([[c, -s, 0, -0.1], [s, c, 0, 0.2],
+                                       [0, 0, 1, 0.0], [0, 0, 0, 1]]),
+        'cam2img': np.asarray(rscan['cam2img'], np.float64),
+        'depth_cam2img': np.asarray(rscan['depth_cam2img'], np.float64),
+        'images': images,
+        'instances': [{'bbox_3d': b, 'bbox_label_3d': j % 3, 'bbox_id': j}
+                      for j, b in enumerate(boxes)]}
+
+
+def make_dataset(root, rscan: bool = True) -> str:
+    """The JAX test's mini dataset plus a matterport scan and (with
+    `rscan`) a 3RScan scan, written to `mini_infos_ext.pkl` /
+    `mini_vg_ext.json` (the matterport utterances last)."""
     root = _make_mini_dataset(str(root))
     with open(os.path.join(root, 'mini_infos_train.pkl'), 'rb') as f:
         infos = pickle.load(f)
@@ -95,6 +145,14 @@ def make_dataset(root) -> str:
         {'bbox_3d': [0.2, 0.9, 1.4, 0.4, 0.4, 0.9, -0.2, 0.1, 0.0],
          'bbox_label_3d': 0, 'bbox_id': 3}]
     infos['data_list'].append(scan)
+    if rscan:
+        infos['data_list'].append(rscan_scan(root))
+        vg += [
+            {'scan_id': RSCAN, 'text': 'the bed by the table',
+             'target_id': 1, 'distractor_ids': [],
+             'tokens_positive': [[4, 7]]},
+            {'scan_id': RSCAN, 'text': 'the chairs', 'target_id': [0, 2],
+             'distractor_ids': [1], 'tokens_positive': [[4, 10], [4, 10]]}]
     vg += [
         {'scan_id': MATTERPORT, 'text': 'The bed and the chair',
          'target_id': [2, 0], 'distractor_ids': [],
@@ -176,7 +234,7 @@ def test_grounding_data_list_equals_jax(root, kw):
 def test_embodiedscan_and_repeat_datasets_equal_jax(root):
     for kw in (dict(), dict(test_mode=True)):
         port, ref = both_datasets(root, 'EmbodiedScanDataset', **kw)
-        assert len(port) == len(ref) == 3
+        assert len(port) == len(ref) == 4
         assert_same(port.data_list, ref.data_list)
     inner = dict(type='MultiView3DGroundingDataset', data_root=root,
                  ann_file='mini_infos_ext.pkl', vg_file='mini_vg_ext.json',
@@ -247,9 +305,9 @@ CASES = {
 }
 
 
-def case_input(root, kind):
+def case_input(root, kind, scan=MATTERPORT):
     port, _ = both_datasets(root)
-    item = dict(port.data_list[-1])   # the matterport scan
+    item = dict([d for d in port.data_list if d['scan_id'] == scan][-1])
     item['is_hard'] = item['ann_info']['is_hard']
     item['is_unique'] = item['ann_info']['is_unique']
     if kind == 'item':
@@ -279,6 +337,36 @@ def test_transform_equals_jax(root, name):
     assert_same(got, want, tol_keys=tol_keys)
     if name == 'ConvertRGBDToPoints_color':
         assert got['points'].shape[1] == 6
+
+
+def test_rscan_data_list_reads_pgm_depth_with_its_own_camera(root):
+    """The 3RScan scan's samples: shift 1000 (the non-Matterport branch),
+    PGM depth paths, the depth camera's intrinsics apart from the color
+    camera's; its frames decode as cv2 reads them (960x540 BGR, 224x172
+    uint16)."""
+    port, ref = both_datasets(root)
+    rs = [d for d in port.data_list if d['scan_id'] == RSCAN]
+    assert len(rs) == 2
+    assert_same(rs, [d for d in ref.data_list if d['scan_id'] == RSCAN])
+    for d in rs:
+        assert d['depth_shift'] == 1000.0
+        assert all(p.endswith('.depth.pgm') for p in d['depth_img_path'])
+        assert not np.array_equal(d['depth_cam2img'], d['cam2img'])
+    got, want = run_both(VIEW[:2], case_input(root, 'view', RSCAN))
+    assert got['img'].shape == (540, 960, 3)
+    assert got['depth_img'].shape == (172, 224)
+    assert got['depth_img'].dtype == np.uint16
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_rscan_transform_equals_jax(root, name):
+    """Each transform case of `test_transform_equals_jax` on the 3RScan
+    scan: its 224x172 PGM depth back-projected with `depth_cam2img`, its
+    960x540 colors sampled through `cam2img`."""
+    kind, transforms, tol_keys = CASES[name]
+    got, want = run_both(transforms, case_input(root, kind, RSCAN))
+    assert_same(got, want, tol_keys=tol_keys)
 
 
 @pytest.mark.parametrize('dim', [6, 7, 9])
