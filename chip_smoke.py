@@ -219,7 +219,22 @@ Phases (any failure exits non-zero before the final line):
      matplotlib is installed, else each frame's cloud through
      `export_ply` and its boxes through `LineMesh.save_ply` (the card's
      files against the CPU's: PNGs of the same size, PLY lines equal but
-     for a coordinate's last printed digit).
+     for a coordinate's last printed digit);
+ 22. the 2D ResNet past depth 50 and below it (`[resnet101]`,
+     `[resnet occ]`): (a) the flagship config with
+     `model.backbone.depth=101` at full width, flax's fresh weights: from
+     launch counts of 0 three float32 requests on `flagship_batch` (the
+     first captured, 2 and 3 timed, then the stages of one more), then
+     from 0 one bf16 remat AdamW step (`--amp` on the config's remat)
+     captured; every kernel call of the first request and of the step
+     held against its plain version; request ms, the 2D stage's device
+     ms and peak memory beside phase 5's ResNet-50; (b) the occupancy
+     config with `model.backbone.depth` 18, then 34, through
+     `tools/train.py` on phase 15's synthetic sets (one B=2 step, no
+     val), then one request on the step's batch on the card and, from
+     the same weights, on the CPU: logits within 1e-4 · (1 + max), the
+     labels equal wherever the top two logits are over twice the largest
+     logit difference apart; no kernel of csrc/ may launch.
 Every phase's lines also go to chiprun_out/chip_smoke.log. Then one
 `[conv]` line per sparse-conv kernel (forward, dfeats, dW, and
 their bf16 forms) and conv class (stem, stage i strided, stage i self,
@@ -243,7 +258,9 @@ phase 18a's (launches: three requests; times: the third's calls),
 `<kernel>:mink50` and `<kernel>:brick` phase 18c's and 18d's (launches:
 the two depth-50 or the two brick models' three forwards each; times:
 one forward of each), `<kernel>:dp` phase 19a's (launches and times:
-rank 0's first data-parallel step) in the same way); the last line is
+rank 0's first data-parallel step), `<kernel>:resnet101` phase 22a's
+(launches: three requests and the step; times: the first request's and
+the step's calls) in the same way); the last line is
 {"ok": true, "device": {...}}. Per-call details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1226,6 +1243,10 @@ def run() -> int:
     # 20. the structures and models/misc.py modules
     library = library_phase(smi, predict['req_ms'])
 
+    # 22. the 2D ResNet at depth 101 through the grounder, 18 and 34
+    # through the occupancy predictor
+    resnet = resnet_depth_phases(smi, predict)
+
     rows = {**predict['rows'], **train['rows'], **probe_rows, **bf16['rows']}
     table = conv_class_table(
         {k: rows[k] for k in ('sparse_conv', 'sparse_conv_dfeats',
@@ -1271,7 +1292,8 @@ def run() -> int:
                                PREDICT_KERNELS),
                               ('mink50', slice13['mink50'], MINK_KERNELS),
                               ('brick', slice13['brick'], MINK_KERNELS),
-                              ('dp', dp, DP_KERNELS)):
+                              ('dp', dp, DP_KERNELS),
+                              ('resnet101', resnet, RUNNER_KERNELS)):
         for name in names:
             entry = summarize(name, out['rows'][name], out['counts'][name],
                               out['per_step'].get(name, 0))
@@ -1280,7 +1302,7 @@ def run() -> int:
     for e in kernels:
         phase = e['name'].partition(':')[2]
         if phase in ('detection', 'tta', 'baseline', 'roberta', 'mink50',
-                     'brick', 'dp'):
+                     'brick', 'dp', 'resnet101'):
             log(f'[{phase}] kernels line: {e["name"]} {e["wrapper_calls"]} '
                 f'calls in the run ({e["launches"]} launches), '
                 f'{e["calls_checked"]} checked summing {e["ms"]:.3f} ms '
@@ -1310,6 +1332,9 @@ def run() -> int:
               'brick_calls': slice13['brick']['rows'],
               'dp': dp['summary'], 'dp_step_calls': dp['rows'],
               'library': library, 'viz': viz,
+              'resnet101': resnet['summary'],
+              'resnet101_calls': resnet['rows'],
+              'resnet_occupancy': resnet['occupancy'],
               'bf16_request_calls': bf16['request_rows'],
               'bf16_train_step_calls': bf16['path_rows'],
               'conv_autograd': train['conv_autograd'],
@@ -2482,13 +2507,14 @@ OCC_DATASET = dict(type='SyntheticOccupancyDataset', n_points=100_000,
 
 def occupancy_argv(work: Path, length: int, mtype: str = None,
                    checkpoint: str = None, batch_size: int = 2,
-                   val_batch: int = 2, flags=()):
+                   val_batch: int = 2, flags=(), options=()):
     """tools/train.py's arguments for phase 15 (tools/test.py's with
     `checkpoint`): the occupancy config as it is, with loaders at full
     scale (the config has none): `batch_size` (2: phase 15's), `length`
     train samples, 2 val samples in batches of `val_batch`, the prefetch
     thread; `mtype` swaps the model's type; `flags` go before the
-    options."""
+    options, `options` (phase 22's) after them, where a repeated key
+    wins."""
     def loader(ds, shuffle, bs):
         return dict(batch_size=bs, num_workers=0, dataset=ds,
                     sampler=dict(type='DefaultSampler', shuffle=shuffle))
@@ -2501,6 +2527,7 @@ def occupancy_argv(work: Path, length: int, mtype: str = None,
                  'log_interval=1']
     if mtype:
         opts.append(f'model.type={mtype!r}')
+    opts += list(options)
     root = Path(__file__).resolve().parent
     return ([str(root / OCC_CONFIG)] + ([checkpoint] if checkpoint else [])
             + ['--work-dir', str(work), *flags, '--cfg-options', *opts])
@@ -4364,6 +4391,247 @@ def viz_phase(smi, data_root: Path):
                 step_ms=card_ms, cpu_step_ms=cpu_ms, backproject_ms=bp_ms,
                 final_points=n_pts, max_float32_steps=worst,
                 explorer=explorer, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
+# 22. the 2D ResNet at depth 101 (the grounder) and 18 / 34 (occupancy)
+# --------------------------------------------------------------------------
+OCC_DEPTHS = (18, 34)
+OCC_CARD_RTOL = 1e-4     # card vs CPU logits, as `occ_small_input_check`
+
+
+def resnet101_phase(flagship):
+    """Phase 22a: the flagship config with `model.backbone.depth=101` at
+    full width, flax's fresh weights: from launch counts of 0 three
+    float32 requests (the first captured, the third's stages timed), then
+    from 0 again one bf16 remat AdamW step (`--amp` on the config's
+    remat) captured; every kernel call of the request and of the step
+    held against its plain version; request ms, the 2D stage's device ms
+    and peak memory beside phase 5's ResNet-50."""
+    from proxytransformation_torch.data.synthetic import flagship_batch
+    from proxytransformation_torch.engine.runner import (apply_amp,
+                                                         build_model_from_cfg)
+    from proxytransformation_torch.engine.train import (
+        build_lr_schedule, build_optimizer, make_train_step)
+    from proxytransformation_torch.models.detector import batch_to_device
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.utils.config import Config
+    repo = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(str(repo / FLAGSHIP_CONFIG))
+    cfg['model']['backbone'] = dict(cfg['model']['backbone'], depth=101)
+
+    def build(model_cfg):
+        model = build_model_from_cfg(dict(model_cfg), device='cuda')
+        require(model.backbone.depth == 101
+                and len(model.backbone.layer3) == 23
+                and model.backbone.out_channels == (64, 128, 256, 512),
+                'phase 22 did not build the ResNet-101 grounder')
+        return model
+
+    model = flax_init_(build(cfg['model']), torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    dev = torch.device('cuda')
+    batches = [batch_to_device(flagship_batch(seed=r), dev) for r in range(3)]
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    req_ms, req_host_ms, calls = [], [], {}
+    with torch.no_grad():
+        for r, batch in enumerate(batches):
+            out = {}
+            fn = lambda: out.update(model(batch))  # noqa: E731
+            if r == 0:
+                calls = capture_kernel_calls(fn)
+            else:
+                d, h = cuda_ms(fn, 1)
+                req_ms += d
+                req_host_ms += h
+            for k in ('bboxes_3d', 'scores_3d'):
+                require(bool(torch.isfinite(out[k]).all()),
+                        f'ResNet-101 request {r}: non-finite {k}')
+            require(out['bboxes_3d'].shape == (2, out['scores_3d'].shape[1],
+                                               9), 'boxes of another shape')
+            require(bool(out['query_mask'].any()), 'no valid query')
+        req_counts = _cuda.launch_counts()
+        req_peak = torch.cuda.max_memory_allocated() / 2**30
+        stages = stage_breakdown(model, batches[-1])
+    per_request = {k: len(calls.get(k, ())) for k in RUNNER_KERNELS}
+    for name in PREDICT_KERNELS:
+        require(per_request[name] > 0 and
+                req_counts[name] == 3 * per_request[name],
+                f'{name}: {req_counts[name]} launches in the ResNet-101 '
+                f'requests, {per_request[name]} captured a request')
+    weights = model.state_dict()
+    del model, batches
+    torch.cuda.empty_cache()
+
+    # the bf16 remat step (`--amp` on the config's remat=True), from the
+    # same weights
+    apply_amp(cfg)
+    model = build(cfg['model'])
+    model.load_state_dict(weights)
+    del weights
+    require(model.remat and model.remat_painting
+            and model.compute_dtype == 'bfloat16', 'not the --amp model')
+    model.train()
+    step = make_train_step(model, build_optimizer(model),
+                           build_lr_schedule(5e-4, steps_per_epoch=1))
+    step_batch = batch_to_device(flagship_batch(seed=0, with_targets=True),
+                                 dev)
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = {}
+    t0 = time.perf_counter()
+    step_calls = capture_kernel_calls(lambda: metrics.update(step(
+        step_batch, torch.Generator(device=dev).manual_seed(0))))
+    step_s = time.perf_counter() - t0
+    step_counts = _cuda.launch_counts()
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    model.eval()
+    require(all(np.isfinite(float(v)) for v in metrics.values()),
+            f'ResNet-101 bf16 step: {metrics}')
+    per_step = {k: len(step_calls.get(k, ())) for k in RUNNER_KERNELS}
+    for name in RUNNER_KERNELS:
+        require(per_step[name] > 0 and step_counts[name] == per_step[name],
+                f'{name}: {step_counts[name]} launches in the ResNet-101 '
+                f'bf16 step, {per_step[name]} captured')
+    joined = {k: calls.get(k, []) + step_calls.get(k, [])
+              for k in RUNNER_KERNELS}
+    del calls, step_calls, model, step, step_batch
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        rows = check_calls(joined, RUNNER_KERNELS,
+                           'the ResNet-101 request and bf16 step')
+    del joined
+    counts = {k: req_counts[k] + step_counts[k] for k in RUNNER_KERNELS}
+    log(f'[resnet101] the flagship config with model.backbone.depth=101 '
+        f'({n_params} parameters, flax init): float32 requests (B=2, 100k '
+        f'points, 20 views at 480x480) 2 and 3: '
+        + ', '.join(f'{h:.1f} ms ({d:.1f} ms of CUDA events)'
+                    for h, d in zip(req_host_ms, req_ms))
+        + ' (request 1 captured); phase 5\'s ResNet-50 requests: '
+        + ', '.join(f'{d:.1f}' for d in flagship['req_ms'])
+        + f' ms of CUDA events; 2D stage {stages["backbone"]:.2f} ms of a '
+        f'{stages["request"]:.1f} ms request (ResNet-50: '
+        f'{flagship["stages"]["backbone"]:.2f} of '
+        f'{flagship["stages"]["request"]:.1f}); peak {req_peak:.2f} GiB '
+        f'(ResNet-50: {flagship["peak"]:.2f}); one bf16 remat AdamW step '
+        f'{step_s * 1e3:.1f} ms (captured), total loss '
+        f'{float(metrics["total_loss"]):.5f}, peak {step_peak:.2f} GiB; '
+        f'kernel calls a request {per_request}, the step {per_step}; phase '
+        f'22a in {time.perf_counter() - t_phase:.1f} s')
+    summary = dict(request_ms=req_ms, request_host_ms=req_host_ms,
+                   flagship_request_ms=flagship['req_ms'], stages=stages,
+                   flagship_stages=flagship['stages'],
+                   request_peak_gib=req_peak,
+                   flagship_peak_gib=flagship['peak'], step_s=step_s,
+                   step_peak_gib=step_peak, per_request=per_request,
+                   per_step=per_step,
+                   losses={k: float(v) for k, v in metrics.items()},
+                   counts=counts, seconds=time.perf_counter() - t_phase)
+    return dict(rows=rows, counts=counts, per_step=per_step,
+                summary=summary)
+
+
+def occ_depth_phase(depth):
+    """Phase 22b: the occupancy config with `model.backbone.depth=depth`
+    on phase 15's synthetic sets through tools/train.py (one B=2 step, no
+    val: `val_interval` past the epoch); then one request on the step's
+    batch on the card and, from the same weights, on the CPU: logits at
+    every scale within OCC_CARD_RTOL · (1 + max|x|), the labels equal
+    wherever the CPU logits' top two are more than twice the largest
+    logit difference apart (elsewhere a label may flip)."""
+    from proxytransformation_torch.engine.runner import build_model_from_cfg
+    from proxytransformation_torch.ops import _cuda
+    from proxytransformation_torch.tools import train as train_cli
+    from proxytransformation_torch.utils.config import Config
+    repo = Path(__file__).resolve().parent
+    work = repo / 'build' / f'chip_smoke_occ{depth}'
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    first = {}
+    with capturing_first_step(first):
+        _cuda.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = train_cli.main(occupancy_argv(
+            work, 2, options=(f'model.backbone.depth={depth}',
+                              'train_cfg.val_interval=9')))
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    model = runner.model
+    require(model.backbone.depth == depth
+            and model.feat_proj.in_features == 16
+            and len(runner.train_log) == 1,
+            f'phase 22 occupancy at depth {depth}: {runner.train_log}')
+    losses = runner.train_log[0]
+    require(all(np.isfinite(v) for v in losses.values()),
+            f'occupancy at depth {depth}: losses {losses}')
+    require(not any(counts.values()) and not any(first['calls'].values()),
+            f'a kernel of csrc/ launched at occupancy depth {depth}')
+    batch = first['batch']
+    with torch.no_grad():
+        req_ms, req_host_ms = cuda_ms(lambda: model(batch), 2)
+        got = model.logits(batch)
+        got_occ = model.bbox_head.predict(got).cpu()
+        got = [x.cpu() for x in got]
+    cfg = dict(Config.fromfile(str(repo / OCC_CONFIG))['model'])
+    cfg['backbone'] = dict(cfg['backbone'], depth=depth)
+    cpu = build_model_from_cfg(cfg, device='cpu')
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_batch = {k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in batch.items()}
+    del runner, model, first, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu.logits(cpu_batch)
+        want_occ = cpu.bbox_head.predict(want)
+    cpu_s = time.perf_counter() - t0
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        errs.append(float((g - w).abs().max()))
+        require(errs[-1] <= OCC_CARD_RTOL * (1 + float(w.abs().max())),
+                f'occupancy depth {depth}, scale {i}: card and CPU logits '
+                f'differ by {errs[-1]}')
+    # with every logit within errs[0] of the CPU's, a label can differ
+    # only where the CPU's top two are within twice that
+    top2 = want[0].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * errs[0]
+    require(bool(clear.any()) and torch.equal(got_occ[clear],
+                                              want_occ[clear]),
+            f'occupancy depth {depth}: labels differ off the near ties')
+    n_differ = int((got_occ != want_occ).sum())
+    log(f'[resnet occ] {OCC_CONFIG} with model.backbone.depth={depth}: one '
+        f'step, a checkpoint in {wall:.1f} s, losses '
+        + ' '.join(f'{k} {losses[k]:.5f}' for k in (
+            'loss_occ_0', 'loss_occ_1', 'loss_occ_2', 'grad_norm'))
+        + f'; a request (B=2): '
+        + ', '.join(f'{h:.1f} ms ({d:.1f} ms of CUDA events)'
+                    for h, d in zip(req_host_ms, req_ms))
+        + f'; peak {peak:.2f} GiB; card vs CPU logits max abs err by scale '
+        f'{[f"{e:.3g}" for e in errs]}, labels equal at all '
+        f'{int(clear.sum())} of {clear.numel()} voxels whose top two '
+        f'logits are over twice that apart; {n_differ} labels differ in all '
+        f'(CPU request {cpu_s:.1f} s); in {time.perf_counter() - t_phase:.1f} '
+        f's')
+    return dict(wall_s=wall, losses=losses, request_ms=req_ms,
+                request_host_ms=req_host_ms, peak_gib=peak,
+                card_cpu_logit_err=errs, clear_voxels=int(clear.sum()),
+                labels_differ=n_differ, cpu_request_s=cpu_s)
+
+
+def resnet_depth_phases(smi, flagship):
+    """Phase 22: ResNet-101 through the grounder, ResNet-18 and -34
+    through the occupancy predictor."""
+    t_phase = time.perf_counter()
+    out = resnet101_phase(flagship)
+    out['occupancy'] = {d: occ_depth_phase(d) for d in OCC_DEPTHS}
+    log(f'[phase 22] in {time.perf_counter() - t_phase:.1f} s ({smi})')
+    return out
 
 
 STAGES = ('text_encoder', 'backbone', 'preshape', 'backbone_3d', 'neck_3d',

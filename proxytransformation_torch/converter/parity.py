@@ -1,7 +1,8 @@
 """The port's side of the activation-parity harness.
 
 `record_activations(model, batch)` runs one predict request of a port
-grounder (or a standalone `MinkResNet` on a `SparseLevel`) with forward
+grounder (or a standalone `MinkResNet` on a `SparseLevel`, or a
+standalone 2D `ResNet` on its NHWC images) with forward
 hooks on its modules and returns the npz contract that the JAX package's
 `converter/parity.py::check_parity` replays (its docstring, :17-61):
 
@@ -23,7 +24,9 @@ hooks on its modules and returns the npz contract that the JAX package's
 
 Sparse coordinates are MinkowskiEngine's (b, x, y, z) in finest-voxel
 units, and rows a level masks are dropped, as ME holds no such rows. A
-standalone MinkResNet records its two families only.
+standalone MinkResNet records its two families only, a standalone
+ResNet (any depth: the harness reads it off the converted tree) the
+`backbone` family only.
 """
 from __future__ import annotations
 
@@ -93,6 +96,12 @@ class _Recorder:
                 self.first(f'backbone_3d.out{i}_feats', _np(lvl.F))
         self.hook(mod, fn)
 
+    def backbone(self, mod, args, out):
+        """The 2D ResNet's images and its four stages, NCHW."""
+        self.first('backbone.in0', _nchw(args[0]))
+        for i, o in enumerate(out):
+            self.first(f'backbone.out{i}', _nchw(o))
+
     def close(self):
         for h in self.handles:
             h.remove()
@@ -101,13 +110,20 @@ class _Recorder:
 @torch.no_grad()
 def record_activations(model: nn.Module, batch) -> Dict[str, np.ndarray]:
     """The npz contract of one eval forward: `model` a port grounder and
-    `batch` its batch dict (tensors on the model's device), or `model` a
-    `MinkResNet` and `batch` its level-0 `SparseLevel`."""
+    `batch` its batch dict (tensors on the model's device), `model` a
+    `MinkResNet` and `batch` its level-0 `SparseLevel`, or `model` a 2D
+    `ResNet` and `batch` its (N, H, W, 3) images."""
+    from ..models.resnet import ResNet
     from ..models.sparse_resnet import MinkResNet
     rec = _Recorder()
     try:
         if isinstance(model, MinkResNet):
             rec.backbone_3d(model)
+            model(batch)
+            return rec.acts
+        rec.hook(model if isinstance(model, ResNet) else model.backbone,
+                 rec.backbone)
+        if isinstance(model, ResNet):
             model(batch)
             return rec.acts
         for name in ('text_feat_map', 'text_encoder'):
@@ -118,12 +134,6 @@ def record_activations(model: nn.Module, batch) -> Dict[str, np.ndarray]:
             for name in ('simple_encoder', 'get_offsets'):
                 rec.hook(getattr(model.preshape, name),
                          rec.io(f'preshape.{name}'))
-
-        def backbone(mod, args, out):
-            rec.first('backbone.in0', _nchw(args[0]))
-            for i, o in enumerate(out):
-                rec.first(f'backbone.out{i}', _nchw(o))
-        rec.hook(model.backbone, backbone)
         rec.backbone_3d(model.backbone_3d)
 
         def decoder(mod, args, kwargs, out):

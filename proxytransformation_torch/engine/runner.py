@@ -46,7 +46,7 @@ import logging
 import os
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +65,7 @@ from ..models.init import flax_init_
 from ..models.misc import ExpMomentumEMA
 from ..models.occ import (DenseFusionOccPredictor, EmbodiedOccPredictor,
                           occ_multiscale_supervision)
+from ..models.resnet import ResNet, check_img_depth_for_neck
 from ..models.tta import merge_aug_bboxes_3d
 from ..ops.nms3d import multiclass_nms
 from ..parallel.dist import barrier, broadcast_state, context
@@ -193,6 +194,14 @@ def _check_fixed(cfg: Dict[str, Any], fixed: Dict[tuple, Any]) -> None:
                 f'{want!r} only')
 
 
+def _painted_widths(kw: Dict[str, Any]) -> List[int]:
+    """The painted levels' widths: MinkResNet's 64/128/256/512 plus the
+    2D ResNet's stage widths at the model's depth and base."""
+    img = ResNet.stage_channels(kw.get('img_depth', 50),
+                                kw.get('img_base_channels', 16))
+    return [m + c for m, c in zip((64, 128, 256, 512), img)]
+
+
 def _build_detection_model(model_cfg: Dict[str, Any],
                            device=None) -> Embodied3DDetector:
     """`Embodied3DDetector` of a detection config
@@ -252,10 +261,9 @@ def _build_detection_model(model_cfg: Dict[str, Any],
                                                              0.01):
         raise ValueError('bbox_head.voxel_size differs from the model\'s '
                          'voxel_size, which the head uses')
+    check_img_depth_for_neck(kw.get('img_depth', 50), 'Embodied3DDetector')
     if 'in_channels' in head:
-        base = kw.get('img_base_channels', 16)
-        derived = [m + base * 4 * 2 ** i
-                   for i, m in enumerate((64, 128, 256, 512))]
+        derived = _painted_widths(kw)
         if list(head['in_channels']) != derived:
             raise ValueError(f'bbox_head.in_channels {head["in_channels"]} '
                              f'differ from the derived {derived}')
@@ -358,15 +366,14 @@ def build_model_from_cfg(model_cfg: Dict[str, Any], device=None):
                                                             0.01):
         raise ValueError('neck_3d.voxel_size differs from the model\'s '
                          'voxel_size, which the neck uses')
+    cls = (SparseFeatureFusion3DGrounder if baseline
+           else SparseFeatureFusion3DGrounderPreshape)
+    check_img_depth_for_neck(kw.get('img_depth', 50), cls.__name__)
     if 'in_channels' in neck:
-        base = kw.get('img_base_channels', 16)
-        derived = [m + base * 4 * 2 ** i
-                   for i, m in enumerate((64, 128, 256, 512))]
+        derived = _painted_widths(kw)
         if list(neck['in_channels']) != derived:
             raise ValueError(f'neck_3d.in_channels {neck["in_channels"]} '
                              f'differ from the derived {derived}')
-    cls = (SparseFeatureFusion3DGrounder if baseline
-           else SparseFeatureFusion3DGrounderPreshape)
     return cls(**kw, device=device)
 
 

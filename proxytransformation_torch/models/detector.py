@@ -42,7 +42,7 @@ from .grounding_head import GroundingHead
 from .layers import linear, random_init_
 from .point_fusion import apply_inverse_aug, batch_point_sample
 from .preshape import ProxyTransformationNormReverse
-from .resnet import ResNet
+from .resnet import ResNet, check_img_depth_for_neck
 from .sparse_neck import MinkNeck
 from .sparse_resnet import MinkResNet, check_backbone3d_depth
 from .text_encoder import CLIPTextEncoder
@@ -80,7 +80,10 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
     at its published size, and `text_feat_map` reads its width. The tower
     is frozen (no gradient, no update). MinkResNet depths 50 and 101 are
     refused: the neck takes the 64/128/256/512 channels of the basic
-    stages (as in the JAX package, which cannot build them either).
+    stages (as in the JAX package, which cannot build them either). The
+    2D ResNet (`img_depth`) is 50 or 101: 18 and 34 are refused, as the
+    neck's widths assume the bottleneck's expansion of 4 (the JAX
+    grounder fails at the neck's sum there).
     """
 
     # the baseline subclass builds no preshape module
@@ -110,6 +113,7 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
             raise ValueError(f'compute_dtype must be one of '
                              f'{sorted(_COMPUTE_DTYPES)}, got {compute_dtype!r}')
         check_backbone3d_depth(backbone3d_depth)
+        check_img_depth_for_neck(img_depth, type(self).__name__)
         cdt = _COMPUTE_DTYPES[compute_dtype]
         dev = resolve_device(device)
         self.compute_dtype = compute_dtype
@@ -138,12 +142,12 @@ class SparseFeatureFusion3DGrounderPreshape(nn.Module):
                     grid_size=grid_size, text_blocks=text_blocks,
                     img_blocks=img_blocks,
                     dynamic_drop_radio=dynamic_drop_radio, num_sub=num_sub,
-                    input_dim=img_base_channels * 32,
+                    input_dim=self.backbone.out_channels[-1],
                     img_spacial_dim=img_spacial_dim, dtype=cdt)
             self.backbone_3d = MinkResNet(backbone3d_depth, 3,
                                           sparse_capacities, cdt,
                                           self.remat)
-            img_chans = [img_base_channels * 4 * 2 ** i for i in range(4)]
+            img_chans = self.backbone.out_channels
             mink_chans = [64, 128, 256, 512]
             self.neck_3d = MinkNeck(
                 1, tuple(m + i for m, i in zip(mink_chans, img_chans)),

@@ -30,7 +30,7 @@ from ..device import full_float32, resolve_device
 from ..ops.sparse import voxelize_points
 from .fcaf3d_head import FCAF3DHead
 from .point_fusion import apply_inverse_aug, batch_point_sample
-from .resnet import ResNet
+from .resnet import ResNet, check_img_depth_for_neck
 from .sparse_resnet import MinkResNet, check_backbone3d_depth
 
 
@@ -39,7 +39,10 @@ class Embodied3DDetector(nn.Module):
     (configs/detection/embodied-det3d-resnet50.py), float32 only.
     `device=None` builds it on the card and raises when there is none;
     pass `device='cpu'` for the plain PyTorch path. `rot_param='ortho6d'`
-    gives the head of `FCAF3DHeadRotMat` (12 regression outputs)."""
+    gives the head of `FCAF3DHeadRotMat` (12 regression outputs).
+    `img_depth` is 50 or 101: the head's widths assume the bottleneck's
+    expansion of 4, and depths 18 and 34 raise (the JAX detector fails
+    at the head's sum there)."""
 
     def __init__(self, voxel_size: float = 0.01, n_points: int = 100_000,
                  num_classes: int = 284, img_base_channels: int = 16,
@@ -54,13 +57,14 @@ class Embodied3DDetector(nn.Module):
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
         check_backbone3d_depth(backbone3d_depth)
+        check_img_depth_for_neck(img_depth, type(self).__name__)
         self.voxel_size = voxel_size
         self.n_points = n_points
         self.voxel_extent = tuple(voxel_extent)
-        img_chans = [img_base_channels * 4 * 2 ** i for i in range(4)]
         mink_chans = [64, 128, 256, 512]
         with torch.device(resolve_device(device)):
             self.backbone = ResNet(img_depth, img_base_channels)
+            img_chans = self.backbone.out_channels
             self.backbone_3d = MinkResNet(backbone3d_depth, 3,
                                           sparse_capacities)
             self.bbox_head = FCAF3DHead(

@@ -5,7 +5,7 @@ Counterpart of proxytransformation_tpu/models/occ.py (reference
 embodied_occ.py:25-455, dense_fusion_occ.py:26-467,
 imvoxel_occ_head.py:19-184, imvoxel_neck.py:8-143, occ_loss.py:7-141):
 
-    imgs (B,V,H,W,3) ──ResNet-50, stage 1──► feat_proj ──┐
+    imgs (B,V,H,W,3) ──ResNet, stage 1──► feat_proj ──┐
     voxel centres (X,Y,Z) ──project, bilinear sample, mean over views──►
     volume (B,C,X,Y,Z) [+ points ──point_proj──► dense scatter (mean)]
         ──IndoorImVoxelNeck──► 3 scales ──ImVoxelOccHead──► logits
@@ -207,7 +207,8 @@ class EmbodiedOccPredictor(nn.Module):
     """ImVoxelNet-style occupancy predictor; defaults are the JAX model's
     (the occupancy config sets 81 classes, neck 128). `device=None`
     builds it on the card and raises when there is none; pass
-    `device='cpu'` for the CPU."""
+    `device='cpu'` for the CPU. `img_depth` is any of the 2D ResNet's
+    (18, 34, 50, 101): `feat_proj` reads its first stage's width."""
 
     fuse_points = False
 
@@ -224,7 +225,8 @@ class EmbodiedOccPredictor(nn.Module):
         self.num_classes = num_classes
         with torch.device(resolve_device(device)):
             self.backbone = ResNet(img_depth, img_base_channels)
-            self.feat_proj = nn.Linear(img_base_channels * 4, neck_channels)
+            self.feat_proj = nn.Linear(self.backbone.out_channels[0],
+                                       neck_channels)
             self.neck_3d = IndoorImVoxelNeck(neck_channels, neck_channels)
             self.bbox_head = ImVoxelOccHead(neck_channels, num_classes,
                                             use_semantic)

@@ -1032,3 +1032,23 @@ def test_bottleneck_convs_on_card(gen):
         assert torch.equal(g.keys.cpu(), w.keys)
         err = float((g.feats.cpu() - w.feats).abs().max())
         assert err <= 1e-4 * (1 + float(w.feats.abs().max())), err
+
+
+@pytest.mark.parametrize('depth', [18, 101])
+def test_resnet_depths_on_card(gen, depth):
+    """The 2D ResNet of basic blocks (18) and of 33 bottlenecks (101) on
+    the card against the same module's CPU path on the same weights and
+    images, TF32 off: every stage within 1e-4 · (1 + max)."""
+    from proxytransformation_torch.models.init import flax_init_
+    from proxytransformation_torch.models.resnet import ResNet
+    cpu = ResNet(depth, 16)
+    flax_init_(cpu, torch.Generator().manual_seed(depth))
+    card = ResNet(depth, 16).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 224, 224, 3), generator=gen, device='cuda')
+    with torch.no_grad():
+        got = card(x)
+        want = cpu(x.cpu())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g.cpu(), w)
